@@ -8,22 +8,38 @@ fails.
 
 Phases:
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels from ``pointvs_tpu_torch/ops/csrc``, one nvcc
-   process per source, all started together;
-3. kernels: each kernel (K1 segment_sum_sorted; K2
-   softmax_aggregate_sorted in softmax and sigmoid mode) against its plain
-   PyTorch version on the card, at a bench shape (N=14336 nodes,
-   ~156k edges from a seeded degree distribution) and at edge cases;
-   median kernel time by CUDA events with L2 flushed before each launch,
-   the plain version's time, one PyTorch library call's time where one
-   computes the same function (yardstick only), and the least time the
-   card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s);
-4. serving: 64 poses (seeded rigid perturbations of the test ligand in
-   its pocket) scored through ``pointvs_tpu_torch.inference`` at batch 32
+2. build: every CUDA source in ``pointvs_tpu_torch/ops/csrc``, one nvcc
+   process per source, all started together (ptxas register and spill
+   lines are printed);
+3. kernels: K1 segment_sum_sorted and K2 softmax_aggregate_sorted (softmax
+   and sigmoid mode) against their plain PyTorch versions on the card, at
+   a bench shape (N=14336 nodes, ~156k edges from a seeded degree
+   distribution) and at edge cases;
+4. fused kernels: K3 fused_edge_forward and K4 fused_edge_backward against
+   their plain versions at the bench shape (N=14336, ~160k real of 218,624
+   edges, K=32) and at edge cases (every attention mode with the edge
+   residual on and off, empty and fully masked senders, a padding tail,
+   E < 128, one block of senders, K=16); K4 run twice must give identical
+   bits. For every kernel: median time by CUDA events with L2 flushed
+   before each launch, the plain version's time, one PyTorch library call's
+   time where one computes the same function (yardstick only), and the
+   least time the card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s);
+5. serving: 64 poses (seeded rigid perturbations of the test ligand in
+   its pocket) scored at batch 32 through ``pointvs_tpu_torch.inference``
    for three models (reference-default flags at 3 layers, the README's
-   6-layer softmax-attention model, sigmoid attention at 3 layers). Kernel
-   launch counts must equal layers x batches; 64 finite rows must be
-   written; scores must match a ``--device cpu`` run within 1e-4.
+   6-layer softmax-attention model, sigmoid attention at 3 layers), and
+   the 6-layer model once more through ``make_eval_step(use_fused=True)``
+   (K3 in every layer). Kernel launch counts must equal layers x batches;
+   64 finite rows must be written; scores must match a ``--device cpu``
+   run (and the fused scores the module path's) within 1e-4;
+6. training: the ``Trainer`` takes 5 steps on the README 6-layer model
+   (k=32, batch 32) on the module path (K1/K2 forward and backward) and on
+   the fused path (K3 forward, K4 backward). Launch counts per path; each
+   loss trajectory against a CPU run, and the two paths against each
+   other, within atol 1e-4 / rtol 1e-5; two identical fused backward
+   passes give identical parameter gradients; the saved checkpoint reloads
+   to the same scores; step time by CUDA events and each path's profiled
+   kernel share.
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -47,7 +63,12 @@ SEED = 0
 K1_SOURCE = 'pointvs_tpu_torch/ops/csrc/segment_kernels.cu'
 K1_REPLACES = 'pointvs_tpu/ops/pallas/segment_kernels.py:264'
 K2_REPLACES = 'pointvs_tpu/ops/pallas/segment_kernels.py:188'
+K3_SOURCE = 'pointvs_tpu_torch/ops/csrc/fused_egnn.cu'
+K3_REPLACES = 'pointvs_tpu/ops/pallas/fused_egnn.py:205'
+K4_SOURCE = 'pointvs_tpu_torch/ops/csrc/fused_egnn_bwd.cu'
+K4_REPLACES = 'pointvs_tpu/ops/pallas/fused_egnn_bwd.py:260'
 TOL = dict(atol=1e-5, rtol=1e-5)
+TRAJ_TOL = dict(atol=1e-4, rtol=1e-5)   # the JAX suite's trajectory gate
 
 
 class PhaseError(RuntimeError):
@@ -222,6 +243,162 @@ def phase_kernels(torch, np):
 
 
 # ----------------------------------------------------------------- 4
+MODES = ('none', 'sigmoid', 'tanh', 'relu', 'silu', 'softmax')
+
+
+def make_edge_pass(np, rng, n, k, mean_degree, pad, residual, holes=True):
+    """Edge-major inputs and cotangents of one fused edge pass: sorted
+    senders with a padding tail (sender == n); with ``holes``, empty and
+    fully masked senders; 5% masked edges; NaN canaries in ``prev`` where
+    the mask is 0."""
+    deg = rng.poisson(mean_degree, n)
+    if holes:
+        deg[::9] = 0
+        deg[n - n // 10:] = 0
+    senders = np.repeat(np.arange(n), deg)
+    senders = np.concatenate([senders, np.full(pad, n)]).astype(np.int32)
+    e = len(senders)
+    mask = (senders < n).astype(np.float32)
+    mask[rng.random(e) < 0.05] = 0.0
+    if holes:
+        mask[(senders % 13 == 5) & (senders < n)] = 0.0
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    attr = np.eye(3)[rng.integers(0, 3, e)]
+    case = dict(
+        h=f32(rng.standard_normal((n, k))),
+        h_dst=f32(rng.standard_normal((e, k))),
+        extras=f32(np.concatenate([rng.random((e, 1)) * 16, attr], 1)),
+        mask=mask, senders=senders,
+        prev=f32(np.where(mask[:, None] > 0,
+                          rng.standard_normal((e, k)), np.nan))
+        if residual else None)
+    scale = lambda fan: 1 / np.sqrt(fan)  # noqa: E731
+    params = dict(
+        w1=rng.uniform(-1, 1, (k, 2 * k + 4)) * scale(2 * k + 4),
+        b1=rng.uniform(-0.3, 0.3, k), w2=rng.uniform(-1, 1, (k, k)) * scale(k),
+        b2=rng.uniform(-0.3, 0.3, k),
+        cw1=rng.uniform(-1, 1, (k, k)) * scale(k),
+        cb1=rng.uniform(-0.3, 0.3, k), cw2=rng.uniform(-1, 1, k) * scale(k),
+        attw=rng.uniform(-1, 1, k) * scale(k),
+        attb=rng.uniform(-0.3, 0.3, 1))
+    case['params'] = {name: f32(v) for name, v in params.items()}
+    cot = dict(d_agg=f32(rng.standard_normal((n, k)) * 0.1),
+               d_phi=f32(rng.standard_normal(e)),
+               d_att=f32(rng.standard_normal(e)),
+               d_msg=f32(rng.standard_normal((e, k)) * 0.1)
+               if residual else None)
+    return case, cot
+
+
+def _to(torch, dev, tree):
+    move = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
+    return {key: ({p: move(a) for p, a in v.items()} if isinstance(v, dict)
+                  else move(v)) for key, v in tree.items()}
+
+
+def k3_work(real, e, n, k, residual):
+    """(bytes, flops) of one K3 call: inputs read once, outputs written
+    once, the edge and coordinate MLPs of every real edge."""
+    nbytes = 4 * (n * k + real * (k + 5) + e + (real * k if residual else 0)
+                  + n * k + e * (k + 2))
+    flops = real * (2 * k * (2 * k + 4) + 4 * k * k + 8 * k)
+    return nbytes, flops
+
+
+def k4_work(real, e, n, k, residual):
+    """(bytes, flops) of one K4 call: the recomputed forward plus, for each
+    of the three weight matrices, an outer product and a transposed
+    product."""
+    nbytes = 4 * (2 * n * k + real * (k + 7) + e
+                  + (3 * real * k if residual else 0) + e * (2 * k + 1))
+    flops = 3 * real * 2 * (k * (2 * k + 4) + 2 * k * k) + real * 24 * k
+    return nbytes, flops
+
+
+def phase_fused_kernels(torch, np):
+    from pointvs_tpu_torch.ops import fused_egnn as k3
+    from pointvs_tpu_torch.ops import fused_egnn_bwd as k4
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device('cuda')
+    # (name, n, k, mean degree, padding edges, attention, residual, tanh,
+    #  holes); the bench shape is the main path's: the README 6-layer
+    # softmax model at batch 32 (N_pad 14336, E_pad 218,624; PERF.md).
+    cases = [('bench', 14336, 32, 11.2, 57960, 'softmax', False, True,
+              False)]
+    cases += [(f'{mode}_res{int(res)}', 2000, 32, 8.0, 300, mode, res,
+               mode in ('softmax', 'relu'), True)
+              for mode in MODES for res in (False, True)]
+    cases += [('k16', 500, 16, 6.0, 60, 'softmax', True, True, True),
+              ('small_e', 20, 32, 3.0, 9, 'softmax', True, True, True),
+              ('one_block', 32, 32, 10.0, 20, 'sigmoid', False, False,
+               True)]
+    err = {'k3': 0.0, 'k4': 0.0}
+    bench = None
+    for name, n, k, deg, pad, mode, res, tanh, holes in cases:
+        case, cot = make_edge_pass(np, rng, n, k, deg, pad, res, holes)
+        c, d = _to(torch, dev, case), _to(torch, dev, cot)
+        args = (c['h'], c['h_dst'], c['extras'], c['mask'], c['senders'],
+                c['prev'], c['params'])
+        got = k3.fused_edge_forward(*args, mode, tanh)
+        want = k3.fused_edge_forward_plain(*args, mode, tanh)
+        torch.cuda.synchronize()
+        for out, g, w in zip(('agg', 'phi', 'att', 'msg'), got, want):
+            check(torch.allclose(g, w, **TOL),
+                  f'K3 {out} disagrees with plain on {name}')
+            err['k3'] = max(err['k3'], (g - w).abs().max().item())
+        cots = (d['d_agg'], d['d_phi'], d['d_att'], d['d_msg'])
+        got = k4.fused_edge_backward(*args, *cots, mode, tanh)
+        want = k4.fused_edge_backward_plain(*args, *cots, mode, tanh)
+        again = k4.fused_edge_backward(*args, *cots, mode, tanh)
+        torch.cuda.synchronize()
+        for out, g, w, a in zip(('d_h_src', 'd_h_dst', 'd_radial', 'd_prev'),
+                                got[:4], want[:4], again[:4]):
+            if w is None:
+                continue
+            check(torch.allclose(g, w, **TOL),
+                  f'K4 {out} disagrees with plain on {name}')
+            check(torch.equal(g, a), f'K4 {out} not deterministic on {name}')
+            err['k4'] = max(err['k4'], (g - w).abs().max().item())
+        for p in k3.PARAM_NAMES:
+            g, w = got[4][p], want[4][p]
+            scale = max(1.0, w.abs().max().item())
+            check(torch.allclose(g, w, atol=3e-5 * scale, rtol=0),
+                  f'K4 d_{p} disagrees with plain on {name}')
+            check(torch.equal(g, again[4][p]),
+                  f'K4 d_{p} not deterministic on {name}')
+            err['k4'] = max(err['k4'], (g - w).abs().max().item() / scale)
+        real = int((case['senders'] < n).sum())
+        print(f'fused kernels: {name} N={n} E={len(case["senders"])} '
+              f'(real {real}) K={k} {mode} residual={res} ok')
+        if name == 'bench':
+            bench = (args, cots, mode, tanh, real, len(case['senders']), n,
+                     k, res)
+
+    args, cots, mode, tanh, real, e, n, k, res = bench
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    timings = {
+        'k3': dict(
+            ms=time_cuda(torch, lambda: k3.fused_edge_forward(
+                *args, mode, tanh), flush),
+            plain_ms=time_cuda(torch, lambda: k3.fused_edge_forward_plain(
+                *args, mode, tanh), flush),
+            library_ms=None, bound=bound_ms(*k3_work(real, e, n, k, res))),
+        'k4': dict(
+            ms=time_cuda(torch, lambda: k4.fused_edge_backward(
+                *args, *cots, mode, tanh), flush),
+            plain_ms=time_cuda(torch, lambda: k4.fused_edge_backward_plain(
+                *args, *cots, mode, tanh), flush),
+            library_ms=None, bound=bound_ms(*k4_work(real, e, n, k, res))),
+    }
+    for key, v in timings.items():
+        print(f'fused kernels: {key} N={n} E={e} (real {real}) K={k} {mode} '
+              f'ms={v["ms"]:.4f} plain_ms={v["plain_ms"]:.4f} '
+              f'library_ms=none bound_ms={v["bound"][0]:.4f} '
+              f'({v["bound"][1]})')
+    return err, timings
+
+
+# ----------------------------------------------------------------- 5
 def _rotation(np, rng, max_deg):
     axis = rng.standard_normal(3)
     axis /= np.linalg.norm(axis)
@@ -260,23 +437,27 @@ def write_pose_set(np, root: Path, n_poses=64):
     return root / 'poses.types', n_poses
 
 
+README_6L = dict(num_layers=6, edge_attention=True, softmax_attention=True)
+# name -> (flags, counted kernel, other kernels it may launch, fused)
 SERVING = {
-    'default_3l': (dict(num_layers=3), 'segment_sum_sorted'),
-    'readme_softmax_6l': (dict(num_layers=6, edge_attention=True,
-                               softmax_attention=True),
-                          'softmax_aggregate_sorted'),
+    'default_3l': (dict(num_layers=3), 'segment_sum_sorted', (), False),
+    'readme_softmax_6l': (README_6L, 'softmax_aggregate_sorted', (), False),
     'sigmoid_3l': (dict(num_layers=3, edge_attention=True),
-                   'softmax_aggregate_sorted'),
+                   'softmax_aggregate_sorted', (), False),
+    # K3 in every layer; the coordinate means run on K1.
+    'readme_softmax_6l_fused': (README_6L, 'fused_edge_forward',
+                                ('segment_sum_sorted',), True),
 }
+MODEL_KWARGS = dict(dim_input=12, k=32, dim_output=1, residual=True,
+                    normalize=True, tanh=True, graphnorm=True,
+                    model_task='classification')
 
 
 def write_run_dir(torch, run: Path, flags: dict):
     from pointvs_tpu_torch.models.layers import init_parameters
     from pointvs_tpu_torch.models.registry import build_model
     from pointvs_tpu_torch.utils import save_yaml
-    model_kwargs = dict(dim_input=12, k=32, dim_output=1, residual=True,
-                        normalize=True, tanh=True, graphnorm=True,
-                        model_task='classification', **flags)
+    model_kwargs = dict(MODEL_KWARGS, **flags)
     model = build_model('egnn', **model_kwargs)
     init_parameters(model, torch.Generator().manual_seed(SEED))
     (run / 'checkpoints').mkdir(parents=True)
@@ -289,13 +470,31 @@ def write_run_dir(torch, run: Path, flags: dict):
               run / 'cmd_args.yaml')
 
 
-def forward_profile(torch, trainer, loader):
+def kernel_profile(torch, fn):
+    """Device time by kernel name over one profiled call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.key: evt.self_device_time_total / 1e3
+            for evt in prof.key_averages() if evt.self_device_time_total > 0}
+
+
+def print_profile(label, by_name, ours_key, ours_label):
+    busy = sum(by_name.values())
+    ours = sum(v for k, v in by_name.items() if ours_key in k)
+    print(f'profile: {label}: kernels {busy:.3f} ms device time '
+          f'({len(by_name)} kernel names), of which {ours_label} '
+          f'{ours:.3f} ms ({100 * ours / max(busy, 1e-9):.1f}%); top 8:')
+    for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f'  {ms:8.3f} ms  {key[:110]}')
+
+
+def forward_profile(torch, trainer, loader, forward):
     """Device time of one batch's forward: the median over repeats by CUDA
     events (batches prepared and moved first), and one profiled forward's
     kernel time by name. Also the batches' (real N, N_pad, real E, E_pad).
     """
-    from torch.profiler import ProfilerActivity, profile
-
     from pointvs_tpu_torch.data.buckets import to_device
     batches = [to_device(b, trainer.device) for b, _ in loader]
     sizes = [(int(b.node_mask.sum()), b.node_feats.shape[0],
@@ -307,73 +506,210 @@ def forward_profile(torch, trainer, loader):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                trainer.model(b)
+                forward(b)
                 end.record()
                 torch.cuda.synchronize()
                 times.append(start.elapsed_time(end))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trainer.model(batches[0])
-            torch.cuda.synchronize()
-    by_name = {evt.key: evt.self_device_time_total / 1e3
-               for evt in prof.key_averages()
-               if evt.self_device_time_total > 0}
+        by_name = kernel_profile(torch, lambda: forward(batches[0]))
     return statistics.median(times[len(batches):]), sizes, by_name
 
 
-def phase_serving(torch, np):
+def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
     from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.inference_engine import fused_forward
     from pointvs_tpu_torch.ops import segment_kernels as sk
-    launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        types, n_poses = write_pose_set(np, root / 'data')
-        batches = -(-n_poses // 32)
-        for name, (flags, kernel) in SERVING.items():
-            run = root / name
-            write_run_dir(torch, run, flags)
-            args = [str(run), str(types), str(root / 'data'),
-                    '--batch_size', '32']
+    launches, module_scores = {}, {}
+    batches = -(-n_poses // 32)
+    for name, (flags, kernel, others, fused) in SERVING.items():
+        run = root / name
+        write_run_dir(torch, run, flags)
+        args = [str(run), str(types), str(root / 'data'), '--batch_size',
+                '32']
+        if fused:
+            trainer, loader = inference.get_model_and_test_dl(
+                *args[:3], torch.device('cuda'), batch_size=32)
+            loader = list(loader)   # featurise before the counted run
+        sk.reset_launch_counts()
+        start = time.perf_counter()
+        if fused:
+            trainer.val(loader, predictions_file=run / 'gpu.txt',
+                        use_fused=True)
+        else:
+            trainer = inference.main(args + ['--output_fname', 'gpu.txt'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = sk.launch_counts()
+        expect = flags['num_layers'] * batches
+        check(counts[kernel] == expect,
+              f'{name}: {kernel} launched {counts[kernel]} times, '
+              f'expected {expect}')
+        for other, count in counts.items():
+            check(other == kernel or other in others or count == 0,
+                  f'{name}: unexpected {other} launches ({count})')
+        rows = (run / 'pose_gpu.txt').read_text().splitlines()
+        gpu = trainer.val_scores
+        check(len(rows) == n_poses and len(gpu) == n_poses
+              and np.isfinite(gpu).all(),
+              f'{name}: expected {n_poses} finite rows, got {len(rows)}')
+        cpu = inference.main(args + ['--output_fname', 'cpu.txt',
+                                     '--device', 'cpu']).val_scores
+        diff = float(np.abs(gpu - cpu).max())
+        check(diff <= 1e-4, f'{name}: GPU and CPU scores differ by {diff}')
+        extra = ''
+        if fused:
+            module = module_scores['readme_softmax_6l']
+            fdiff = float(np.abs(gpu - module).max())
+            check(fdiff <= 1e-4, f'{name}: fused and module scores differ '
+                                 f'by {fdiff}')
+            extra = f' max|fused-module|={fdiff:.2e}'
+        module_scores[name] = gpu
+        trainer, loader = inference.get_model_and_test_dl(
+            *args[:3], trainer.device, batch_size=32)
+        forward = ((lambda b, m=trainer.model: fused_forward(m, b)) if fused
+                   else trainer.model)
+        fwd, sizes, by_name = forward_profile(torch, trainer, loader,
+                                              forward)
+        launches[name] = counts[kernel]
+        print(f'serving: {name} poses={n_poses} wall={wall:.3f} s '
+              f'poses_per_s={n_poses / wall:.1f} '
+              f'forward_ms_per_batch={fwd:.3f} launches={counts} '
+              f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
+              f'real E, E_pad)={sizes}')
+        print_profile(f'{name} one forward', by_name,
+                      'fused_edge' if fused else 'sorted_kernel',
+                      'K3' if fused else 'the segment kernels')
+    return launches
+
+
+# ----------------------------------------------------------------- 6
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+
+
+def _fused_grads(torch, model, batch):
+    from pointvs_tpu_torch.fused_train import fused_apply
+    from pointvs_tpu_torch.training.losses import loss_fn
+    model.zero_grad(set_to_none=True)
+    loss_sum, weight = loss_fn(fused_apply(model, batch), batch,
+                               'classification')
+    (loss_sum / torch.clamp_min(weight, 1.0)).backward()
+    return [p.grad.clone() for p in model.parameters() if p.grad is not None]
+
+
+def _step_ms(torch, trainer, batch, fused):
+    """Median ms of one optimiser step by CUDA events, and one profiled
+    step's kernel time by name."""
+    from pointvs_tpu_torch.parallel.steps import make_train_step
+    step = make_train_step(trainer.model, trainer.optimiser, 'classification',
+                           use_fused=fused)
+    for _ in range(2):
+        step(batch, TRAIN_LR)
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch, TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), kernel_profile(
+        torch, lambda: step(batch, TRAIN_LR))
+
+
+def phase_training(torch, np, root: Path, types: Path):
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.training.engine import Trainer
+    # The pose set's two batches of 32, unaugmented and in file order, as
+    # the reference's loader gives them with augmentation off; five steps.
+    _, loader = inference.get_model_and_test_dl(
+        str(root / 'readme_softmax_6l'), str(types), str(root / 'data'),
+        torch.device('cpu'), batch_size=32)
+    host = list(loader)
+    steps = [host[i % len(host)] for i in range(TRAIN_STEPS)]
+    layers = README_6L['num_layers']
+    kwargs = dict(MODEL_KWARGS, **README_6L)
+    runs, launches = {}, {}
+    for device in ('cuda', 'cpu'):
+        for fused in (False, True):
+            name = f'{"fused" if fused else "module"}_{device}'
+            trainer = Trainer('egnn', root / f'train_{name}',
+                              torch.device(device), learning_rate=TRAIN_LR,
+                              weight_decay=1e-4, seed=SEED,
+                              fused_training=fused, **kwargs)
             sk.reset_launch_counts()
             start = time.perf_counter()
-            trainer = inference.main(args + ['--output_fname', 'gpu.txt'])
-            torch.cuda.synchronize()
+            trainer.train_model(steps, epochs=1)
+            if device == 'cuda':
+                torch.cuda.synchronize()
             wall = time.perf_counter() - start
             counts = sk.launch_counts()
-            expect = flags['num_layers'] * batches
-            check(counts[kernel] == expect,
-                  f'{name}: {kernel} launched {counts[kernel]} times, '
-                  f'expected {expect}')
-            for other, count in counts.items():
-                check(other == kernel or count == 0,
-                      f'{name}: unexpected {other} launches ({count})')
-            rows = (run / 'pose_gpu.txt').read_text().splitlines()
-            gpu = trainer.val_scores
-            check(len(rows) == n_poses and len(gpu) == n_poses
-                  and np.isfinite(gpu).all(),
-                  f'{name}: expected {n_poses} finite rows, got {len(rows)}')
-            cpu = inference.main(args + ['--output_fname', 'cpu.txt',
-                                         '--device', 'cpu']).val_scores
-            diff = float(np.abs(gpu - cpu).max())
-            check(diff <= 1e-4, f'{name}: GPU and CPU scores differ by '
-                                f'{diff}')
-            fwd, sizes, by_name = forward_profile(
-                torch, *inference.get_model_and_test_dl(
-                    str(run), str(types), str(root / 'data'),
-                    trainer.device, batch_size=32))
-            launches[name] = counts[kernel]
-            print(f'serving: {name} poses={n_poses} wall={wall:.3f} s '
-                  f'poses_per_s={n_poses / wall:.1f} '
-                  f'forward_ms_per_batch={fwd:.3f} launches={counts} '
-                  f'max|gpu-cpu|={diff:.2e} batch sizes (real N, N_pad, '
-                  f'real E, E_pad)={sizes}')
-            busy = sum(by_name.values())
-            ours = sum(v for k, v in by_name.items() if 'sorted_kernel' in k)
-            print(f'profile: {name} one forward: kernels {busy:.3f} ms '
-                  f'device time ({len(by_name)} kernel names), of which the '
-                  f'segment kernels {ours:.3f} ms; top 8:')
-            for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-                print(f'  {ms:8.3f} ms  {key[:110]}')
-    return launches
+            losses = np.asarray(trainer.train_losses)
+            check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+                  f'training {name}: losses {losses}')
+            runs[name] = trainer
+            launches[name] = counts
+            print(f'training: {name} steps={TRAIN_STEPS} wall={wall:.3f} s '
+                  f'launches={counts} losses={losses.tolist()}')
+    expect = layers * TRAIN_STEPS
+    module, fused = launches['module_cuda'], launches['fused_cuda']
+    check(module['softmax_aggregate_sorted'] == expect
+          and module['segment_sum_sorted'] >= expect
+          and module['fused_edge_forward'] == 0
+          and module['fused_edge_backward'] == 0,
+          f'module path launches {module}, expected K2 = {expect}, K1 >= '
+          f'{expect}, no K3/K4')
+    check(fused['fused_edge_forward'] == expect
+          and fused['fused_edge_backward'] == expect
+          and fused['softmax_aggregate_sorted'] == 0,
+          f'fused path launches {fused}, expected K3 = K4 = {expect}')
+    check(all(v == 0 for c in (launches['module_cpu'], launches['fused_cpu'])
+              for v in c.values()), 'a CPU run launched a CUDA kernel')
+    loss = {name: np.asarray(t.train_losses) for name, t in runs.items()}
+    for a, b in (('module_cuda', 'module_cpu'), ('fused_cuda', 'fused_cpu'),
+                 ('fused_cuda', 'module_cuda')):
+        diff = float(np.abs(loss[a] - loss[b]).max())
+        check(np.allclose(loss[a], loss[b], **TRAJ_TOL),
+              f'training: {a} and {b} trajectories differ by {diff}')
+        print(f'training: max|{a} - {b}| loss = {diff:.3e}')
+
+    # K4 is deterministic: two identical backward passes, identical bits.
+    trainer = runs['fused_cuda']
+    batch = to_device(host[0][0], trainer.device)
+    first = _fused_grads(torch, trainer.model, batch)
+    second = _fused_grads(torch, trainer.model, batch)
+    check(len(first) == len(second) and all(
+        torch.equal(a, b) for a, b in zip(first, second)),
+        'fused backward is not deterministic')
+
+    # The saved checkpoint reloads to the same scores.
+    ckpt = trainer.save_path / 'checkpoints' / 'pose_ckpt_epoch_1.pt'
+    check(ckpt.exists(), f'no checkpoint at {ckpt}')
+    trainer.val(host, predictions_file=root / 'trained.txt')
+    reloaded = Trainer('egnn', root / 'reloaded', trainer.device,
+                       seed=SEED + 1, **kwargs)
+    reloaded.load_weights(ckpt)
+    reloaded.val(host, predictions_file=root / 'reloaded.txt')
+    check(reloaded.p_epoch == 1 and np.array_equal(
+        reloaded.val_scores, trainer.val_scores),
+        'the reloaded checkpoint scores differently')
+    print(f'training: checkpoint {ckpt.name} reloads to identical scores; '
+          f'fused gradients bit-identical over two passes')
+
+    for name in ('module_cuda', 'fused_cuda'):
+        fused_path = name.startswith('fused')
+        ms, by_name = _step_ms(torch, runs[name], batch, fused_path)
+        print(f'training: {name} step_ms={ms:.3f} (median of 10, CUDA '
+              f'events, batch of 32 poses)')
+        print_profile(f'{name} one step', by_name,
+                      'fused_edge' if fused_path else 'sorted_kernel',
+                      'K3+K4' if fused_path else 'K1+K2')
+    return {'k1': module['segment_sum_sorted'],
+            'k2': module['softmax_aggregate_sorted'],
+            'k3': fused['fused_edge_forward'],
+            'k4': fused['fused_edge_backward']}
 
 
 def main() -> int:
@@ -385,28 +721,41 @@ def main() -> int:
               f'{RESOURCES} is missing: run from a checkout of the repo')
         phase_build()
         err, timings = phase_kernels(torch, np)
-        launches = phase_serving(torch, np)
+        fused_err, fused_timings = phase_fused_kernels(torch, np)
+        err.update(fused_err)
+        timings.update(fused_timings)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            types, n_poses = write_pose_set(np, root / 'data')
+            launches = phase_serving(torch, np, root, types, n_poses)
+            train_launches = phase_training(torch, np, root, types)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
 
-    def entry(name, replaces, launch_key, err_key, timing_key):
+    def entry(name, source, replaces, count, err_key, timing_key):
         v = timings[timing_key]
-        return {'name': name, 'route': 'cuda', 'source': K1_SOURCE,
-                'replaces': replaces, 'launches': launches[launch_key],
+        return {'name': name, 'route': 'cuda', 'source': source,
+                'replaces': replaces, 'launches': count,
                 'max_abs_err': err[err_key], 'ms': v['ms'],
                 'plain_ms': v['plain_ms'], 'bound_ms': v['bound'][0],
                 'bound_by': v['bound'][1], 'library_ms': v['library_ms']}
 
     kernels = [
-        entry('segment_sum_sorted', K1_REPLACES, 'default_3l', 'k1',
-              'k1_36'),
-        entry('softmax_aggregate_sorted[softmax]', K2_REPLACES,
-              'readme_softmax_6l', 'softmax', 'softmax'),
-        entry('softmax_aggregate_sorted[sigmoid]', K2_REPLACES,
-              'sigmoid_3l', 'sigmoid', 'sigmoid'),
+        entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
+              launches['default_3l'], 'k1', 'k1_36'),
+        entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
+              launches['readme_softmax_6l'], 'softmax', 'softmax'),
+        entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
+              launches['sigmoid_3l'], 'sigmoid', 'sigmoid'),
+        entry('fused_edge_forward', K3_SOURCE, K3_REPLACES,
+              train_launches['k3'], 'k3', 'k3'),
+        entry('fused_edge_backward', K4_SOURCE, K4_REPLACES,
+              train_launches['k4'], 'k4', 'k4'),
     ]
+    print(f'launches on the main paths: serving {launches}; training '
+          f'(module path K1/K2, fused path K3/K4) {train_launches}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

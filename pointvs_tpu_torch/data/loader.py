@@ -36,6 +36,9 @@ class ScoringLoader:
         self.dataset = dataset
         self.batch_size = batch_size
 
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
     def __iter__(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
         for start in range(0, len(self.dataset), self.batch_size):
             samples = [self.dataset[i] for i in range(

@@ -50,6 +50,7 @@ class EGNNLayer(nn.Module):
         self.edge_residual = edge_residual
         self.edge_attention = edge_attention
         self.normalize = normalize
+        self.tanh = tanh
         self.graphnorm = graphnorm
         self.update_coords = update_coords
         self.permutation_invariance = permutation_invariance
@@ -153,7 +154,15 @@ class EGNNLayer(nn.Module):
             else:
                 agg_feats = agg.sum_to_src(messages, mask=edge_mask)
 
-        # --- node model (ref :134-166) ---
+        out = self.node_update(h, agg_feats, node_mask, graph_id,
+                               num_graphs)
+        return out, coord, edge_feat
+
+    def node_update(self, h, agg_feats, node_mask, graph_id,
+                    num_graphs: int):
+        """Node model (ref :134-166): node MLP with GraphNorm, node
+        attention and the residual. Shared with the fused paths
+        (``inference_engine.py``)."""
         lin1, norm, act, lin2 = self.node_mlp
         out = lin1(torch.cat([h, agg_feats], dim=1))
         if self.graphnorm:
@@ -165,7 +174,7 @@ class EGNNLayer(nn.Module):
         if self.residual:
             out = self._gated(getattr(self, 'node_gate_parameter', None),
                               out, h)
-        return out, coord, edge_feat
+        return out
 
 
 class InputEmbedding(nn.Module):
@@ -215,6 +224,11 @@ class SartorrasEGNN(nn.Module):
             if on:
                 raise NotImplementedError(
                     f'{flag} is not in the port yet ({item}; {_ROADMAP})')
+        self.num_layers = num_layers
+        self.permutation_invariance = permutation_invariance
+        self.edge_residual = edge_residual
+        self.gated_residual = gated_residual
+        self.rezero = rezero
         layer_kwargs = dict(
             act=act, residual=residual, edge_residual=edge_residual,
             edge_attention=edge_attention, normalize=normalize, tanh=tanh,
@@ -242,6 +256,7 @@ class SartorrasEGNN(nn.Module):
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,
                              batch.edge_mask, num_nodes=h.shape[0],
+                             recv_perm=batch.recv_perm,
                              inv_recv_perm=batch.inv_recv_perm)
         num_graphs = batch.graph_mask.shape[0]
         edge_messages = None

@@ -109,7 +109,8 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 def load_reference_checkpoint(path) -> Tuple[Dict, Dict]:
     """Read a reference ``.pt`` checkpoint -> (state_dict, meta).
 
-    Accepts the reference save format (``model_state_dict`` plus epochs)
+    Accepts the reference save format (``model_state_dict`` plus epochs,
+    and the optimiser state when present: ``meta['optimiser_state_dict']``)
     and a bare state_dict. The safe loader (``weights_only=True``) is tried
     first; only when it rejects a non-allowlisted global is the file read
     again with ``weights_only=False`` (which can run code from the file:
@@ -125,6 +126,8 @@ def load_reference_checkpoint(path) -> Tuple[Dict, Dict]:
     if isinstance(ckpt, dict) and 'model_state_dict' in ckpt:
         meta = {'p_epoch': int(ckpt.get('p_epoch', ckpt.get('epoch', 0))),
                 'a_epoch': int(ckpt.get('a_epoch', 0))}
+        if 'optimiser_state_dict' in ckpt:
+            meta['optimiser_state_dict'] = ckpt['optimiser_state_dict']
         sd = ckpt['model_state_dict']
     else:
         sd, meta = ckpt, {'p_epoch': 0, 'a_epoch': 0}

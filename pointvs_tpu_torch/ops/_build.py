@@ -32,6 +32,20 @@ SIGNATURES = {
         'pvs_softmax_aggregate_sorted': (_P, _P, _P, _P, _P, _P, _P, _I64,
                                          _I, _I, _I, _P),
     },
+    'fused_egnn': {
+        # h, h_dst, extras, mask, senders, prev, 9 weights, agg, phi, att,
+        # msg, num_edges, k, num_nodes, attention, tanh, stream
+        'pvs_fused_edge_forward': (_P,) * 19 + (_I64, _I, _I, _I, _I, _P),
+    },
+    'fused_egnn_bwd': {
+        # h, h_dst, extras, mask, senders, prev, 9 weights, d_agg, d_phi,
+        # d_att, d_msg, d_h_src, d_h_dst, d_radial, d_prev, scratch,
+        # partials, d_params, num_edges, k, num_nodes, attention, tanh,
+        # stream
+        'pvs_fused_edge_backward': (_P,) * 26 + (_I64, _I, _I, _I, _I, _P),
+        'pvs_fused_backward_param_width': (),
+        'pvs_fused_backward_num_blocks': (_I,),
+    },
 }
 
 
@@ -48,9 +62,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f'{name}.cu'
+    # The digest covers the shared headers too, so editing one rebuilds.
+    sources = [SRC_DIR / f'{name}.cu'] + sorted(SRC_DIR.glob('*.cuh'))
     digest = hashlib.sha256(
-        src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b''.join(src.read_bytes() for src in sources)
+        + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 

@@ -158,12 +158,20 @@ def fused_softmax_aggregate(feat, logits, trans, mask, sorted_ids,
 fused_softmax_aggregate.launches = 0
 
 
+def _launch_counted():
+    from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward
+    from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward
+    return {'segment_sum_sorted': windowed_segment_sum,
+            'softmax_aggregate_sorted': fused_softmax_aggregate,
+            'fused_edge_forward': fused_edge_forward,
+            'fused_edge_backward': fused_edge_backward}
+
+
 def launch_counts() -> dict:
-    """Kernel launches so far, by kernel name."""
-    return {'segment_sum_sorted': windowed_segment_sum.launches,
-            'softmax_aggregate_sorted': fused_softmax_aggregate.launches}
+    """Launches so far of every CUDA kernel of the port (K1-K4), by name."""
+    return {name: fn.launches for name, fn in _launch_counted().items()}
 
 
 def reset_launch_counts() -> None:
-    windowed_segment_sum.launches = 0
-    fused_softmax_aggregate.launches = 0
+    for fn in _launch_counted().values():
+        fn.launches = 0

@@ -1,0 +1,102 @@
+"""Single-device train and eval steps.
+
+Counterpart of ``pointvs_tpu/parallel/steps.py`` (``make_train_step``,
+``make_eval_step``) on one device. The loss is ``loss_sum / max(weight,
+1)``, so the gradient equals the reference's psum'd gradient divided by the
+global weight; the optimiser then clips by value, adds the coupled weight
+decay and steps at the learning rate the caller passes in (computed on the
+host from a schedule, as the reference passes it into its step).
+
+The reference's wire, packed and device-id batch forms and its ('dp',)
+mesh are not in the port yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from pointvs_tpu_torch.fused_train import fused_apply
+from pointvs_tpu_torch.inference_engine import fused_forward, \
+    supports_fusion
+from pointvs_tpu_torch.training.losses import loss_fn
+from pointvs_tpu_torch.training.optimisers import clip_and_step
+
+
+def pred_metrics(logits, batch, model_task: str) -> torch.Tensor:
+    """[active_pred_sum, active_count, decoy_pred_sum, decoy_count] of the
+    batch's real graphs (ref ``_pred_metrics``)."""
+    mask = batch.graph_mask.reshape(-1)
+    if model_task == 'classification':
+        preds = torch.sigmoid(logits.reshape(-1))
+        y = batch.y.reshape(-1)
+        act = (y > 0.5).to(preds.dtype) * mask
+        dec = (y < 0.5).to(preds.dtype) * mask
+    else:
+        # The reference logs the sigmoid'd mean prediction over labelled
+        # rows for regression tasks too.
+        preds = torch.sigmoid(logits.reshape(mask.shape[0], -1)).mean(-1)
+        act = mask
+        dec = torch.zeros_like(mask)
+    return torch.stack([(preds * act).sum(), act.sum(), (preds * dec).sum(),
+                        dec.sum()])
+
+
+def make_train_step(model, optimiser: torch.optim.Optimizer,
+                    model_task: str, regression_loss: str = 'mse',
+                    with_metrics: bool = False,
+                    use_fused: bool = False) -> Callable:
+    """Returns ``step(batch, lr)``: one optimiser step on a batch of
+    tensors on the model's device. It returns the loss (a 0-d tensor, left
+    on the device) or, with ``with_metrics``, the 5-vector ``[loss,
+    act_sum, act_cnt, dec_sum, dec_cnt]``.
+
+    ``use_fused`` runs the forward through ``fused_train.fused_apply``
+    (kernels K3 forward, K4 backward), which computes the same function as
+    the module forward for the configurations it supports.
+    """
+    forward = (lambda batch: fused_apply(model, batch)) if use_fused \
+        else model
+
+    def step(batch, lr: float) -> torch.Tensor:
+        model.train()
+        logits = forward(batch)
+        loss_sum, weight = loss_fn(logits, batch, model_task,
+                                   regression_loss)
+        loss = loss_sum / torch.clamp_min(weight, 1.0)
+        optimiser.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_and_step(optimiser, lr)
+        out = loss.detach()
+        if with_metrics:
+            out = torch.cat([out[None],
+                             pred_metrics(logits.detach(), batch,
+                                          model_task)])
+        return out
+
+    return step
+
+
+def make_eval_step(model, model_task: Optional[str] = None,
+                   use_fused: bool = False) -> Callable:
+    """Returns ``step(batch) -> logits``.
+
+    The fused engine (``inference_engine.fused_forward``, kernel K3) is
+    taken under the reference's gate: ``use_fused``, at least 6 layers and
+    a configuration ``supports_fusion`` accepts; and, in place of the
+    reference's TPU-backend test, only for a batch on a CUDA device.
+    ``step.fused`` records the model half of the gate.
+    """
+    del model_task   # per-task heads (multitask) are not in the port yet
+    fuse = (use_fused and getattr(model, 'num_layers', 0) >= 6
+            and supports_fusion(model))
+
+    @torch.no_grad()
+    def step(batch) -> torch.Tensor:
+        model.eval()
+        if fuse and batch.node_feats.device.type == 'cuda':
+            return fused_forward(model, batch)
+        return model(batch)
+
+    step.fused = fuse
+    return step

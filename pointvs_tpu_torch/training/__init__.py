@@ -1,1 +1,1 @@
-"""Scoring engine (training arrives with the training slice)."""
+"""Training and scoring engine: losses, optimisers, checkpoints, Trainer."""

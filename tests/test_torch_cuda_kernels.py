@@ -2,17 +2,29 @@
 
 Imports only torch, numpy and the port, so it runs where JAX is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``
-on a machine with a CUDA GPU and nvcc. Without a GPU the tests skip. The
-edge cases (also used by tests/test_torch_segment_kernels.py against the
-JAX package): K not a multiple of 8, empty rows, an all-padding tail, tied
-maximum logits, rows with every edge masked, and E < 4 * 128. Tolerance
-atol 1e-5, rtol 1e-5: f32 sums of the same terms in a different order.
+on a machine with a CUDA GPU and nvcc. Without a GPU the tests skip.
+
+K1/K2 edge cases (also used by tests/test_torch_segment_kernels.py against
+the JAX package): K not a multiple of 8, empty rows, an all-padding tail,
+tied maximum logits, rows with every edge masked, and E < 4 * 128. K3/K4
+edge cases (``make_edge_case``, also used by tests/test_torch_fused_egnn.py
+against the JAX package): empty senders, fully masked senders, a padding
+tail, NaN canaries in the previous messages, E < 128, a single block of
+senders, every attention mode, with and without the edge residual.
+Tolerance atol 1e-5, rtol 1e-5 (f32 sums of the same terms in a different
+order); K4's parameter gradients, sums over every edge, atol 3e-5 x
+max(1, |plain|).
 """
 import numpy as np
 import pytest
 import torch
 
 from pointvs_tpu_torch.ops import segment_kernels as sk
+from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
+from pointvs_tpu_torch.ops.fused_egnn import ATTENTION_MODES, PARAM_NAMES, \
+    fused_edge_forward, fused_edge_forward_plain, fused_edge_pass
+from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward, \
+    fused_edge_backward_plain
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 CASES = ['plain', 'small', 'empty_rows', 'padding_tail', 'tied_max',
@@ -41,6 +53,48 @@ def make_case(name):
     if name == 'all_masked_rows':              # rows with every edge masked
         mask[(ids % 5 == 0) & (ids < n)] = 0.0
     return ids, feat, logits, trans, mask, n
+
+
+def make_edge_case(seed, n=256, k=16, residual=True, dtype=np.float32,
+                   mean_degree=3.0, pad=37):
+    """Edge-major inputs of one edge pass: empty senders, senders whose
+    edges are all masked, 10% masked edges, a padding tail (sender == n),
+    and NaN canaries in ``prev`` wherever the mask is 0."""
+    rng = np.random.RandomState(seed)
+    deg = rng.poisson(mean_degree, n)
+    deg[::7] = 0                                # empty senders
+    deg[n - n // 8:] = 0                        # a tail of empty senders
+    senders = np.repeat(np.arange(n), deg)
+    senders = np.concatenate([senders, np.full(pad, n)]).astype(np.int32)
+    e = len(senders)
+    mask = (senders < n).astype(dtype)
+    mask[rng.rand(e) < 0.1] = 0.0
+    mask[(senders % 11 == 3) & (senders < n)] = 0.0   # fully masked senders
+    radial = rng.rand(e) * 4
+    attr = np.eye(3)[rng.randint(0, 3, e)]
+    case = dict(
+        h=rng.randn(n, k), h_dst=rng.randn(e, k),
+        extras=np.concatenate([radial[:, None], attr], 1),
+        mask=mask, senders=senders,
+        prev=np.where(mask[:, None] > 0, rng.randn(e, k), np.nan)
+        if residual else None,
+        params=dict(
+            w1=rng.uniform(-1, 1, (k, 2 * k + 4)) / np.sqrt(2 * k + 4),
+            b1=rng.uniform(-0.3, 0.3, k),
+            w2=rng.uniform(-1, 1, (k, k)) / np.sqrt(k),
+            b2=rng.uniform(-0.3, 0.3, k),
+            cw1=rng.uniform(-1, 1, (k, k)) / np.sqrt(k),
+            cb1=rng.uniform(-0.3, 0.3, k),
+            cw2=rng.uniform(-1, 1, k) / np.sqrt(k),
+            attw=rng.uniform(-1, 1, k), attb=rng.uniform(-0.3, 0.3, 1)))
+    cot = dict(d_agg=rng.randn(n, k), d_phi=rng.randn(e), d_att=rng.randn(e),
+               d_msg=rng.randn(e, k))
+    cast = lambda a: None if a is None else np.asarray(a, dtype)  # noqa
+    case = {key: (cast(v) if key != 'params' else
+                  {p: cast(a) for p, a in v.items()})
+            for key, v in case.items()}
+    case['senders'] = senders
+    return case, {key: cast(v) for key, v in cot.items()}
 
 
 def _t(*arrays, device):
@@ -73,3 +127,118 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     assert after['segment_sum_sorted'] == before['segment_sum_sorted'] + 1
     assert (after['softmax_aggregate_sorted']
             == before['softmax_aggregate_sorted'] + 2)
+
+
+def _edge_tensors(case, device):
+    t = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa
+    return (t(case['h']), t(case['h_dst']), t(case['extras']),
+            t(case['mask']), t(case['senders']), t(case['prev']),
+            {p: t(a) for p, a in case['params'].items()})
+
+
+# (attention, residual, tanh, n, k, mean degree, padding edges)
+EDGE_CASES = [(a, res, a in ('softmax', 'relu', 'none'), 600, 32, 6.0, 100)
+              for a in ATTENTION_MODES for res in (False, True)] + [
+    ('softmax', True, True, 300, 16, 4.0, 50),     # K < 32
+    ('softmax', False, True, 20, 32, 3.0, 9),      # E < 128, one block
+    ('sigmoid', True, False, 1, 32, 5.0, 3),       # one node, all padding
+]
+
+
+def _edge_case_id(c):
+    return f'{c[0]}-res{int(c[1])}-n{c[3]}-k{c[4]}'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', EDGE_CASES, ids=_edge_case_id)
+def test_fused_edge_kernels_match_plain(case, cuda_device):
+    attention, residual, tanh, n, k, degree, pad = case
+    data, cot = make_edge_case(EDGE_CASES.index(case), n=n, k=k,
+                               residual=residual, mean_degree=degree,
+                               pad=pad)
+    args = _edge_tensors(data, cuda_device)
+    d = {key: torch.from_numpy(v).to(cuda_device) for key, v in cot.items()}
+    before = sk.launch_counts()
+    got = fused_edge_forward(*args[:5], args[5], args[6], attention, tanh)
+    want = fused_edge_forward_plain(*args[:5], args[5], args[6], attention,
+                                    tanh)
+    for name, g, w in zip(('agg', 'phi', 'att', 'msg'), got, want):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    for d_msg in (d['d_msg'], None):
+        cots = (d['d_agg'], d['d_phi'], d['d_att'], d_msg)
+        got = fused_edge_backward(*args, *cots, attention, tanh)
+        want = fused_edge_backward_plain(*args, *cots, attention, tanh)
+        for name, g, w in zip(('d_h_src', 'd_h_dst', 'd_radial', 'd_prev'),
+                              got[:4], want[:4]):
+            if w is None:
+                assert g is None
+            else:
+                torch.testing.assert_close(g, w, **TOL, msg=name)
+        for name in PARAM_NAMES:
+            scale = max(1.0, want[4][name].abs().max().item())
+            torch.testing.assert_close(got[4][name], want[4][name],
+                                       atol=3e-5 * scale, rtol=0, msg=name)
+        again = fused_edge_backward(*args, *cots, attention, tanh)
+        for name in PARAM_NAMES:   # no float atomics: identical bits
+            assert torch.equal(again[4][name], got[4][name]), name
+    torch.cuda.synchronize()
+    after = sk.launch_counts()
+    assert after['fused_edge_forward'] == before['fused_edge_forward'] + 1
+    assert after['fused_edge_backward'] == before['fused_edge_backward'] + 4
+
+
+@pytest.mark.cuda
+def test_fused_edge_pass_backward_launches_k4(cuda_device):
+    data, _ = make_edge_case(3, n=300, k=32)
+    h, h_dst, extras, mask, senders, prev, params = _edge_tensors(
+        data, cuda_device)
+    leaves = [h, h_dst, prev] + [params[p] for p in PARAM_NAMES]
+    for x in leaves:
+        x.requires_grad_(True)
+    before = sk.launch_counts()
+    agg, phi, _, msg = fused_edge_pass(h, h_dst, extras, prev, params, mask,
+                                       senders, 'softmax', True)
+    (agg.square().sum() + torch.where(mask > 0, phi, 0.0).sum()
+     + torch.where(mask[:, None] > 0, msg, 0.0).sum()).backward()
+    after = sk.launch_counts()
+    assert after['fused_edge_forward'] == before['fused_edge_forward'] + 1
+    assert after['fused_edge_backward'] == before['fused_edge_backward'] + 1
+    assert after['segment_sum_sorted'] == before['segment_sum_sorted'] + 1
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['plain', 'empty_rows', 'all_masked_rows'])
+def test_aggregation_gradients_on_gpu_match_cpu(case, cuda_device):
+    """K1/K2 under autograd on the card against the plain versions' autograd
+    on the CPU: the gathers (sorted, unsorted, pair), the sum, the mean and
+    the softmax / sigmoid aggregations."""
+    ids, feat, logits, trans, mask, n = make_case(case)
+    rng = np.random.RandomState(7)
+    node = rng.randn(n, 8).astype(np.float32)
+    recv = rng.permutation(ids).astype(np.int32)   # unsorted, same padding
+
+    def run(device):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_(True)
+                  for a in (feat, logits, trans, node)]
+        f, lg, tr, nd = leaves
+        i, r, m = (torch.from_numpy(a).to(device) for a in (ids, recv, mask))
+        agg = EdgeAggregator(i, r, m, num_nodes=n)
+        outs = [agg.sum_to_src(f, mask=m), agg.mean_to_src(tr, mask=m),
+                *agg.fused_softmax_aggregate(f, lg, tr, mask=m),
+                *agg.fused_sigmoid_aggregate(f, lg, tr, mask=m),
+                agg.gather_src(nd), agg.gather_dst(nd)]
+        weights = np.random.RandomState(8)
+        loss = sum((o * torch.from_numpy(weights.randn(*o.shape).astype(
+            np.float32)).to(device)).sum() for o in outs)
+        loss.backward()
+        return [x.grad.cpu() for x in leaves]
+
+    counts = sk.launch_counts()
+    got = run(cuda_device)
+    after = sk.launch_counts()
+    assert after['segment_sum_sorted'] > counts['segment_sum_sorted']
+    assert (after['softmax_aggregate_sorted']
+            == counts['softmax_aggregate_sorted'] + 2)
+    for g, w in zip(got, run(torch.device('cpu'))):
+        torch.testing.assert_close(g, w, **TOL)

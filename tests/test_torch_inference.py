@@ -86,6 +86,13 @@ def test_orbax_run_dir_is_refused(tmp_path):
         resolve_run(tmp_path)
 
 
+# Modules of the training slice that the walk below must reach.
+TRAINING_MODULES = (
+    'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
+    'parallel.steps', 'training.checkpoints', 'training.engine',
+    'training.losses', 'training.optimisers')
+
+
 def test_port_imports_no_jax():
     """Importing every port module (no GPU, no nvcc here) loads no JAX and
     nothing of the JAX package."""
@@ -97,13 +104,18 @@ def test_port_imports_no_jax():
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
         '             ("jax", "jaxlib", "flax", "optax", "orbax",\n'
         '              "pointvs_tpu"))\n'
-        'print(len([m for m in sys.modules if m.startswith("pointvs_tpu_'
-        'torch.")]), bad)\n'
+        'mods = [m for m in sys.modules\n'
+        '        if m.startswith("pointvs_tpu_torch.")]\n'
+        'print(len(mods), bad, " ".join(mods))\n'
         'sys.exit(1 if bad else 0)\n')
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, cwd=PORT_DIR.parent, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    count, _, loaded = proc.stdout.split(maxsplit=2)
+    assert int(count) >= 30
+    loaded = set(loaded.split())
+    for name in TRAINING_MODULES:
+        assert f'pointvs_tpu_torch.{name}' in loaded, name
 
 
 def test_port_sources_name_no_jax_module():
