@@ -19,11 +19,17 @@ Phases:
    their plain versions at the bench shape (N=14336, ~160k real of 218,624
    edges, K=32) and at edge cases (every attention mode with the edge
    residual on and off, empty and fully masked senders, a padding tail,
-   E < 128, one block of senders, K=16); K4 run twice must give identical
-   bits. For every kernel: median time by CUDA events with L2 flushed
-   before each launch, the plain version's time, one PyTorch library call's
-   time where one computes the same function (yardstick only), and the
-   least time the card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s);
+   E < 128, one block of senders, K=16, and K4's tile cases from
+   ``tests/test_torch_cuda_kernels.k4_stress_case``: a 350-edge hub sender,
+   tiles straddling senders and blocks, a tile of NaN canaries, blocks
+   without edges, K=20 and K=13); K4 run twice must give identical bits.
+   K4's registers, spills, shared memory and resident blocks per SM. For
+   every kernel: median time by CUDA events with L2 flushed before each
+   launch, the plain version's time, one PyTorch library call's time where
+   one computes the same function (yardstick only), and the least time the
+   card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s f32; for K4,
+   whose products run on tensor cores in 3xTF32, also 3 x its product
+   flops / 495 TFLOP/s TF32, the bound the JSON line carries);
 5. serving: 64 poses (seeded rigid perturbations of the test ligand in
    its pocket) scored at batch 32 through ``pointvs_tpu_torch.inference``
    for three models (reference-default flags at 3 layers, the README's
@@ -59,6 +65,7 @@ REPO = Path(__file__).resolve().parent
 RESOURCES = REPO / 'tests' / 'resources'
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 SEED = 0
 K1_SOURCE = 'pointvs_tpu_torch/ops/csrc/segment_kernels.cu'
 K1_REPLACES = 'pointvs_tpu/ops/pallas/segment_kernels.py:264'
@@ -151,9 +158,9 @@ def time_cuda(torch, fn, flush, reps=25):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -306,18 +313,20 @@ def k3_work(real, e, n, k, residual):
 
 
 def k4_work(real, e, n, k, residual):
-    """(bytes, flops) of one K4 call: the recomputed forward plus, for each
-    of the three weight matrices, an outer product and a transposed
-    product."""
+    """(bytes, flops, product flops) of one K4 call: the recomputed forward
+    plus, for each of the three weight matrices, an outer product and a
+    transposed product; the product flops are those K4 runs on tensor
+    cores."""
     nbytes = 4 * (2 * n * k + real * (k + 7) + e
                   + (3 * real * k if residual else 0) + e * (2 * k + 1))
-    flops = 3 * real * 2 * (k * (2 * k + 4) + 2 * k * k) + real * 24 * k
-    return nbytes, flops
+    products = 3 * real * 2 * (k * (2 * k + 4) + 2 * k * k)
+    return nbytes, products + real * 24 * k, products
 
 
 def phase_fused_kernels(torch, np):
     from pointvs_tpu_torch.ops import fused_egnn as k3
     from pointvs_tpu_torch.ops import fused_egnn_bwd as k4
+    from tests.test_torch_cuda_kernels import K4_STRESS, k4_stress_case
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device('cuda')
     # (name, n, k, mean degree, padding edges, attention, residual, tanh,
@@ -332,10 +341,16 @@ def phase_fused_kernels(torch, np):
               ('small_e', 20, 32, 3.0, 9, 'softmax', True, True, True),
               ('one_block', 32, 32, 10.0, 20, 'sigmoid', False, False,
                True)]
+    cases += [(name,) for name in K4_STRESS]
     err = {'k3': 0.0, 'k4': 0.0}
     bench = None
-    for name, n, k, deg, pad, mode, res, tanh, holes in cases:
-        case, cot = make_edge_pass(np, rng, n, k, deg, pad, res, holes)
+    for name, *spec in cases:
+        if spec:
+            n, k, deg, pad, mode, res, tanh, holes = spec
+            case, cot = make_edge_pass(np, rng, n, k, deg, pad, res, holes)
+        else:
+            case, cot, mode, res, tanh = k4_stress_case(name)
+            n, k = case['h'].shape
         c, d = _to(torch, dev, case), _to(torch, dev, cot)
         args = (c['h'], c['h_dst'], c['extras'], c['mask'], c['senders'],
                 c['prev'], c['params'])
@@ -375,6 +390,13 @@ def phase_fused_kernels(torch, np):
                      k, res)
 
     args, cots, mode, tanh, real, e, n, k, res = bench
+    info = k4.kernel_info()
+    print(f'fused kernels: K4 resources {json.dumps(info)}')
+    nbytes, flops, products = k4_work(real, e, n, k, res)
+    k4_f32_bound = bound_ms(nbytes, flops)
+    # K4's products run on the tensor cores in 3xTF32: three TF32 products
+    # for each f32 one.
+    k4_tc_bound = bound_ms(nbytes, 3 * products, TF32_FLOPS_PER_S)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     timings = {
         'k3': dict(
@@ -388,13 +410,16 @@ def phase_fused_kernels(torch, np):
                 *args, *cots, mode, tanh), flush),
             plain_ms=time_cuda(torch, lambda: k4.fused_edge_backward_plain(
                 *args, *cots, mode, tanh), flush),
-            library_ms=None, bound=bound_ms(*k4_work(real, e, n, k, res))),
+            library_ms=None, bound=k4_tc_bound),
     }
     for key, v in timings.items():
         print(f'fused kernels: {key} N={n} E={e} (real {real}) K={k} {mode} '
               f'ms={v["ms"]:.4f} plain_ms={v["plain_ms"]:.4f} '
               f'library_ms=none bound_ms={v["bound"][0]:.4f} '
               f'({v["bound"][1]})')
+    print(f'fused kernels: k4 bounds: f32 units {k4_f32_bound[0]:.4f} ms '
+          f'({k4_f32_bound[1]}), tensor cores in 3xTF32 '
+          f'{k4_tc_bound[0]:.4f} ms ({k4_tc_bound[1]})')
     return err, timings
 
 
@@ -480,12 +505,18 @@ def kernel_profile(torch, fn):
             for evt in prof.key_averages() if evt.self_device_time_total > 0}
 
 
-def print_profile(label, by_name, ours_key, ours_label):
+def print_profile(label, by_name, shares):
+    """Kernel time of one profiled call, and the share of each
+    (label, kernel-name part) in ``shares``."""
     busy = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items() if ours_key in k)
+    parts = []
+    for ours_label, ours_key in shares:
+        ours = sum(v for k, v in by_name.items() if ours_key in k)
+        parts.append(f'{ours_label} {ours:.3f} ms '
+                     f'({100 * ours / max(busy, 1e-9):.1f}%)')
     print(f'profile: {label}: kernels {busy:.3f} ms device time '
-          f'({len(by_name)} kernel names), of which {ours_label} '
-          f'{ours:.3f} ms ({100 * ours / max(busy, 1e-9):.1f}%); top 8:')
+          f'({len(by_name)} kernel names), of which {", ".join(parts)}; '
+          f'top 8:')
     for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f'  {ms:8.3f} ms  {key[:110]}')
 
@@ -576,8 +607,8 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
               f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
               f'real E, E_pad)={sizes}')
         print_profile(f'{name} one forward', by_name,
-                      'fused_edge' if fused else 'sorted_kernel',
-                      'K3' if fused else 'the segment kernels')
+                      [('K3', 'fused_edge')] if fused
+                      else [('the segment kernels', 'sorted_kernel')])
     return launches
 
 
@@ -704,8 +735,9 @@ def phase_training(torch, np, root: Path, types: Path):
         print(f'training: {name} step_ms={ms:.3f} (median of 10, CUDA '
               f'events, batch of 32 poses)')
         print_profile(f'{name} one step', by_name,
-                      'fused_edge' if fused_path else 'sorted_kernel',
-                      'K3+K4' if fused_path else 'K1+K2')
+                      [('K3+K4', 'fused_edge'),
+                       ('K4', 'fused_edge_backward')] if fused_path
+                      else [('K1+K2', 'sorted_kernel')])
     return {'k1': module['segment_sum_sorted'],
             'k2': module['softmax_aggregate_sorted'],
             'k3': fused['fused_edge_forward'],

@@ -45,6 +45,9 @@ SIGNATURES = {
         'pvs_fused_edge_backward': (_P,) * 26 + (_I64, _I, _I, _I, _I, _P),
         'pvs_fused_backward_param_width': (),
         'pvs_fused_backward_num_blocks': (_I,),
+        # int[5]: registers, spill bytes, static and dynamic shared bytes,
+        # blocks resident per SM
+        'pvs_fused_backward_info': (_P,),
     },
 }
 

@@ -16,8 +16,10 @@ padding edges are 0. The node-side scatter of ``d_h_src`` happens outside
 (``fused_egnn.FusedEdgePass``, with K1).
 
 CPU tensors take ``fused_edge_backward_plain``; CUDA tensors launch K4
-(``csrc/fused_egnn_bwd.cu``): per-block partial parameter gradients and
-a fixed-order reduce (no float atomics, so two runs give identical bits).
+(``csrc/fused_egnn_bwd.cu``): 64-edge tiles whose edge-MLP products and
+parameter-gradient products run on tensor cores (mma.sync TF32 with a
+3xTF32 split, f32-accurate), per-block partial parameter gradients and a
+fixed-order reduce (no float atomics, so two runs give identical bits).
 """
 from __future__ import annotations
 
@@ -162,10 +164,11 @@ def fused_edge_backward(h, h_dst, extras, edge_mask, senders, prev, params,
     width = lib.pvs_fused_backward_param_width()
     scratch = torch.empty((e if attention == 'softmax' else 1, 2),
                           device=dev, dtype=torch.float32)
-    partials = torch.empty((lib.pvs_fused_backward_num_blocks(n), width),
-                           device=dev, dtype=torch.float32)
     flat = torch.empty((width,), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
+        # One row per block; the block count follows the card's residency.
+        partials = torch.empty((lib.pvs_fused_backward_num_blocks(n), width),
+                               device=dev, dtype=torch.float32)
         err = lib.pvs_fused_edge_backward(
             h.data_ptr(), h_dst.data_ptr(), extras.data_ptr(),
             edge_mask.data_ptr(), senders.data_ptr(), ptr(prev),
@@ -183,3 +186,20 @@ def fused_edge_backward(h, h_dst, extras, edge_mask, senders, prev, params,
 
 
 fused_edge_backward.launches = 0
+
+KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem_bytes',
+                    'dynamic_smem_bytes', 'blocks_per_sm')
+
+
+def kernel_info() -> dict:
+    """K4's resources on the current CUDA device (builds it if needed):
+    registers per thread, spill bytes per thread, shared bytes per block and
+    the blocks resident per SM at those."""
+    import ctypes
+    from pointvs_tpu_torch.ops._build import load
+    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = load('fused_egnn_bwd').pvs_fused_backward_info(
+        ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f'fused_edge_backward info failed: cudaError {err}')
+    return dict(zip(KERNEL_INFO_KEYS, info))

@@ -10,7 +10,11 @@ tied maximum logits, rows with every edge masked, and E < 4 * 128. K3/K4
 edge cases (``make_edge_case``, also used by tests/test_torch_fused_egnn.py
 against the JAX package): empty senders, fully masked senders, a padding
 tail, NaN canaries in the previous messages, E < 128, a single block of
-senders, every attention mode, with and without the edge residual.
+senders, every attention mode, with and without the edge residual. K4's
+tile edge cases (``k4_stress_case``, also run by chip_smoke.py): a hub
+sender over several tiles, tiles straddling senders and blocks, 64+
+consecutive masked edges (a tile of NaN canaries in ``prev``), blocks
+without edges, K = 20 and K = 13.
 Tolerance atol 1e-5, rtol 1e-5 (f32 sums of the same terms in a different
 order); K4's parameter gradients, sums over every edge, atol 3e-5 x
 max(1, |plain|).
@@ -56,20 +60,27 @@ def make_case(name):
 
 
 def make_edge_case(seed, n=256, k=16, residual=True, dtype=np.float32,
-                   mean_degree=3.0, pad=37):
+                   mean_degree=3.0, pad=37, deg=None, masked_runs=()):
     """Edge-major inputs of one edge pass: empty senders, senders whose
     edges are all masked, 10% masked edges, a padding tail (sender == n),
-    and NaN canaries in ``prev`` wherever the mask is 0."""
+    and NaN canaries in ``prev`` wherever the mask is 0. ``deg`` gives the
+    edges of each sender in place of the seeded degrees; each (sender,
+    offset, length) of ``masked_runs`` masks a run of that sender's edges."""
     rng = np.random.RandomState(seed)
-    deg = rng.poisson(mean_degree, n)
-    deg[::7] = 0                                # empty senders
-    deg[n - n // 8:] = 0                        # a tail of empty senders
+    if deg is None:
+        deg = rng.poisson(mean_degree, n)
+        deg[::7] = 0                            # empty senders
+        deg[n - n // 8:] = 0                    # a tail of empty senders
+    n = len(deg)
     senders = np.repeat(np.arange(n), deg)
     senders = np.concatenate([senders, np.full(pad, n)]).astype(np.int32)
     e = len(senders)
     mask = (senders < n).astype(dtype)
     mask[rng.rand(e) < 0.1] = 0.0
     mask[(senders % 11 == 3) & (senders < n)] = 0.0   # fully masked senders
+    first = np.concatenate([[0], np.cumsum(deg)])
+    for s, off, length in masked_runs:
+        mask[first[s] + off:first[s] + off + length] = 0.0
     radial = rng.rand(e) * 4
     attr = np.eye(3)[rng.randint(0, 3, e)]
     case = dict(
@@ -95,6 +106,46 @@ def make_edge_case(seed, n=256, k=16, residual=True, dtype=np.float32,
             for key, v in case.items()}
     case['senders'] = senders
     return case, {key: cast(v) for key, v in cot.items()}
+
+
+def k4_stress_case(name):
+    """K4's tile edge cases: (case, cotangents, attention, residual, tanh).
+
+    hub*: a sender with 350 edges (six tiles), one with 70 and one with
+    exactly 64 (softmax takes the two-phase path; sigmoid tiles straddle
+    senders and blocks); masked_run: 130 consecutive masked edges of one
+    sender, so a whole 64-edge tile of ``prev`` is NaN canaries;
+    empty_block: 300 consecutive senders without edges, so whole blocks
+    own none; k20 / k13: K = 20 (16-byte copies) and K = 13 (4-byte copies,
+    no paired stores). Real edge counts are not multiples of 64.
+    """
+    rng = np.random.RandomState(len(name))
+    if name.startswith('hub'):
+        deg = rng.poisson(6.0, 200)
+        deg[7], deg[40], deg[41] = 350, 70, 64
+        attention, residual = (('softmax', True) if name == 'hub'
+                               else ('sigmoid', False))
+        case, cot = make_edge_case(1, k=32, residual=residual, deg=deg,
+                                   pad=29)
+        return case, cot, attention, residual, True
+    if name == 'masked_run':
+        deg = rng.poisson(6.0, 300)
+        deg[5] = 200
+        case, cot = make_edge_case(2, k=32, deg=deg, pad=29,
+                                   masked_runs=[(5, 20, 130)])
+        return case, cot, 'softmax', True, True
+    if name == 'empty_block':
+        deg = rng.poisson(6.0, 3000)
+        deg[1000:1300] = 0
+        case, cot = make_edge_case(3, k=32, residual=False, deg=deg, pad=29)
+        return case, cot, 'softmax', False, True
+    k = {'k20': 20, 'k13': 13}[name]
+    case, cot = make_edge_case(4, k=k, deg=rng.poisson(9.0, 400), pad=29)
+    return case, cot, 'softmax', True, False
+
+
+K4_STRESS = ['hub', 'hub_sigmoid', 'masked_run', 'empty_block', 'k20',
+             'k13']
 
 
 def _t(*arrays, device):
@@ -185,6 +236,34 @@ def test_fused_edge_kernels_match_plain(case, cuda_device):
     after = sk.launch_counts()
     assert after['fused_edge_forward'] == before['fused_edge_forward'] + 1
     assert after['fused_edge_backward'] == before['fused_edge_backward'] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', K4_STRESS)
+def test_k4_tile_edge_cases_match_plain(name, cuda_device):
+    data, cot, attention, residual, tanh = k4_stress_case(name)
+    args = _edge_tensors(data, cuda_device)
+    cots = [None if cot[key] is None else
+            torch.from_numpy(cot[key]).to(cuda_device)
+            for key in ('d_agg', 'd_phi', 'd_att', 'd_msg')]
+    before = sk.launch_counts()['fused_edge_backward']
+    got = fused_edge_backward(*args, *cots, attention, tanh)
+    again = fused_edge_backward(*args, *cots, attention, tanh)
+    want = fused_edge_backward_plain(*args, *cots, attention, tanh)
+    for name_, g, a, w in zip(('d_h_src', 'd_h_dst', 'd_radial', 'd_prev'),
+                              got[:4], again[:4], want[:4]):
+        if w is None:
+            assert g is None and not residual
+            continue
+        torch.testing.assert_close(g, w, **TOL, msg=name_)
+        assert torch.equal(g, a), name_
+    for p in PARAM_NAMES:
+        scale = max(1.0, want[4][p].abs().max().item())
+        torch.testing.assert_close(got[4][p], want[4][p], atol=3e-5 * scale,
+                                   rtol=0, msg=p)
+        assert torch.equal(got[4][p], again[4][p]), p
+    torch.cuda.synchronize()
+    assert sk.launch_counts()['fused_edge_backward'] == before + 2
 
 
 @pytest.mark.cuda

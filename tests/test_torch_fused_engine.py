@@ -6,8 +6,10 @@ tests/test_fused_engine.py, atol 3e-5; ``fused_train.fused_apply``
 (K3 forward, K4 backward, K1 scatters) against the JAX ``fused_apply``
 for the variants of tests/test_fused_train.py: outputs 2e-5, coordinate
 gradients 3e-5, parameter gradients 3e-5 x max(1, |ref|), and against the
-port's own module-path autograd at the same gates. The model is cut to
-k=16 (2 to 3 layers) to keep the CPU time small.
+port's own module-path autograd at the same gates. With
+``graphnorm_whole_batch`` the port's fused paths are held against its
+module path and the JAX module path instead. The model is cut to k=16 (2
+to 3 layers) to keep the CPU time small.
 """
 import jax
 import jax.numpy as jnp
@@ -125,3 +127,50 @@ def test_fused_apply_matches_jax(variant):
             scale = max(1.0, float(np.abs(ref).max()))
             np.testing.assert_allclose(g, ref, atol=3e-5 * scale, rtol=0,
                                        err_msg=name)
+
+
+@pytest.mark.parametrize('variant', ['softmax_attention', 'sigmoid_attention'])
+def test_whole_batch_graphnorm_fused_matches_module_and_jax(variant):
+    """``graphnorm_whole_batch=True`` (ROADMAP Queue 3): the port's fused
+    forward and ``fused_apply`` equal its module path, and both equal the
+    JAX package's module path (``model.apply``). The JAX fused engines take
+    per-graph statistics under this flag, so they are not the reference
+    here and ENGINE_VARIANTS / TRAIN_VARIANTS leave it out."""
+    kwargs = dict(SMALL_TRAIN, graphnorm_whole_batch=True,
+                  **ENGINE_VARIANTS[variant])
+    batch = _train_batch()
+    model = build_jax_model('egnn', **kwargs)
+    params = model.init(jax.random.PRNGKey(3), batch)
+
+    def loss(p, coords):
+        out = model.apply(p, batch._replace(coords=coords))
+        s, w = jax_loss_fn(out, batch, 'classification', 'mse')
+        return s / jnp.maximum(w, 1.0), out
+
+    (_, want_out), (g_params, g_coords) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(batch.coords))
+    want_out, g_coords = np.asarray(want_out), np.asarray(g_coords)
+    want_grads = state_dict_from_flax(jax.tree.map(np.asarray, g_params))
+
+    port = _port_model_from_jax(kwargs, params)
+    pb = port_batch(batch)
+    assert supports_fusion(port) and supports_fused_training(port, pb)
+    with torch.no_grad():
+        fused = fused_forward(port, pb).numpy()
+        module = port(pb).numpy()
+    np.testing.assert_allclose(fused, module, atol=3e-5)
+    out, coord_grad, grads = _port_grads(port, pb, fused=True)
+    m_out, m_coord_grad, m_grads = _port_grads(port, pb, fused=False)
+    for got in (out, m_out):
+        np.testing.assert_allclose(got, want_out, atol=2e-5)
+    for got in (coord_grad, m_coord_grad):
+        np.testing.assert_allclose(got, g_coords, atol=3e-5)
+    assert set(grads) == set(m_grads) == set(want_grads)
+    for name in grads:
+        ref = want_grads[name].numpy()
+        scale = max(1.0, float(np.abs(ref).max()))
+        for got in (grads[name], m_grads[name]):
+            np.testing.assert_allclose(got, ref, atol=3e-5 * scale, rtol=0,
+                                       err_msg=name)
+        np.testing.assert_allclose(grads[name], m_grads[name],
+                                   atol=3e-5 * scale, rtol=0, err_msg=name)
