@@ -19,17 +19,20 @@ Phases:
    their plain versions at the bench shape (N=14336, ~160k real of 218,624
    edges, K=32) and at edge cases (every attention mode with the edge
    residual on and off, empty and fully masked senders, a padding tail,
-   E < 128, one block of senders, K=16, and K4's tile cases from
-   ``tests/test_torch_cuda_kernels.k4_stress_case``: a 350-edge hub sender,
-   tiles straddling senders and blocks, a tile of NaN canaries, blocks
-   without edges, K=20 and K=13); K4 run twice must give identical bits.
-   K4's registers, spills, shared memory and resident blocks per SM. For
-   every kernel: median time by CUDA events with L2 flushed before each
-   launch, the plain version's time, one PyTorch library call's time where
-   one computes the same function (yardstick only), and the least time the
-   card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s f32; for K4,
-   whose products run on tensor cores in 3xTF32, also 3 x its product
-   flops / 495 TFLOP/s TF32, the bound the JSON line carries);
+   E < 128, one block of senders, K=16, and the tile cases from
+   ``tests/test_torch_cuda_kernels.tile_stress_case``: a 350-edge hub
+   sender, senders of exactly 64 and 65 edges, tiles straddling senders and
+   blocks, a tile of NaN canaries, blocks without edges, K=20 and K=13);
+   K3 and K4 run twice must give identical bits. K3's and K4's registers,
+   spills, shared memory and resident blocks per SM, and their worst
+   |kernel - plain| / (atol + rtol |plain|) over every case (the gate
+   fails above 1). For every kernel:
+   median time by CUDA events with L2 flushed before each launch, the
+   plain version's time, one PyTorch library call's time where one
+   computes the same function (yardstick only), and the least time the
+   card could take (bytes / 3.35 TB/s vs flops / 67 TFLOP/s f32; for K3
+   and K4, whose products run on tensor cores in 3xTF32, also 3 x their
+   product flops / 495 TFLOP/s TF32, the bound the JSON line carries);
 5. serving: 64 poses (seeded rigid perturbations of the test ligand in
    its pocket) scored at batch 32 through ``pointvs_tpu_torch.inference``
    for three models (reference-default flags at 3 layers, the README's
@@ -37,7 +40,8 @@ Phases:
    the 6-layer model once more through ``make_eval_step(use_fused=True)``
    (K3 in every layer). Kernel launch counts must equal layers x batches;
    64 finite rows must be written; scores must match a ``--device cpu``
-   run (and the fused scores the module path's) within 1e-4;
+   run (and the fused scores the module path's) within 1e-4; one profiled
+   forward's kernel time, K3's per launch;
 6. training: the ``Trainer`` takes 5 steps on the README 6-layer model
    (k=32, batch 32) on the module path (K1/K2 forward and backward) and on
    the fused path (K3 forward, K4 backward). Launch counts per path; each
@@ -45,7 +49,7 @@ Phases:
    other, within atol 1e-4 / rtol 1e-5; two identical fused backward
    passes give identical parameter gradients; the saved checkpoint reloads
    to the same scores; step time by CUDA events and each path's profiled
-   kernel share.
+   kernel share, K3's and K4's per launch.
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -297,6 +301,11 @@ def make_edge_pass(np, rng, n, k, mean_degree, pad, residual, holes=True):
     return case, cot
 
 
+def gate_ratio(got, want, atol=TOL['atol'], rtol=TOL['rtol']):
+    """Worst |got - want| / (atol + rtol |want|): allclose holds at <= 1."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
 def _to(torch, dev, tree):
     move = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa
     return {key: ({p: move(a) for p, a in v.items()} if isinstance(v, dict)
@@ -304,12 +313,13 @@ def _to(torch, dev, tree):
 
 
 def k3_work(real, e, n, k, residual):
-    """(bytes, flops) of one K3 call: inputs read once, outputs written
-    once, the edge and coordinate MLPs of every real edge."""
+    """(bytes, flops, product flops) of one K3 call: inputs read once,
+    outputs written once, the edge and coordinate MLPs of every real edge;
+    the product flops are those K3 runs on tensor cores."""
     nbytes = 4 * (n * k + real * (k + 5) + e + (real * k if residual else 0)
                   + n * k + e * (k + 2))
-    flops = real * (2 * k * (2 * k + 4) + 4 * k * k + 8 * k)
-    return nbytes, flops
+    products = real * 2 * (k * (2 * k + 4) + 2 * k * k)
+    return nbytes, products + real * 8 * k, products
 
 
 def k4_work(real, e, n, k, residual):
@@ -326,7 +336,7 @@ def k4_work(real, e, n, k, residual):
 def phase_fused_kernels(torch, np):
     from pointvs_tpu_torch.ops import fused_egnn as k3
     from pointvs_tpu_torch.ops import fused_egnn_bwd as k4
-    from tests.test_torch_cuda_kernels import K4_STRESS, k4_stress_case
+    from tests.test_torch_cuda_kernels import TILE_STRESS, tile_stress_case
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device('cuda')
     # (name, n, k, mean degree, padding edges, attention, residual, tanh,
@@ -341,26 +351,36 @@ def phase_fused_kernels(torch, np):
               ('small_e', 20, 32, 3.0, 9, 'softmax', True, True, True),
               ('one_block', 32, 32, 10.0, 20, 'sigmoid', False, False,
                True)]
-    cases += [(name,) for name in K4_STRESS]
+    cases += [(name,) for name in TILE_STRESS]
     err = {'k3': 0.0, 'k4': 0.0}
+    ratio = {'k3': (0.0, ''), 'k4': (0.0, '')}   # (worst gate ratio, where)
+
+    def note(key, value, where):
+        if value > ratio[key][0]:
+            ratio[key] = (value, where)
+
     bench = None
     for name, *spec in cases:
         if spec:
             n, k, deg, pad, mode, res, tanh, holes = spec
             case, cot = make_edge_pass(np, rng, n, k, deg, pad, res, holes)
         else:
-            case, cot, mode, res, tanh = k4_stress_case(name)
+            case, cot, mode, res, tanh = tile_stress_case(name)
             n, k = case['h'].shape
         c, d = _to(torch, dev, case), _to(torch, dev, cot)
         args = (c['h'], c['h_dst'], c['extras'], c['mask'], c['senders'],
                 c['prev'], c['params'])
         got = k3.fused_edge_forward(*args, mode, tanh)
         want = k3.fused_edge_forward_plain(*args, mode, tanh)
+        again = k3.fused_edge_forward(*args, mode, tanh)
         torch.cuda.synchronize()
-        for out, g, w in zip(('agg', 'phi', 'att', 'msg'), got, want):
+        for out, g, w, a in zip(('agg', 'phi', 'att', 'msg'), got, want,
+                                again):
             check(torch.allclose(g, w, **TOL),
                   f'K3 {out} disagrees with plain on {name}')
+            check(torch.equal(g, a), f'K3 {out} not deterministic on {name}')
             err['k3'] = max(err['k3'], (g - w).abs().max().item())
+            note('k3', gate_ratio(g, w), f'{name} {out}')
         cots = (d['d_agg'], d['d_phi'], d['d_att'], d['d_msg'])
         got = k4.fused_edge_backward(*args, *cots, mode, tanh)
         want = k4.fused_edge_backward_plain(*args, *cots, mode, tanh)
@@ -374,6 +394,7 @@ def phase_fused_kernels(torch, np):
                   f'K4 {out} disagrees with plain on {name}')
             check(torch.equal(g, a), f'K4 {out} not deterministic on {name}')
             err['k4'] = max(err['k4'], (g - w).abs().max().item())
+            note('k4', gate_ratio(g, w), f'{name} {out}')
         for p in k3.PARAM_NAMES:
             g, w = got[4][p], want[4][p]
             scale = max(1.0, w.abs().max().item())
@@ -382,6 +403,7 @@ def phase_fused_kernels(torch, np):
             check(torch.equal(g, again[4][p]),
                   f'K4 d_{p} not deterministic on {name}')
             err['k4'] = max(err['k4'], (g - w).abs().max().item() / scale)
+            note('k4', gate_ratio(g, w, 3e-5 * scale, 0.0), f'{name} d_{p}')
         real = int((case['senders'] < n).sum())
         print(f'fused kernels: {name} N={n} E={len(case["senders"])} '
               f'(real {real}) K={k} {mode} residual={res} ok')
@@ -389,14 +411,19 @@ def phase_fused_kernels(torch, np):
             bench = (args, cots, mode, tanh, real, len(case['senders']), n,
                      k, res)
 
+    for key, (value, where) in ratio.items():
+        print(f'fused kernels: {key.upper()} worst |kernel - plain| / '
+              f'(atol + rtol |plain|) = {value:.4f} (at {where}; gate 1)')
     args, cots, mode, tanh, real, e, n, k, res = bench
-    info = k4.kernel_info()
-    print(f'fused kernels: K4 resources {json.dumps(info)}')
-    nbytes, flops, products = k4_work(real, e, n, k, res)
-    k4_f32_bound = bound_ms(nbytes, flops)
-    # K4's products run on the tensor cores in 3xTF32: three TF32 products
-    # for each f32 one.
-    k4_tc_bound = bound_ms(nbytes, 3 * products, TF32_FLOPS_PER_S)
+    bounds = {}
+    for key, mod, work in (('k3', k3, k3_work), ('k4', k4, k4_work)):
+        print(f'fused kernels: {key.upper()} resources '
+              f'{json.dumps(mod.kernel_info())}')
+        nbytes, flops, products = work(real, e, n, k, res)
+        # The products run on the tensor cores in 3xTF32: three TF32
+        # products for each f32 one.
+        bounds[key] = (bound_ms(nbytes, flops),
+                       bound_ms(nbytes, 3 * products, TF32_FLOPS_PER_S))
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     timings = {
         'k3': dict(
@@ -404,22 +431,22 @@ def phase_fused_kernels(torch, np):
                 *args, mode, tanh), flush),
             plain_ms=time_cuda(torch, lambda: k3.fused_edge_forward_plain(
                 *args, mode, tanh), flush),
-            library_ms=None, bound=bound_ms(*k3_work(real, e, n, k, res))),
+            library_ms=None, bound=bounds['k3'][1]),
         'k4': dict(
             ms=time_cuda(torch, lambda: k4.fused_edge_backward(
                 *args, *cots, mode, tanh), flush),
             plain_ms=time_cuda(torch, lambda: k4.fused_edge_backward_plain(
                 *args, *cots, mode, tanh), flush),
-            library_ms=None, bound=k4_tc_bound),
+            library_ms=None, bound=bounds['k4'][1]),
     }
     for key, v in timings.items():
         print(f'fused kernels: {key} N={n} E={e} (real {real}) K={k} {mode} '
               f'ms={v["ms"]:.4f} plain_ms={v["plain_ms"]:.4f} '
               f'library_ms=none bound_ms={v["bound"][0]:.4f} '
               f'({v["bound"][1]})')
-    print(f'fused kernels: k4 bounds: f32 units {k4_f32_bound[0]:.4f} ms '
-          f'({k4_f32_bound[1]}), tensor cores in 3xTF32 '
-          f'{k4_tc_bound[0]:.4f} ms ({k4_tc_bound[1]})')
+    for key, (f32, tc) in bounds.items():
+        print(f'fused kernels: {key} bounds: f32 units {f32[0]:.4f} ms '
+              f'({f32[1]}), tensor cores in 3xTF32 {tc[0]:.4f} ms ({tc[1]})')
     return err, timings
 
 
@@ -496,24 +523,35 @@ def write_run_dir(torch, run: Path, flags: dict):
 
 
 def kernel_profile(torch, fn):
-    """Device time by kernel name over one profiled call of ``fn``."""
+    """Device time by kernel name over one profiled call of ``fn``, and the
+    port's kernel launches in that call by wrapper name."""
     from torch.profiler import ProfilerActivity, profile
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    before = sk.launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    launches = {name: n - before[name]
+                for name, n in sk.launch_counts().items()}
     return {evt.key: evt.self_device_time_total / 1e3
-            for evt in prof.key_averages() if evt.self_device_time_total > 0}
+            for evt in prof.key_averages()
+            if evt.self_device_time_total > 0}, launches
 
 
-def print_profile(label, by_name, shares):
+def print_profile(label, profiled, shares):
     """Kernel time of one profiled call, and the share of each
-    (label, kernel-name part) in ``shares``."""
+    (label, kernel-name part) in ``shares``; for a kernel-name part that is
+    a wrapper's name, also its time per launch."""
+    by_name, launches = profiled
     busy = sum(by_name.values())
     parts = []
     for ours_label, ours_key in shares:
         ours = sum(v for k, v in by_name.items() if ours_key in k)
+        per = (f', {launches[ours_key]} launches, '
+               f'{ours / launches[ours_key]:.4f} ms each'
+               if launches.get(ours_key) else '')
         parts.append(f'{ours_label} {ours:.3f} ms '
-                     f'({100 * ours / max(busy, 1e-9):.1f}%)')
+                     f'({100 * ours / max(busy, 1e-9):.1f}%{per})')
     print(f'profile: {label}: kernels {busy:.3f} ms device time '
           f'({len(by_name)} kernel names), of which {", ".join(parts)}; '
           f'top 8:')
@@ -541,8 +579,8 @@ def forward_profile(torch, trainer, loader, forward):
                 end.record()
                 torch.cuda.synchronize()
                 times.append(start.elapsed_time(end))
-        by_name = kernel_profile(torch, lambda: forward(batches[0]))
-    return statistics.median(times[len(batches):]), sizes, by_name
+        profiled = kernel_profile(torch, lambda: forward(batches[0]))
+    return statistics.median(times[len(batches):]), sizes, profiled
 
 
 def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
@@ -598,16 +636,16 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
             *args[:3], trainer.device, batch_size=32)
         forward = ((lambda b, m=trainer.model: fused_forward(m, b)) if fused
                    else trainer.model)
-        fwd, sizes, by_name = forward_profile(torch, trainer, loader,
-                                              forward)
+        fwd, sizes, profiled = forward_profile(torch, trainer, loader,
+                                               forward)
         launches[name] = counts[kernel]
         print(f'serving: {name} poses={n_poses} wall={wall:.3f} s '
               f'poses_per_s={n_poses / wall:.1f} '
               f'forward_ms_per_batch={fwd:.3f} launches={counts} '
               f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
               f'real E, E_pad)={sizes}')
-        print_profile(f'{name} one forward', by_name,
-                      [('K3', 'fused_edge')] if fused
+        print_profile(f'{name} one forward', profiled,
+                      [('K3', 'fused_edge_forward')] if fused
                       else [('the segment kernels', 'sorted_kernel')])
     return launches
 
@@ -629,7 +667,7 @@ def _fused_grads(torch, model, batch):
 
 def _step_ms(torch, trainer, batch, fused):
     """Median ms of one optimiser step by CUDA events, and one profiled
-    step's kernel time by name."""
+    step's kernel time by name and launches."""
     from pointvs_tpu_torch.parallel.steps import make_train_step
     step = make_train_step(trainer.model, trainer.optimiser, 'classification',
                            use_fused=fused)
@@ -731,11 +769,11 @@ def phase_training(torch, np, root: Path, types: Path):
 
     for name in ('module_cuda', 'fused_cuda'):
         fused_path = name.startswith('fused')
-        ms, by_name = _step_ms(torch, runs[name], batch, fused_path)
+        ms, profiled = _step_ms(torch, runs[name], batch, fused_path)
         print(f'training: {name} step_ms={ms:.3f} (median of 10, CUDA '
               f'events, batch of 32 poses)')
-        print_profile(f'{name} one step', by_name,
-                      [('K3+K4', 'fused_edge'),
+        print_profile(f'{name} one step', profiled,
+                      [('K3', 'fused_edge_forward'),
                        ('K4', 'fused_edge_backward')] if fused_path
                       else [('K1+K2', 'sorted_kernel')])
     return {'k1': module['segment_sum_sorted'],

@@ -36,6 +36,9 @@ SIGNATURES = {
         # h, h_dst, extras, mask, senders, prev, 9 weights, agg, phi, att,
         # msg, num_edges, k, num_nodes, attention, tanh, stream
         'pvs_fused_edge_forward': (_P,) * 19 + (_I64, _I, _I, _I, _I, _P),
+        # int[5]: registers, spill bytes, static and dynamic shared bytes,
+        # blocks resident per SM
+        'pvs_fused_forward_info': (_P,),
     },
     'fused_egnn_bwd': {
         # h, h_dst, extras, mask, senders, prev, 9 weights, d_agg, d_phi,

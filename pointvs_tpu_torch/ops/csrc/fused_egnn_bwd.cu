@@ -18,9 +18,9 @@
 // the bench shape); on tensor cores in 3xTF32 (3x the flops at 495
 // TFLOP/s, ~0.025 ms) it is the bytes (~0.026 ms at 3.35 TB/s).
 //
-// Design (fused_egnn_tc.cuh has the tile helpers), against the four causes
-// that held the first version (one warp per edge, lane j on feature j) at
-// ~20x its bound:
+// Design (the tile helpers, shared with K3, are in fused_egnn_tile.cuh and
+// fused_egnn_tc.cuh), against the four causes that held the first version
+// (one warp per edge, lane j on feature j) at ~20x its bound:
 // 1. Occupancy. Parameter gradients no longer live as a row per lane (218
 //    registers, one 8-warp block per SM). A block is 4 warps; warps 0 and 1
 //    hold rows 0-15 and 16-31 of dW1 (32 x 72), warp 2 dW2 and warp 3 dcW1
@@ -59,7 +59,7 @@
 // parameter-gradient partial row (every element owned by one thread, in a
 // fixed order over tiles) and a second kernel sums the rows in block
 // order. No float atomics anywhere, so two runs give identical bits.
-#include "fused_egnn_tc.cuh"
+#include "fused_egnn_tile.cuh"
 
 namespace pvs_fused {
 
@@ -77,10 +77,6 @@ constexpr int kOffAttW = kOffCW2 + kMaxK;
 constexpr int kOffAttB = kOffAttW + kMaxK;
 constexpr int kParamWidth = kOffAttB + 1;
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = kWarp * kBwdWarps;
-constexpr int kTile = 16 * kBwdWarps;     // edges per tile, 16 per warp
-
 namespace {
 
 struct Cotangents {
@@ -91,410 +87,40 @@ struct EdgeGrads {
   float *d_h_src, *d_h_dst, *d_radial, *d_prev;
 };
 
-// Tiles of up to 64 edges, row-major: the edge MLP input (two buffers: the
-// next tile's copy runs behind this tile's math), the per-row mask and
-// sender (three buffers: they are fetched a tile ahead of x, whose gathers
-// need them, and set where the tile after starts), then for the current
-// tile the activations the parameter gradients need and the pre-activation
+// K4's tile buffers: the input tiles, then for the current tile the
+// activations the parameter gradients need and the pre-activation
 // gradients.
 struct TileBuf {
-  float x[2][kTile * kXPitch];
-  float mask[3][kTile + 1];   // one row more: where the next tile starts
-  int sender[3][kTile + 1];
+  InTiles in;
   float hid[kTile * kFPitch], m[kTile * kFPitch];
   float gp1[kTile * kFPitch], gp2[kTile * kFPitch], gprec[kTile * kFPitch];
   float glogit[kTile];
   float logit[kTile], gatt[kTile];   // per row, for the in-tile softmax
-  float dcw2[kBwdWarps][kMaxK];      // per-warp dcw2, summed at the end
+  float dcw2[kTileWarps][kMaxK];     // per-warp dcw2, summed at the end
 };
 
 constexpr size_t kWeightBytes = (sizeof(TcWeights) + 15) / 16 * 16;
 constexpr size_t kSmemBytes = kWeightBytes + sizeof(TileBuf);
 
-struct Inputs {
-  const float *h, *h_dst, *extras, *mask, *prev;
-  const int32_t* senders;
-  bool vec4;   // K % 4 == 0 and h, h_dst, extras 16-byte aligned
-};
-
-// Real edges (sender < num_nodes) form the sorted prefix [0, real). Block b
-// owns [cut(b), cut(b + 1)): the prefix split into gridDim.x nearly equal
-// parts, each cut moved forward to the next sender boundary so that a
-// block owns every edge of its senders. Equal edge counts, not equal
-// sender counts: degrees vary several-fold along a batch of graphs.
-__device__ __forceinline__ int64_t block_cut(
-    const int32_t* __restrict__ senders, int64_t real, int64_t per,
-    int64_t b) {
-  const int64_t p = min(b * per, real);
-  if (p == 0 || p == real || senders[p - 1] != senders[p]) return p;
-  return lower_bound(senders, p, real, senders[p] + 1);
-}
-
-// The block's edges [e0, e1) and their senders [n0, n1).
-__device__ __forceinline__ Range bwd_block_range(
-    const int32_t* __restrict__ senders, int64_t real) {
-  const int64_t per = (real + gridDim.x - 1) / gridDim.x;
-  Range r;
-  r.e0 = block_cut(senders, real, per, blockIdx.x);
-  r.e1 = block_cut(senders, real, per, blockIdx.x + 1);
-  r.n0 = r.e0 < r.e1 ? senders[r.e0] : 0;
-  r.n1 = r.e0 < r.e1 ? senders[r.e1 - 1] + 1 : 0;
-  return r;
-}
-
-// Whether a sender of the block has more than 64 edges.
-__device__ __forceinline__ bool has_hub(const int32_t* __restrict__ senders,
-                                        const Range& r) {
-  bool hub = false;
-  for (int64_t e = r.e0 + threadIdx.x; e + kTile < r.e1; e += kBwdThreads) {
-    hub = hub || senders[e] == senders[e + kTile];
-  }
-  return __syncthreads_or(hub);
-}
-
-// Write 0 to the `width` values of every padding edge [real, num_edges) of
-// `out` (none when out is null); every block takes a strided share.
-__device__ __forceinline__ void zero_tail(float* out, int64_t real,
-                                          int64_t num_edges, int width) {
-  if (out == nullptr) return;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = real * width + static_cast<int64_t>(blockIdx.x) *
-                                      blockDim.x + threadIdx.x;
-       i < num_edges * width; i += stride) {
-    out[i] = 0.f;
-  }
-}
-
-// The tile pipeline, all copies by cp.async. Tile i starts at b_i; its
-// sender and mask rows [b_i, b_i + 65) go to buffer i % 3 two tiles ahead,
-// its x rows one tile ahead to buffer i % 2, zero-filled past the tile's
-// end and in columns past K.
-__device__ __forceinline__ void issue_rows(TileBuf& tb, const Inputs& in,
-                                           int64_t b, int64_t e1, int buf) {
-  const int row = threadIdx.x;
-  if (row > kTile || b >= e1) return;
-  const int64_t e = b + row;
-  const bool inside = e < e1;
-  cp_async4(&tb.mask[buf][row], inside ? in.mask + e : in.mask, inside);
-  cp_async4(&tb.sender[buf][row], inside ? in.senders + e : in.senders,
-            inside);
-}
-
-__device__ __forceinline__ void issue_x(TileBuf& tb, const Inputs& in,
-                                        int64_t eb, int64_t ee, int xbuf,
-                                        int rowbuf, int k) {
-  const int* sender = tb.sender[rowbuf];
-  float* x = tb.x[xbuf];
-  if (in.vec4) {   // 16-byte copies: 18 per row
-    constexpr int kChunks = kXCols / 4;
-#pragma unroll 3
-    for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kBwdThreads) {
-      const int row = idx / kChunks, c = (idx % kChunks) * 4;
-      const int64_t e = eb + row;
-      const float* src = in.h;
-      bool fill = false;
-      if (e < ee) {
-        if (c < kMaxK) {
-          fill = c < k;
-          src = in.h + static_cast<int64_t>(sender[row]) * k + c;
-        } else if (c < 2 * kMaxK) {
-          fill = c - kMaxK < k;
-          src = in.h_dst + e * k + (c - kMaxK);
-        } else if (c < kIn) {
-          fill = true;
-          src = in.extras + e * 4;
-        }
-      }
-      cp_async16(x + row * kXPitch + c, fill ? src : in.h, fill);
-    }
-    return;
-  }
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < kTile * kXCols; idx += kBwdThreads) {
-    const int row = idx / kXCols, c = idx % kXCols;
-    const int64_t e = eb + row;
-    const float* src = in.h;
-    bool fill = false;
-    if (e < ee) {
-      if (c < kMaxK) {
-        fill = c < k;
-        src = in.h + static_cast<int64_t>(sender[row]) * k + c;
-      } else if (c < 2 * kMaxK) {
-        fill = c - kMaxK < k;
-        src = in.h_dst + e * k + (c - kMaxK);
-      } else if (c < kIn) {
-        fill = true;
-        src = in.extras + e * 4 + (c - 2 * kMaxK);
-      }
-    }
-    cp_async4(x + row * kXPitch + c, fill ? src : in.h, fill);
-  }
-}
-
-// End of the tile that starts at b, from its sender rows: b + 64 (or e1),
-// or with `whole_senders` the last sender boundary within 64 edges (the
-// block has no sender of more than 64 edges). Every warp reads the same
-// rows, so the whole block agrees.
-__device__ __forceinline__ int64_t tile_end(const TileBuf& tb, int rowbuf,
-                                            int64_t b, int64_t e1,
-                                            bool whole_senders) {
-  if (b + kTile >= e1) return e1;
-  if (!whole_senders) return b + kTile;
-  const int* s = tb.sender[rowbuf];
-  const int lane = threadIdx.x % kWarp;
-  // Row j starts a sender when s[j] != s[j - 1]; the largest such j <= 64.
-  const unsigned lo = __ballot_sync(kFull, s[lane + 1] != s[lane]);
-  const unsigned hi = __ballot_sync(kFull, s[lane + 33] != s[lane + 32]);
-  return b + (hi != 0u ? 64 - __clz(hi) : 32 - __clz(lo));
-}
-
-struct TileRef {
-  int64_t eb, ee;
-  const float* x;
-  const float* mask;
-  const int* sender;
-};
-
-// Walks the block's tiles: `next` waits for the current tile's copies
-// (every thread is then past the previous tile, so its buffers may be
-// refilled), starts the copies of the tiles after it and returns it.
-struct TilePipe {
-  int64_t b, ee, e1, tile;
-  bool whole_senders;
-
-  __device__ __forceinline__ bool more() const { return b < e1; }
-
-  __device__ __forceinline__ TileRef next(TileBuf& tb, const Inputs& in,
-                                          int k) {
-    cp_async_wait_all();
-    __syncthreads();
-    const TileRef tr{b, ee, tb.x[tile % 2], tb.mask[tile % 3],
-                     tb.sender[tile % 3]};
-    const int64_t bn = ee;
-    int64_t en = bn;
-    if (bn < e1) {
-      en = tile_end(tb, (tile + 1) % 3, bn, e1, whole_senders);
-      issue_x(tb, in, bn, en, (tile + 1) % 2, (tile + 1) % 3, k);
-      issue_rows(tb, in, en, e1, (tile + 2) % 3);
-    }
-    cp_async_commit();
-    b = bn;
-    ee = en;
-    ++tile;
-    return tr;
-  }
-};
-
-// Rows and end of tile 0 ready, its x and the rows of tile 1 in flight.
-__device__ __forceinline__ TilePipe pipe_start(TileBuf& tb, const Inputs& in,
-                                               const Range& r,
-                                               bool whole_senders, int k) {
-  TilePipe tp{r.e0, r.e0, r.e1, 0, whole_senders};
-  if (r.e0 >= r.e1) return tp;
-  issue_rows(tb, in, r.e0, r.e1, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  tp.ee = tile_end(tb, 0, r.e0, r.e1, whole_senders);
-  issue_x(tb, in, r.e0, tp.ee, 0, 0, k);
-  issue_rows(tb, in, tp.ee, r.e1, 1);
-  cp_async_commit();
-  return tp;
-}
-
-// The warp's 16 rows of the tile: edge, in-range flag and mask of the two
-// C-fragment rows g and g + 8 of this lane.
-struct Rows {
-  int64_t e[2];
-  bool inside[2], valid[2];
-  float mask[2];
-  int sender[2];
-};
-
-__device__ __forceinline__ Rows warp_rows(const TileRef& tr, int r0, int g) {
-  Rows rw;
-#pragma unroll
-  for (int sl = 0; sl < 2; ++sl) {
-    const int row = r0 + g + 8 * sl;
-    rw.e[sl] = tr.eb + row;
-    rw.inside[sl] = rw.e[sl] < tr.ee;
-    rw.mask[sl] = rw.inside[sl] ? tr.mask[row] : 0.f;
-    rw.valid[sl] = rw.inside[sl] && rw.mask[sl] > 0.f;
-    rw.sender[sl] = tr.sender[row];
-  }
-  return rw;
-}
-
-// Segmented inclusive scans over a tile's 64 rows in one warp, lane L
-// holding rows 2L and 2L + 1: forward, each row combines its segment's rows
-// up to it (first[i]: row starts a segment); backward, from it to the
-// segment's end (last[i]: row ends one).
-template <typename Op>
-__device__ __forceinline__ void seg_scan_fwd(float (&v)[2],
-                                             const bool (&first)[2], Op op) {
-  const int lane = threadIdx.x % kWarp;
-  float val = first[1] ? v[1] : op(v[0], v[1]);
-  bool flag = first[0] || first[1];
-  for (int d = 1; d < kWarp; d *= 2) {
-    const float other = __shfl_up_sync(kFull, val, d);
-    const bool other_flag = __shfl_up_sync(kFull, flag, d);
-    if (lane >= d) {
-      if (!flag) val = op(other, val);
-      flag = flag || other_flag;
-    }
-  }
-  const float carry = __shfl_up_sync(kFull, val, 1);
-  if (lane > 0 && !first[0]) v[0] = op(carry, v[0]);
-  if (!first[1]) v[1] = op(v[0], v[1]);
-}
-
-template <typename Op>
-__device__ __forceinline__ void seg_scan_bwd(float (&v)[2],
-                                             const bool (&last)[2], Op op) {
-  const int lane = threadIdx.x % kWarp;
-  float val = last[0] ? v[0] : op(v[0], v[1]);
-  bool flag = last[0] || last[1];
-  for (int d = 1; d < kWarp; d *= 2) {
-    const float other = __shfl_down_sync(kFull, val, d);
-    const bool other_flag = __shfl_down_sync(kFull, flag, d);
-    if (lane + d < kWarp) {
-      if (!flag) val = op(val, other);
-      flag = flag || other_flag;
-    }
-  }
-  const float carry = __shfl_down_sync(kFull, val, 1);
-  if (lane < kWarp - 1 && !last[1]) v[1] = op(v[1], carry);
-  if (!last[0]) v[0] = op(v[0], v[1]);
-}
-
-// The segment's total in every row: a forward scan, then its last row's
-// value spread back over the segment.
-template <typename Op>
-__device__ __forceinline__ void seg_total(float (&v)[2],
-                                          const bool (&first)[2],
-                                          const bool (&last)[2], Op op,
-                                          float identity) {
-  seg_scan_fwd(v, first, op);
-  v[0] = last[0] ? v[0] : identity;
-  v[1] = last[1] ? v[1] : identity;
-  seg_scan_bwd(v, last, op);
-}
-
-// One warp: the per-sender softmax of the tile's rows (tiles cut at sender
-// boundaries hold every edge of a sender) and its backward, from the logit
-// and g_att in tb.logit / tb.gatt, which are overwritten by att and
-// att * (g_att - sum(att * g_att)), as the reference's per-sender softmax.
+// One warp: the per-sender softmax of the tile's rows and its backward,
+// from the logit and g_att in tb.logit / tb.gatt, which are overwritten by
+// att and att * (g_att - sum(att * g_att)), as the reference's per-sender
+// softmax.
 __device__ __forceinline__ void tile_softmax(TileBuf& tb, const TileRef& tr) {
-  const int len = static_cast<int>(tr.ee - tr.eb);
   const int r0 = 2 * (threadIdx.x % kWarp);
-  const auto key = [&](int r) { return r < len ? tr.sender[r] : -1; };
   bool first[2], last[2];
-  float mk[2], lg[2], ga[2], v[2];
+  float a[2], v[2];
+  seg_softmax(tr, tb.logit, first, last, a);
+  const auto sum_op = [](float x, float y) { return x + y; };
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + i;
-    first[i] = r == 0 || key(r) != key(r - 1);
-    last[i] = r == kTile - 1 || key(r) != key(r + 1);
-    mk[i] = r < len ? tr.mask[r] : 0.f;
-    lg[i] = mk[i] > 0.f ? tb.logit[r] : -1e30f;
-    ga[i] = tb.gatt[r];
-    v[i] = lg[i];
-  }
-  const auto max_op = [](float a, float b) { return fmaxf(a, b); };
-  const auto sum_op = [](float a, float b) { return a + b; };
-  seg_total(v, first, last, max_op, -1e30f);
-  float e[2], a[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    e[i] = expf(lg[i] - (v[i] > -1e29f ? v[i] : 0.f)) * mk[i];
-    v[i] = e[i];
-  }
+  for (int i = 0; i < 2; ++i) v[i] = a[i] * tb.gatt[r0 + i];
   seg_total(v, first, last, sum_op, 0.f);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    a[i] = e[i] / fmaxf(v[i], 1e-16f);
-    v[i] = a[i] * ga[i];
-  }
-  seg_total(v, first, last, sum_op, 0.f);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    const float ga = tb.gatt[r0 + i];
     tb.logit[r0 + i] = a[i];
-    tb.gatt[r0 + i] = a[i] * (ga[i] - v[i]);
+    tb.gatt[r0 + i] = a[i] * (ga - v[i]);
   }
-}
-
-// Recomputed forward of the warp's 16 rows, in C fragments (n-tile nt of
-// 8 features): pre1, pre2, m (with prev), and with `coord` also prec; the
-// per-row logit and pre-phi. hid and m go to the tile buffer.
-struct Fwd {
-  float pre1[kFT][4], pre2[kFT][4], m[kFT][4], prec[kFT][4];
-  float logit[2], prephi[2];
-};
-
-__device__ __forceinline__ void warp_forward(const TcWeights& w, TileBuf& tb,
-                                             const float* x,
-                                             const float* __restrict__ prev,
-                                             const Rows& rw, int k, int r0,
-                                             int g, int t, bool coord,
-                                             Fwd& f) {
-#pragma unroll
-  for (int nt = 0; nt < kFT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = frag_col(nt, i, t);
-      f.pre1[nt][i] = w.b1[c];
-      f.pre2[nt][i] = w.b2[c];
-      f.prec[nt][i] = w.cb1[c];
-    }
-  }
-  warp_mma<kXT, kFT>(f.pre1, View{x + r0 * kXPitch, kXPitch, 1},
-                     View{w.w1, 1, kXPitch}, g, t);
-  float* hid = tb.hid + r0 * kFPitch;
-#pragma unroll
-  for (int nt = 0; nt < kFT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hid[frag_row(i, g) * kFPitch + frag_col(nt, i, t)] =
-          silu_f(f.pre1[nt][i]);
-    }
-  }
-  __syncwarp();
-  warp_mma<kFT, kFT>(f.pre2, View{hid, kFPitch, 1}, View{w.w2, 1, kFPitch},
-                     g, t);
-  float* m = tb.m + r0 * kFPitch;
-  float lg[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < kFT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = frag_col(nt, i, t), sl = i >> 1;
-      float v = silu_f(f.pre2[nt][i]);
-      // prev at masked edges may hold NaN: select, never multiply.
-      if (prev != nullptr && rw.valid[sl] && c < k) {
-        v += prev[rw.e[sl] * k + c];
-      }
-      f.m[nt][i] = v;
-      m[frag_row(i, g) * kFPitch + c] = v;
-      lg[sl] = fmaf(w.attw[c], v, lg[sl]);
-    }
-  }
-  f.logit[0] = quad_sum(lg[0]) + w.attb;
-  f.logit[1] = quad_sum(lg[1]) + w.attb;
-  if (!coord) return;
-  __syncwarp();
-  warp_mma<kFT, kFT>(f.prec, View{m, kFPitch, 1}, View{w.cw1, 1, kFPitch},
-                     g, t);
-  float ph[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < kFT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = frag_col(nt, i, t);
-      ph[i >> 1] = fmaf(w.cw2[c], silu_f(f.prec[nt][i]), ph[i >> 1]);
-    }
-  }
-  f.prephi[0] = quad_sum(ph[0]);
-  f.prephi[1] = quad_sum(ph[1]);
 }
 
 // The message cotangent of the lane's fragment elements: d_agg[s] times the
@@ -537,7 +163,7 @@ __device__ __forceinline__ void row_g_att(const float (&gmsg)[kFT][4],
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 2) fused_edge_backward_kernel(
+__global__ void __launch_bounds__(kTileThreads, 2) fused_edge_backward_kernel(
     Inputs in, Params p, Cotangents cot, EdgeGrads out, float* scratch,
     float* __restrict__ partials, int64_t num_edges, int k, int num_nodes,
     int attention, int use_tanh, bool pair) {
@@ -545,23 +171,25 @@ __global__ void __launch_bounds__(kBwdThreads, 2) fused_edge_backward_kernel(
   TcWeights& w = *reinterpret_cast<TcWeights*>(smem_raw);
   TileBuf& tb = *reinterpret_cast<TileBuf*>(
       reinterpret_cast<char*>(smem_raw) + kWeightBytes);
-  load_weights_tc(w, p, k);  // ends with a barrier
+  load_weights_tc<kTileThreads>(w, p, k);  // ends with a barrier
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int64_t real = lower_bound(in.senders, 0, num_edges, num_nodes);
-  const Range r = bwd_block_range(in.senders, real);
+  const int64_t real =
+      block_lower_bound(in.senders, 0, num_edges, num_nodes);
+  const Range r = edge_share(in.senders, real);
   // Softmax mode: tiles cut at sender boundaries, the softmax inside each
   // tile (no phases 1 and 2), unless a sender has more than 64 edges.
   const bool in_tile = attention == kSoftmax && !has_hub(in.senders, r);
 
   if (attention == kSoftmax && !in_tile) {
     // Phase 1: per edge, the logit and g_att into scratch[e] = (l, g).
-    for (TilePipe tp = pipe_start(tb, in, r, false, k); tp.more();) {
-      const TileRef tr = tp.next(tb, in, k);
+    for (TilePipe tp = pipe_start(tb.in, in, r, false, k); tp.more();) {
+      const TileRef tr = tp.next(tb.in, in, k);
       const Rows rw = warp_rows(tr, r0, g);
       Fwd f;
-      warp_forward(w, tb, tr.x, in.prev, rw, k, r0, g, t, false, f);
+      warp_forward(w, tb.hid, tb.m, tr.x, in.prev, rw, k, r0, g, t, false,
+                   f);
       float gmsg[kFT][4], g_att[2];
       gather_gmsg(cot, rw, k, t, gmsg);
       row_g_att(gmsg, f.m, rw, cot, g_att);
@@ -576,7 +204,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) fused_edge_backward_kernel(
     __syncthreads();
     // Phase 2: per sender, softmax and sum(att * g_att); scratch[e] becomes
     // (att, att * (g_att - sum)).
-    for (int node = r.n0 + warp; node < r.n1; node += kBwdWarps) {
+    for (int node = r.n0 + warp; node < r.n1; node += kTileWarps) {
       const int64_t lo = lower_bound(in.senders, r.e0, r.e1, node);
       const int64_t hi = lower_bound(in.senders, lo, r.e1, node + 1);
       float cand = -1e30f;
@@ -627,11 +255,12 @@ __global__ void __launch_bounds__(kBwdThreads, 2) fused_edge_backward_kernel(
   zero_tail(out.d_h_dst, real, num_edges, k);
   zero_tail(out.d_prev, real, num_edges, k);
   zero_tail(out.d_radial, real, num_edges, 1);
-  for (TilePipe tp = pipe_start(tb, in, r, in_tile, k); tp.more();) {
-    const TileRef tr = tp.next(tb, in, k);
+  for (TilePipe tp = pipe_start(tb.in, in, r, in_tile, k); tp.more();) {
+    const TileRef tr = tp.next(tb.in, in, k);
     const Rows rw = warp_rows(tr, r0, g);
     Fwd f;
-    warp_forward(w, tb, tr.x, in.prev, rw, k, r0, g, t, true, f);
+    warp_forward(w, tb.hid, tb.m, tr.x, in.prev, rw, k, r0, g, t, true,
+                 f);
 
     // The message gradient g_m, elementwise on the fragments.
     float gm[kFT][4];
@@ -865,7 +494,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) fused_edge_backward_kernel(
   __syncthreads();
   if (threadIdx.x < kMaxK) {
     float v = 0.f;
-    for (int wi = 0; wi < kBwdWarps; ++wi) v += tb.dcw2[wi][threadIdx.x];
+    for (int wi = 0; wi < kTileWarps; ++wi) v += tb.dcw2[wi][threadIdx.x];
     dst[kOffCW2 + threadIdx.x] = v;
   }
 }
@@ -883,38 +512,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
   d_params[i] = acc;
 }
 
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(fused_edge_backward_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
-}
-
-// The device's resident block slots: SMs x blocks per SM at K4's
-// resources.
-int resident_slots(int dev) {
-  int sms = 0, per_sm = 0;
-  allow_smem();
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_edge_backward_kernel, kBwdThreads, kSmemBytes);
-  return max(1, sms * per_sm);
-}
-
-// Blocks: one wave of the resident block slots (the blocks' tile loops are
-// long, so a second, partial wave would cost a whole block's time), at most
-// one per sender. The queries, and the shared-memory opt-in they make, run
-// once per device, not on every launch.
+// Blocks: one wave of the resident block slots at K4's resources, at most
+// one per sender (fused_egnn_tile.cuh).
 int num_blocks(int num_nodes) {
-  constexpr int kDevices = 16;
-  static int slots[kDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int n = dev < kDevices ? slots[dev] : 0;
-  if (n == 0) {
-    n = resident_slots(dev);
-    if (dev < kDevices) slots[dev] = n;
-  }
-  return min(n, max(num_nodes, 1));
+  static int slots[kMaxDevices] = {};
+  return wave_blocks(reinterpret_cast<const void*>(fused_edge_backward_kernel),
+                     kSmemBytes, num_nodes, slots);
 }
 
 }  // namespace
@@ -935,20 +538,9 @@ extern "C" int pvs_fused_backward_num_blocks(int num_nodes) {
 // shared bytes per block, [4] blocks resident per SM. Returns a cudaError.
 extern "C" int pvs_fused_backward_info(int* info) {
   using namespace pvs_fused;
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fused_edge_backward_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fused_edge_backward_kernel, kBwdThreads, kSmemBytes);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(attr.sharedSizeBytes);
-  info[3] = static_cast<int>(kSmemBytes);
-  info[4] = blocks;
-  return static_cast<int>(err);
+  return tile_kernel_info(
+      reinterpret_cast<const void*>(fused_edge_backward_kernel), kSmemBytes,
+      info);
 }
 
 // Plain C interface for ctypes: launches both kernels on the given stream,
@@ -982,7 +574,7 @@ extern "C" int pvs_fused_edge_backward(
   const Cotangents cot{d_agg, d_phi, d_att, d_msg};
   const EdgeGrads out{d_h_src, d_h_dst, d_radial, d_prev};
   const int blocks = num_blocks(num_nodes);   // opts in to the shared memory
-  fused_edge_backward_kernel<<<blocks, kBwdThreads, kSmemBytes, st>>>(
+  fused_edge_backward_kernel<<<blocks, kTileThreads, kSmemBytes, st>>>(
       in, p, cot, out, scratch, partials, num_edges, k, num_nodes, attention,
       use_tanh, pair);
   const cudaError_t err = cudaGetLastError();

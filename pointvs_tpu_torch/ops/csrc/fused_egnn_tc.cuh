@@ -1,4 +1,4 @@
-// Tensor-core tile helpers for the fused edge pass kernels (K4 today):
+// Tensor-core tile helpers for the fused edge pass kernels K3 and K4:
 // f32-accurate warp products on mma.sync m16n8k8 TF32 by a 3xTF32 split,
 // C-fragment bookkeeping, and the layer's weights in shared memory at the
 // pitches the fragment loads want.
@@ -44,35 +44,76 @@ struct TcWeights {
   float attb;
 };
 
+// Element idx of the padded w1 ([32 rows][76]) and of a padded square
+// matrix ([32 rows][36]) in the torch layouts of ops/fused_egnn.py.
+__device__ __forceinline__ float padded_w1(const float* __restrict__ w1,
+                                           int idx, int k) {
+  const int j = idx / kXPitch, c = idx % kXPitch;
+  int col = -1;
+  if (c < kMaxK) {
+    if (c < k) col = c;
+  } else if (c < 2 * kMaxK) {
+    if (c - kMaxK < k) col = k + (c - kMaxK);
+  } else if (c < kIn) {
+    col = 2 * k + (c - 2 * kMaxK);
+  }
+  return (j < k && col >= 0) ? w1[j * (2 * k + 4) + col] : 0.f;
+}
+__device__ __forceinline__ float padded_square(const float* __restrict__ w,
+                                               int idx, int k) {
+  const int j = idx / kFPitch, c = idx % kFPitch;
+  return (j < k && c < k) ? w[j * k + c] : 0.f;
+}
+
 // Copy the layer's weights into shared memory, zero-padded to 32 features
-// and 72 input columns; ends with a barrier.
+// and 72 input columns, by kThreads threads (the block); ends with a
+// barrier. Each thread issues all of its loads before its first store, so
+// the copy takes about one memory latency rather than one per element.
+template <int kThreads>
 __device__ void load_weights_tc(TcWeights& s, const Params& p, int k) {
-  const int in = 2 * k + 4;
-  for (int idx = threadIdx.x; idx < kMaxK * kXPitch; idx += blockDim.x) {
-    const int j = idx / kXPitch, c = idx % kXPitch;
-    int col = -1;
-    if (c < kMaxK) {
-      if (c < k) col = c;
-    } else if (c < 2 * kMaxK) {
-      if (c - kMaxK < k) col = k + (c - kMaxK);
-    } else if (c < kIn) {
-      col = 2 * k + (c - 2 * kMaxK);
-    }
-    s.w1[idx] = (j < k && col >= 0) ? p.w1[j * in + col] : 0.f;
+  constexpr int kW1 = kMaxK * kXPitch, kW = kMaxK * kFPitch;
+  constexpr int kPer1 = (kW1 + kThreads - 1) / kThreads;
+  constexpr int kPer = (kW + kThreads - 1) / kThreads;
+  float w1[kPer1], w2[kPer], cw1[kPer], vec[5];
+#pragma unroll
+  for (int i = 0; i < kPer1; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    w1[i] = idx < kW1 ? padded_w1(p.w1, idx, k) : 0.f;
   }
-  for (int idx = threadIdx.x; idx < kMaxK * kFPitch; idx += blockDim.x) {
-    const int j = idx / kFPitch, i = idx % kFPitch;
-    const bool inside = j < k && i < k;
-    s.w2[idx] = inside ? p.w2[j * k + i] : 0.f;
-    s.cw1[idx] = inside ? p.cw1[j * k + i] : 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    w2[i] = idx < kW ? padded_square(p.w2, idx, k) : 0.f;
+    cw1[i] = idx < kW ? padded_square(p.cw1, idx, k) : 0.f;
   }
-  for (int j = threadIdx.x; j < kMaxK; j += blockDim.x) {
+  const int j = threadIdx.x;   // kThreads >= kMaxK: one row of the vectors
+  if (j < kMaxK) {
     const bool inside = j < k;
-    s.b1[j] = inside ? p.b1[j] : 0.f;
-    s.b2[j] = inside ? p.b2[j] : 0.f;
-    s.cb1[j] = inside ? p.cb1[j] : 0.f;
-    s.cw2[j] = inside ? p.cw2[j] : 0.f;
-    s.attw[j] = inside ? p.attw[j] : 0.f;
+    vec[0] = inside ? p.b1[j] : 0.f;
+    vec[1] = inside ? p.b2[j] : 0.f;
+    vec[2] = inside ? p.cb1[j] : 0.f;
+    vec[3] = inside ? p.cw2[j] : 0.f;
+    vec[4] = inside ? p.attw[j] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kPer1; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (idx < kW1) s.w1[idx] = w1[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (idx < kW) {
+      s.w2[idx] = w2[i];
+      s.cw1[idx] = cw1[i];
+    }
+  }
+  if (j < kMaxK) {
+    s.b1[j] = vec[0];
+    s.b2[j] = vec[1];
+    s.cb1[j] = vec[2];
+    s.cw2[j] = vec[3];
+    s.attw[j] = vec[4];
   }
   if (threadIdx.x == 0) s.attb = p.attb[0];
   __syncthreads();

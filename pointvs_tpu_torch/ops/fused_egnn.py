@@ -19,7 +19,11 @@ its 128-node windows and its per-window edge capacity are TPU tiling and
 have no counterpart here.
 
 CPU tensors take ``fused_edge_forward_plain``; CUDA tensors launch K3
-(``csrc/fused_egnn.cu``), never the plain version.
+(``csrc/fused_egnn.cu``), never the plain version: blocks of equal edge
+shares, 64-edge tiles whose edge-MLP products run on tensor cores
+(mma.sync TF32 with a 3xTF32 split, f32-accurate), the softmax and the
+per-sender sums inside tiles cut at sender boundaries, no float atomics
+(two runs give identical bits).
 """
 from __future__ import annotations
 
@@ -196,6 +200,27 @@ def fused_edge_forward(h, h_dst, extras, edge_mask, senders, prev, params,
 
 
 fused_edge_forward.launches = 0
+
+KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem_bytes',
+                    'dynamic_smem_bytes', 'blocks_per_sm')
+
+
+def read_kernel_info(library: str, function: str) -> dict:
+    """A tile kernel's resources on the current CUDA device (builds it if
+    needed): registers per thread, spill bytes per thread, shared bytes per
+    block and the blocks resident per SM at those."""
+    import ctypes
+    from pointvs_tpu_torch.ops._build import load
+    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = getattr(load(library), function)(ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f'{function} failed: cudaError {err}')
+    return dict(zip(KERNEL_INFO_KEYS, info))
+
+
+def kernel_info() -> dict:
+    """K3's resources on the current CUDA device (``read_kernel_info``)."""
+    return read_kernel_info('fused_egnn', 'pvs_fused_forward_info')
 
 
 class FusedEdgePass(torch.autograd.Function):

@@ -35,6 +35,7 @@ from pointvs_tpu_torch.ops.fused_egnn import (
     check_edge_inputs,
     edge_mlp_forward,
     ptr,
+    read_kernel_info,
 )
 
 def _dsilu(x):
@@ -187,19 +188,7 @@ def fused_edge_backward(h, h_dst, extras, edge_mask, senders, prev, params,
 
 fused_edge_backward.launches = 0
 
-KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem_bytes',
-                    'dynamic_smem_bytes', 'blocks_per_sm')
-
 
 def kernel_info() -> dict:
-    """K4's resources on the current CUDA device (builds it if needed):
-    registers per thread, spill bytes per thread, shared bytes per block and
-    the blocks resident per SM at those."""
-    import ctypes
-    from pointvs_tpu_torch.ops._build import load
-    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
-    err = load('fused_egnn_bwd').pvs_fused_backward_info(
-        ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f'fused_edge_backward info failed: cudaError {err}')
-    return dict(zip(KERNEL_INFO_KEYS, info))
+    """K4's resources on the current CUDA device (``read_kernel_info``)."""
+    return read_kernel_info('fused_egnn_bwd', 'pvs_fused_backward_info')

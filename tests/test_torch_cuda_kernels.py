@@ -10,11 +10,13 @@ tied maximum logits, rows with every edge masked, and E < 4 * 128. K3/K4
 edge cases (``make_edge_case``, also used by tests/test_torch_fused_egnn.py
 against the JAX package): empty senders, fully masked senders, a padding
 tail, NaN canaries in the previous messages, E < 128, a single block of
-senders, every attention mode, with and without the edge residual. K4's
-tile edge cases (``k4_stress_case``, also run by chip_smoke.py): a hub
-sender over several tiles, tiles straddling senders and blocks, 64+
-consecutive masked edges (a tile of NaN canaries in ``prev``), blocks
-without edges, K = 20 and K = 13.
+senders, every attention mode, with and without the edge residual. The
+tile edge cases of K3 and K4 (``tile_stress_case``, also run by
+chip_smoke.py, and in their JAX layout by tests/test_torch_fused_egnn.py):
+a hub sender over several tiles, senders of exactly 64 and 65 edges, tiles
+straddling senders and blocks, 64+ consecutive masked edges (a tile of NaN
+canaries in ``prev``), blocks without edges, K = 20 and K = 13; K3 and K4
+run twice must give identical bits.
 Tolerance atol 1e-5, rtol 1e-5 (f32 sums of the same terms in a different
 order); K4's parameter gradients, sums over every edge, atol 3e-5 x
 max(1, |plain|).
@@ -108,44 +110,69 @@ def make_edge_case(seed, n=256, k=16, residual=True, dtype=np.float32,
     return case, {key: cast(v) for key, v in cot.items()}
 
 
-def k4_stress_case(name):
-    """K4's tile edge cases: (case, cotangents, attention, residual, tanh).
+def tile_stress_case(name, jax_layout=False):
+    """K3's and K4's tile edge cases: (case, cotangents, attention,
+    residual, tanh).
 
     hub*: a sender with 350 edges (six tiles), one with 70 and one with
-    exactly 64 (softmax takes the two-phase path; sigmoid tiles straddle
-    senders and blocks); masked_run: 130 consecutive masked edges of one
+    exactly 64 (blocks with a sender of more than 64 edges take the
+    two-pass paths; sigmoid tiles straddle senders and blocks); hub65: one
+    sender with exactly 65 edges, the fewest that take the two-pass paths,
+    and a run of senders with exactly 64 edges, whose tiles end on a
+    sender's last edge; masked_run: 130 consecutive masked edges of one
     sender, so a whole 64-edge tile of ``prev`` is NaN canaries;
     empty_block: 300 consecutive senders without edges, so whole blocks
     own none; k20 / k13: K = 20 (16-byte copies) and K = 13 (4-byte copies,
     no paired stores). Real edge counts are not multiples of 64.
+
+    With ``jax_layout`` the layout fits the JAX kernel's 128-node windows:
+    senders without edges are appended up to a multiple of 128 of at least
+    256, and empty_block shrinks to 640 senders (300 of them empty).
     """
     rng = np.random.RandomState(len(name))
+
+    def layout(deg):
+        if not jax_layout:
+            return deg
+        n = max(256, -(-len(deg) // 128) * 128)
+        return np.concatenate([deg, np.zeros(n - len(deg), deg.dtype)])
+
     if name.startswith('hub'):
         deg = rng.poisson(6.0, 200)
-        deg[7], deg[40], deg[41] = 350, 70, 64
-        attention, residual = (('softmax', True) if name == 'hub'
-                               else ('sigmoid', False))
-        case, cot = make_edge_case(1, k=32, residual=residual, deg=deg,
+        if name == 'hub65':
+            deg[7] = 65
+            deg[100:104] = 64
+        else:
+            deg[7], deg[40], deg[41] = 350, 70, 64
+        attention, residual = (('sigmoid', False) if name == 'hub_sigmoid'
+                               else ('softmax', True))
+        case, cot = make_edge_case(5 if name == 'hub65' else 1, k=32,
+                                   residual=residual, deg=layout(deg),
                                    pad=29)
         return case, cot, attention, residual, True
     if name == 'masked_run':
         deg = rng.poisson(6.0, 300)
         deg[5] = 200
-        case, cot = make_edge_case(2, k=32, deg=deg, pad=29,
+        case, cot = make_edge_case(2, k=32, deg=layout(deg), pad=29,
                                    masked_runs=[(5, 20, 130)])
         return case, cot, 'softmax', True, True
     if name == 'empty_block':
-        deg = rng.poisson(6.0, 3000)
-        deg[1000:1300] = 0
-        case, cot = make_edge_case(3, k=32, residual=False, deg=deg, pad=29)
+        deg = rng.poisson(6.0, 640 if jax_layout else 3000)
+        if jax_layout:
+            deg[100:400] = 0
+        else:
+            deg[1000:1300] = 0
+        case, cot = make_edge_case(3, k=32, residual=False, deg=layout(deg),
+                                   pad=29)
         return case, cot, 'softmax', False, True
     k = {'k20': 20, 'k13': 13}[name]
-    case, cot = make_edge_case(4, k=k, deg=rng.poisson(9.0, 400), pad=29)
+    case, cot = make_edge_case(4, k=k, deg=layout(rng.poisson(9.0, 400)),
+                               pad=29)
     return case, cot, 'softmax', True, False
 
 
-K4_STRESS = ['hub', 'hub_sigmoid', 'masked_run', 'empty_block', 'k20',
-             'k13']
+TILE_STRESS = ['hub', 'hub_sigmoid', 'hub65', 'masked_run', 'empty_block',
+               'k20', 'k13']
 
 
 def _t(*arrays, device):
@@ -239,9 +266,9 @@ def test_fused_edge_kernels_match_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', K4_STRESS)
+@pytest.mark.parametrize('name', TILE_STRESS)
 def test_k4_tile_edge_cases_match_plain(name, cuda_device):
-    data, cot, attention, residual, tanh = k4_stress_case(name)
+    data, cot, attention, residual, tanh = tile_stress_case(name)
     args = _edge_tensors(data, cuda_device)
     cots = [None if cot[key] is None else
             torch.from_numpy(cot[key]).to(cuda_device)
@@ -264,6 +291,37 @@ def test_k4_tile_edge_cases_match_plain(name, cuda_device):
         assert torch.equal(got[4][p], again[4][p]), p
     torch.cuda.synchronize()
     assert sk.launch_counts()['fused_edge_backward'] == before + 2
+
+
+def _k3_matches_plain_and_repeats(data, attention, tanh, device):
+    args = _edge_tensors(data, device)
+    before = sk.launch_counts()['fused_edge_forward']
+    got = fused_edge_forward(*args, attention, tanh)
+    again = fused_edge_forward(*args, attention, tanh)
+    want = fused_edge_forward_plain(*args, attention, tanh)
+    for name, g, a, w in zip(('agg', 'phi', 'att', 'msg'), got, again,
+                             want):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+        assert torch.equal(g, a), name   # no float atomics: identical bits
+    torch.cuda.synchronize()
+    assert sk.launch_counts()['fused_edge_forward'] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', TILE_STRESS)
+def test_k3_tile_edge_cases_match_plain(name, cuda_device):
+    data, _, attention, _, tanh = tile_stress_case(name)
+    _k3_matches_plain_and_repeats(data, attention, tanh, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('attention', ATTENTION_MODES)
+def test_k3_two_pass_blocks_every_attention_mode(attention, cuda_device):
+    """hub65's layout in every mode: blocks with a 65-edge sender take
+    the two-pass path, the others the one-pass path."""
+    data, _, _, _, _ = tile_stress_case('hub65')
+    _k3_matches_plain_and_repeats(data, attention, attention != 'relu',
+                                  cuda_device)
 
 
 @pytest.mark.cuda

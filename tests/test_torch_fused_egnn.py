@@ -7,8 +7,8 @@ edge-major one. Tolerances: per-edge outputs and cotangents atol 1e-5,
 compared where ``edge_mask > 0`` (the reference leaves other positions
 uninitialised); ``agg`` everywhere; parameter gradients atol 3e-5 x
 max(1, |ref|) (sums over all edges in another order). The edge cases
-come from ``tests/test_torch_cuda_kernels.make_edge_case``, which the GPU
-tests share.
+come from ``tests/test_torch_cuda_kernels.make_edge_case`` and
+``tile_stress_case``, which the GPU tests share.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,7 @@ from pointvs_tpu.ops.pallas.fused_egnn_bwd import fused_edge_backward as \
 from pointvs_tpu_torch.ops.fused_egnn import ATTENTION_MODES, PARAM_NAMES, \
     FusedEdgePass, fused_edge_forward_plain
 from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward_plain
-from tests.test_torch_cuda_kernels import make_edge_case
+from tests.test_torch_cuda_kernels import make_edge_case, tile_stress_case
 
 WINDOW = 128
 
@@ -70,10 +70,7 @@ FWD_CASES = [(a, tanh, res) for a in ATTENTION_MODES for tanh in (False, True)
              for res in (False, True)]
 
 
-@pytest.mark.parametrize('attention,tanh,residual', FWD_CASES)
-def test_plain_forward_matches_jax_kernel(attention, tanh, residual):
-    case, _ = make_edge_case(ATTENTION_MODES.index(attention), k=16,
-                             residual=residual)
+def _forward_matches_jax_kernel(case, attention, tanh):
     args, kw, _ = _jax_layout(case)
     agg, phi_t, att_t, msg_t = jax_fused_edge_forward(
         args['h'], args['h_dst_t'], args['extras_t'], args['prev_t'],
@@ -94,6 +91,24 @@ def test_plain_forward_matches_jax_kernel(attention, tanh, residual):
                       'attention')
     for out in (g_agg, g_phi, g_att, g_msg):
         assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize('attention,tanh,residual', FWD_CASES)
+def test_plain_forward_matches_jax_kernel(attention, tanh, residual):
+    case, _ = make_edge_case(ATTENTION_MODES.index(attention), k=16,
+                             residual=residual)
+    _forward_matches_jax_kernel(case, attention, tanh)
+
+
+@pytest.mark.parametrize('name', ['hub', 'hub_sigmoid', 'hub65',
+                                  'masked_run', 'empty_block'])
+def test_plain_forward_matches_jax_kernel_on_tile_layouts(name):
+    """The plain version that the card holds K3 against, on the layouts
+    K3's block and tile cuts depend on (hub senders of 350, 70, 65 and 64
+    edges, a tile of NaN canaries, blocks without edges), in the JAX
+    kernel's window layout."""
+    case, _, attention, _, tanh = tile_stress_case(name, jax_layout=True)
+    _forward_matches_jax_kernel(case, attention, tanh)
 
 
 @pytest.mark.parametrize('attention', ATTENTION_MODES)
