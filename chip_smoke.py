@@ -11,10 +11,21 @@ Phases:
 2. build: every CUDA source in ``pointvs_tpu_torch/ops/csrc``, one nvcc
    process per source, all started together (ptxas register and spill
    lines are printed);
-3. kernels: K1 segment_sum_sorted and K2 softmax_aggregate_sorted (softmax
-   and sigmoid mode) against their plain PyTorch versions on the card, at
-   a bench shape (N=14336 nodes, ~156k edges from a seeded degree
-   distribution) and at edge cases;
+3. kernels: K1 segment_sum_sorted (at widths 1, 2, 3, 4, 13, 16, 32, 35,
+   36 and 40) and K2 softmax_aggregate_sorted (softmax and sigmoid mode)
+   against their plain PyTorch versions on the card, evaluated in float64
+   (the f32 plain sum adds by atomics in no fixed order and errs on a long
+   row by as much as the 1e-5 gate), at a bench shape (N=14336 nodes,
+   ~156k edges from a seeded degree distribution), at the same size
+   with the real batch's spread of degrees, and at edge cases (a 300-edge
+   row, rows of one edge, empty rows, a padding tail, tied and fully masked
+   rows, E < 4 * 128); the row offsets (``segment_offsets``) against numpy;
+   with offsets passed in, found by the wrapper, and repeated, each kernel
+   must give identical bits. Both kernels' registers, spills and resident
+   blocks per SM; K1 timed at K = 1, 3, 4, 32, 35, 36 and 40 and K2 in
+   both modes (and softmax at a feature width of 4) at the bench shape, K1
+   at K=36 and K2 on the skewed one, and the offsets' own time, each by
+   CUDA events and by the profiler's device time per launch;
 4. fused kernels: K3 fused_edge_forward and K4 fused_edge_backward against
    their plain versions at the bench shape (N=14336, ~160k real of 218,624
    edges, K=32) and at edge cases (every attention mode with the edge
@@ -40,16 +51,19 @@ Phases:
    the 6-layer model once more through ``make_eval_step(use_fused=True)``
    (K3 in every layer). Kernel launch counts must equal layers x batches;
    64 finite rows must be written; scores must match a ``--device cpu``
-   run (and the fused scores the module path's) within 1e-4; one profiled
-   forward's kernel time, K3's per launch;
+   run (and the fused scores the module path's) within 1e-4; one offset
+   computation per batch; one profiled forward's kernel time, K1's, K2's
+   and K3's per launch, and the top kernels by name;
 6. training: the ``Trainer`` takes 5 steps on the README 6-layer model
    (k=32, batch 32) on the module path (K1/K2 forward and backward) and on
-   the fused path (K3 forward, K4 backward). Launch counts per path; each
+   the fused path (K3 forward, K4 backward). Launch counts per path (at
+   most two offset computations per step); each
    loss trajectory against a CPU run, and the two paths against each
    other, within atol 1e-4 / rtol 1e-5; two identical fused backward
    passes give identical parameter gradients; the saved checkpoint reloads
    to the same scores; step time by CUDA events and each path's profiled
-   kernel share, K3's and K4's per launch.
+   kernel share, K1's, K2's, K3's and K4's per launch, and the top kernels
+   by name.
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -122,10 +136,18 @@ def phase_build():
 
 
 # ----------------------------------------------------------------- 3
+K1_WIDTHS = (1, 2, 3, 4, 13, 16, 32, 35, 36, 40)   # checked on every case
+K1_TIMED = (1, 3, 4, 32, 35, 36, 40)                # timed at the bench shape
+K2_NARROW = 4   # K2 also timed at this feature width (softmax, bench shape)
+
+
 def make_edges(np, rng, n, mean_degree, pad, k, empty_every=0,
-               tail_empty=0, ties=False, masked_every=0):
-    """Sorted ids (padding = n last) and edge data for one case."""
-    deg = rng.poisson(mean_degree, n)
+               tail_empty=0, ties=False, masked_every=0, deg=None):
+    """Sorted ids (padding = n last) and edge data for one case; ``deg``
+    gives each row's edges in place of Poisson degrees. ``wide`` holds
+    [E, 40] rows for K1 at every width."""
+    if deg is None:
+        deg = rng.poisson(mean_degree, n)
     if empty_every:
         deg[::empty_every] = 0
     if tail_empty:
@@ -142,24 +164,53 @@ def make_edges(np, rng, n, mean_degree, pad, k, empty_every=0,
         mask[(ids % masked_every == 0) & (ids < n)] = 0.0
     return dict(ids=ids, n=n,
                 feat=rng.standard_normal((e, k)).astype(np.float32),
+                wide=rng.standard_normal((e, max(K1_WIDTHS))).astype(
+                    np.float32),
                 logits=logits,
                 trans=rng.standard_normal((e, 3)).astype(np.float32),
                 mask=mask)
 
 
-def time_cuda(torch, fn, flush, reps=25):
-    """Median ms of ``fn`` by CUDA events, L2 flushed before each call."""
+def skewed_degrees(np, rng, graphs=32, atoms=448, tail=36):
+    """Per pocket graph, degrees spread like the serving batches' (their
+    percentiles are printed by the serving phase): most atoms near the
+    median of ~11 edges, and a tail of atoms with 20 to 54 (the ligand
+    against the receptor atoms it overlaps in a perturbed pose)."""
+    parts = [rng.poisson(10.5, atoms - tail), rng.integers(20, 55, tail)]
+    return np.concatenate([np.concatenate(parts) for _ in range(graphs)])
+
+
+def time_cuda(torch, fn, flush, reps=25, clean=False):
+    """Median ms of ``fn`` by CUDA events, L2 flushed before each call: by
+    writing a 256 MB buffer (the L2 is left full of dirty lines, which the
+    call's own traffic must write back), or with ``clean`` by reading it."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def profiled_ms(torch, fn, flush, kernel, reps=10):
+    """Mean device ms per call of the kernels whose name holds ``kernel``,
+    by the profiler over ``reps`` calls of ``fn``, L2 flushed by writing
+    before each as in ``time_cuda``: the kernel's own time, without the
+    launch and event gaps that the CUDA-event time includes."""
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+    by_name, _ = kernel_profile(torch, run)
+    return sum(v for key, v in by_name.items() if kernel in key) / reps
 
 
 def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -169,12 +220,33 @@ def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
                                        else 'operations')
 
 
+def k1_work(real, n, k):
+    """(bytes, flops) of one K1 launch given its offsets: the real edges'
+    rows and the offsets read once, the sums written once."""
+    return 4 * (real * k + (n + 1) + n * k), real * k
+
+
+def k2_work(real, n, k):
+    """(bytes, flops) of one K2 launch given its offsets: feat, trans,
+    logit and mask of the real edges and the offsets read once, out
+    [N, K+6] and seg_max written once; exp, weight and sums per edge."""
+    return 4 * (real * (k + 5) + (n + 1) + n * (k + 7)), real * (2 * k + 12)
+
+
 def phase_kernels(torch, np):
     from pointvs_tpu_torch.ops import segment_kernels as sk
     rng = np.random.default_rng(SEED)
     cases = {
         # Bench shape: 32 pocket graphs of ~450 atoms, ~11 edges per atom.
-        'bench': make_edges(np, rng, 14336, 10.9, 4000, 40),
+        'bench': make_edges(np, rng, 14336, 10.9, 4000, 32),
+        # The same size with the real batch's spread of degrees.
+        'skewed': make_edges(np, rng, 14336, 0, 4000, 32,
+                             deg=skewed_degrees(np, rng)),
+    }
+    hub = rng.poisson(8.0, 300)
+    hub[7] = 300
+    one = (rng.random(300) < 0.8).astype(np.int64)   # rows of 0 or 1 edge
+    cases.update({
         'k13': make_edges(np, rng, 300, 8.0, 200, 13),
         'empty_rows': make_edges(np, rng, 300, 8.0, 50, 16, empty_every=3),
         'padding_tail': make_edges(np, rng, 300, 8.0, 300, 16,
@@ -183,73 +255,124 @@ def phase_kernels(torch, np):
         'all_masked_rows': make_edges(np, rng, 300, 8.0, 40, 32,
                                       masked_every=4),
         'small_e': make_edges(np, rng, 40, 6.0, 30, 32),   # E < 4 * 128
-    }
+        'hub': make_edges(np, rng, 300, 0, 40, 32, deg=hub),   # 300 edges
+        'one_edge': make_edges(np, rng, 300, 0, 40, 16, deg=one),
+    })
     dev = torch.device('cuda')
     err = {'k1': 0.0, 'softmax': 0.0, 'sigmoid': 0.0}
     for name, c in cases.items():
         t = {key: torch.from_numpy(c[key]).to(dev)
-             for key in ('ids', 'feat', 'logits', 'trans', 'mask')}
+             for key in ('ids', 'feat', 'wide', 'logits', 'trans', 'mask')}
         n = c['n']
-        widths = (36, 40) if name == 'bench' else (c['feat'].shape[1],)
-        for kw in widths:
-            data = t['feat'][:, :kw].contiguous()
-            got = sk.windowed_segment_sum(data, t['ids'], n)
-            want = sk.windowed_segment_sum_plain(data, t['ids'], n)
+        sk.reset_launch_counts()
+        offsets = sk.segment_offsets(t['ids'], n)
+        check(np.array_equal(offsets.cpu().numpy(), np.searchsorted(
+            c['ids'], np.arange(n + 1))), f'offsets wrong on {name}')
+        for kw in K1_WIDTHS:
+            data = t['wide'][:, :kw].contiguous()
+            got = sk.windowed_segment_sum(data, t['ids'], n, offsets)
+            again = sk.windowed_segment_sum(data, t['ids'], n, offsets)
+            found = sk.windowed_segment_sum(data, t['ids'], n)
+            want = sk.windowed_segment_sum_plain(data.double(), t['ids'],
+                                                 n).float()
             torch.cuda.synchronize()
             check(torch.allclose(got, want, **TOL),
                   f'K1 disagrees with plain on {name} K={kw}')
+            check(torch.equal(got, again) and torch.equal(got, found),
+                  f'K1 not bit-identical on {name} K={kw} (repeat, or '
+                  f'offsets found by the wrapper)')
             err['k1'] = max(err['k1'], (got - want).abs().max().item())
-        feat = t['feat'][:, :32].contiguous() if name == 'bench' \
-            else t['feat']
         for mode in ('softmax', 'sigmoid'):
-            args = (feat, t['logits'], t['trans'], t['mask'], t['ids'], n)
-            out, seg_max = sk.fused_softmax_aggregate(*args, mode)
-            w_out, w_max = sk.fused_softmax_aggregate_plain(*args, mode)
+            args = (t['feat'], t['logits'], t['trans'], t['mask'], t['ids'],
+                    n, mode)
+            out, seg_max = sk.fused_softmax_aggregate(*args, offsets)
+            again = sk.fused_softmax_aggregate(*args, offsets)
+            found = sk.fused_softmax_aggregate(*args)
+            w_out, w_max = (w.float() for w in sk.fused_softmax_aggregate_plain(
+                *[a.double() for a in args[:4]], *args[4:]))
             torch.cuda.synchronize()
             check(torch.allclose(out, w_out, **TOL)
                   and torch.allclose(seg_max, w_max, **TOL),
                   f'K2 ({mode}) disagrees with plain on {name}')
+            check(all(torch.equal(a, b) for a, b in zip(
+                (out, seg_max), again)) and all(torch.equal(a, b) for a, b
+                                                in zip((out, seg_max), found)),
+                  f'K2 ({mode}) not bit-identical on {name}')
             err[mode] = max(err[mode], (out - w_out).abs().max().item(),
                             (seg_max - w_max).abs().max().item())
-        print(f'kernels: {name} N={n} E={len(c["ids"])} ok')
+        counts = sk.launch_counts()
+        check(counts['segment_offsets'] == 1 + len(K1_WIDTHS) + 2,
+              f'{name}: {counts["segment_offsets"]} offset computations')
+        real = int((c['ids'] < n).sum())
+        print(f'kernels: {name} N={n} E={len(c["ids"])} (real {real}, max '
+              f'{int(np.diff(offsets.cpu().numpy()).max(initial=0))} edges '
+              f'a row) ok')
+    for variant, info in sk.kernel_info().items():
+        print(f'kernels: {variant} resources {json.dumps(info)}')
 
-    # Timing at the bench shape.
-    c = cases['bench']
-    n = c['n']
-    real = int((c['ids'] < n).sum())
-    e = len(c['ids'])
-    t = {key: torch.from_numpy(c[key]).to(dev)
-         for key in ('ids', 'feat', 'logits', 'trans', 'mask')}
+    # Timing at the bench shape (and K1 at K=36 / K2 on the skewed one),
+    # offsets found once beforehand, as the main path passes them.
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     timings = {}
-    for kw in (36, 40):
-        data = t['feat'][:, :kw].contiguous()
+    for name in ('bench', 'skewed'):
+        c = cases[name]
+        n = c['n']
+        real = int((c['ids'] < n).sum())
+        t = {key: torch.from_numpy(c[key]).to(dev)
+             for key in ('ids', 'feat', 'wide', 'logits', 'trans', 'mask')}
         ids = t['ids']
-        nbytes = real * kw * 4 + real * 4 + n * kw * 4
-        timings[f'k1_{kw}'] = dict(
-            ms=time_cuda(torch, lambda: sk.windowed_segment_sum(
-                data, ids, n), flush),
-            plain_ms=time_cuda(torch, lambda: sk.windowed_segment_sum_plain(
-                data, ids, n), flush),
-            library_ms=time_cuda(torch, lambda: torch.zeros(
-                (n + 1, kw), device=dev).index_add_(0, ids, data), flush),
-            bound=bound_ms(nbytes, real * kw))
-    feat = t['feat'][:, :32].contiguous()
-    kf = 32
-    for mode in ('softmax', 'sigmoid'):
-        args = (feat, t['logits'], t['trans'], t['mask'], t['ids'], n)
-        nbytes = real * (kf + 3 + 1 + 1 + 1) * 4 + n * (kf + 7) * 4
-        timings[mode] = dict(
-            ms=time_cuda(torch, lambda: sk.fused_softmax_aggregate(
-                *args, mode), flush),
-            plain_ms=time_cuda(torch, lambda: sk.fused_softmax_aggregate_plain(
-                *args, mode), flush),
-            library_ms=None,
-            bound=bound_ms(nbytes, real * (2 * kf + 12)))
-    for key, v in timings.items():
-        print(f'kernels: {key} N={n} E={e} (real {real}) ms={v["ms"]:.4f} '
-              f'plain_ms={v["plain_ms"]:.4f} library_ms={v["library_ms"]} '
-              f'bound_ms={v["bound"][0]:.4f} ({v["bound"][1]})')
+        offsets = sk.segment_offsets(ids, n)
+        tag = '' if name == 'bench' else '_skewed'
+        keys = []
+        for kw in (K1_TIMED if name == 'bench' else (36,)):
+            data = t['wide'][:, :kw].contiguous()
+            keys.append(f'k1_{kw}{tag}')
+            launch = lambda: sk.windowed_segment_sum(  # noqa: E731
+                data, ids, n, offsets)
+            timings[keys[-1]] = dict(
+                ms=time_cuda(torch, launch, flush),
+                clean_ms=time_cuda(torch, launch, flush, clean=True),
+                device_ms=profiled_ms(torch, launch, flush,
+                                      'segment_sum_sorted'),
+                plain_ms=time_cuda(torch, lambda: sk.windowed_segment_sum_plain(
+                    data, ids, n), flush),
+                library_ms=time_cuda(torch, lambda: torch.zeros(
+                    (n + 1, kw), device=dev).index_add_(0, ids, data), flush),
+                bound=bound_ms(*k1_work(real, n, kw)))
+        k2_runs = [(mode, mode, t['feat']) for mode in ('softmax', 'sigmoid')]
+        if name == 'bench':
+            k2_runs.append((f'softmax_k{K2_NARROW}', 'softmax',
+                            t['wide'][:, :K2_NARROW].contiguous()))
+        for key, mode, feat in k2_runs:
+            args = (feat, t['logits'], t['trans'], t['mask'], ids, n, mode)
+            keys.append(f'{key}{tag}')
+            launch = lambda: sk.fused_softmax_aggregate(  # noqa: E731
+                *args, offsets)
+            timings[keys[-1]] = dict(
+                ms=time_cuda(torch, launch, flush),
+                clean_ms=time_cuda(torch, launch, flush, clean=True),
+                device_ms=profiled_ms(torch, launch, flush,
+                                      'softmax_aggregate_sorted'),
+                plain_ms=time_cuda(
+                    torch, lambda: sk.fused_softmax_aggregate_plain(*args),
+                    flush),
+                library_ms=None,
+                bound=bound_ms(*k2_work(real, n, feat.shape[1])))
+        find = lambda: sk.segment_offsets(ids, n)  # noqa: E731
+        find_ms = time_cuda(torch, find, flush)
+        find_device_ms = profiled_ms(torch, find, flush, 'searchsorted')
+        print(f'kernels: segment_offsets on {name} (searchsorted of N+1 '
+              f'rows into E ids) ms={find_ms:.4f} (profiler device time '
+              f'{find_device_ms:.4f})')
+        for key in keys:
+            v = timings[key]
+            print(f'kernels: {key} N={n} E={len(c["ids"])} (real {real}) '
+                  f'ms={v["ms"]:.4f} (clean L2 {v["clean_ms"]:.4f}; '
+                  f'profiler device time {v["device_ms"]:.4f}) '
+                  f'plain_ms={v["plain_ms"]:.4f} '
+                  f'library_ms={v["library_ms"]} '
+                  f'bound_ms={v["bound"][0]:.4f} ({v["bound"][1]}) '
+                  f'share_of_bound={v["bound"][0] / v["ms"]:.3f}')
     return err, timings
 
 
@@ -490,13 +613,14 @@ def write_pose_set(np, root: Path, n_poses=64):
 
 
 README_6L = dict(num_layers=6, edge_attention=True, softmax_attention=True)
-# name -> (flags, counted kernel, other kernels it may launch, fused)
+# name -> (flags, counted kernel, other kernels it may launch, fused).
+# Each counted kernel and the fused path's K1 (the coordinate means)
+# launch once per layer and batch; each batch finds its offsets once.
 SERVING = {
     'default_3l': (dict(num_layers=3), 'segment_sum_sorted', (), False),
     'readme_softmax_6l': (README_6L, 'softmax_aggregate_sorted', (), False),
     'sigmoid_3l': (dict(num_layers=3, edge_attention=True),
                    'softmax_aggregate_sorted', (), False),
-    # K3 in every layer; the coordinate means run on K1.
     'readme_softmax_6l_fused': (README_6L, 'fused_edge_forward',
                                 ('segment_sum_sorted',), True),
 }
@@ -538,10 +662,16 @@ def kernel_profile(torch, fn):
             if evt.self_device_time_total > 0}, launches
 
 
-def print_profile(label, profiled, shares):
+SEGMENT_SHARES = [('K1', 'segment_sum_sorted'),
+                  ('K2', 'softmax_aggregate_sorted'),
+                  ('offsets', 'searchsorted')]
+
+
+def print_profile(label, profiled, shares, top=12):
     """Kernel time of one profiled call, and the share of each
     (label, kernel-name part) in ``shares``; for a kernel-name part that is
-    a wrapper's name, also its time per launch."""
+    a wrapper's name (its CUDA kernels carry it), also its time per
+    launch. Then the ``top`` kernels by device time."""
     by_name, launches = profiled
     busy = sum(by_name.values())
     parts = []
@@ -554,8 +684,8 @@ def print_profile(label, profiled, shares):
                      f'({100 * ours / max(busy, 1e-9):.1f}%{per})')
     print(f'profile: {label}: kernels {busy:.3f} ms device time '
           f'({len(by_name)} kernel names), of which {", ".join(parts)}; '
-          f'top 8:')
-    for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+          f'top {top}:')
+    for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f'  {ms:8.3f} ms  {key[:110]}')
 
 
@@ -568,6 +698,12 @@ def forward_profile(torch, trainer, loader, forward):
     batches = [to_device(b, trainer.device) for b, _ in loader]
     sizes = [(int(b.node_mask.sum()), b.node_feats.shape[0],
               int(b.edge_mask.sum()), b.senders.shape[0]) for b in batches]
+    for b in batches:   # edges per real atom: median, p90, p99, max
+        n = b.node_feats.shape[0]
+        deg = torch.bincount(b.senders[b.senders < n].long(), minlength=n)
+        deg = deg[b.node_mask > 0].float()
+        sizes.append(tuple(torch.quantile(deg, torch.tensor(
+            [0.5, 0.9, 0.99, 1.0], device=deg.device)).tolist()))
     times = []
     with torch.no_grad():
         for _ in range(5):
@@ -609,11 +745,16 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         wall = time.perf_counter() - start
         counts = sk.launch_counts()
         expect = flags['num_layers'] * batches
-        check(counts[kernel] == expect,
-              f'{name}: {kernel} launched {counts[kernel]} times, '
-              f'expected {expect}')
+        for counted in (kernel,) + others:
+            check(counts[counted] == expect,
+                  f'{name}: {counted} launched {counts[counted]} times, '
+                  f'expected {expect}')
+        check(counts['segment_offsets'] == batches,
+              f'{name}: {counts["segment_offsets"]} offset computations '
+              f'for {batches} batches')
         for other, count in counts.items():
-            check(other == kernel or other in others or count == 0,
+            check(other in (kernel, 'segment_offsets') + others
+                  or count == 0,
                   f'{name}: unexpected {other} launches ({count})')
         rows = (run / 'pose_gpu.txt').read_text().splitlines()
         gpu = trainer.val_scores
@@ -643,10 +784,11 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
               f'poses_per_s={n_poses / wall:.1f} '
               f'forward_ms_per_batch={fwd:.3f} launches={counts} '
               f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
-              f'real E, E_pad)={sizes}')
+              f'real E, E_pad) and edges per real atom (median, p90, p99, '
+              f'max)={sizes}')
         print_profile(f'{name} one forward', profiled,
-                      [('K3', 'fused_edge_forward')] if fused
-                      else [('the segment kernels', 'sorted_kernel')])
+                      [('K3', 'fused_edge_forward')] + SEGMENT_SHARES
+                      if fused else SEGMENT_SHARES)
     return launches
 
 
@@ -730,10 +872,19 @@ def phase_training(torch, np, root: Path, types: Path):
           and module['fused_edge_backward'] == 0,
           f'module path launches {module}, expected K2 = {expect}, K1 >= '
           f'{expect}, no K3/K4')
+    # Fused K1 per layer: gather_dst's backward, gather_src(coord)'s (none
+    # in the first layer, whose coordinates need no gradient), the edge
+    # pass's d_h and the coordinate mean.
     check(fused['fused_edge_forward'] == expect
           and fused['fused_edge_backward'] == expect
+          and fused['segment_sum_sorted'] == (4 * layers - 1) * TRAIN_STEPS
           and fused['softmax_aggregate_sorted'] == 0,
-          f'fused path launches {fused}, expected K3 = K4 = {expect}')
+          f'fused path launches {fused}, expected K3 = K4 = {expect}, K1 = '
+          f'{(4 * layers - 1) * TRAIN_STEPS}')
+    for name in ('module_cuda', 'fused_cuda'):
+        check(launches[name]['segment_offsets'] <= 2 * TRAIN_STEPS,
+              f'{name}: {launches[name]["segment_offsets"]} offset '
+              f'computations in {TRAIN_STEPS} steps')
     check(all(v == 0 for c in (launches['module_cpu'], launches['fused_cpu'])
               for v in c.values()), 'a CPU run launched a CUDA kernel')
     loss = {name: np.asarray(t.train_losses) for name, t in runs.items()}
@@ -774,8 +925,8 @@ def phase_training(torch, np, root: Path, types: Path):
               f'events, batch of 32 poses)')
         print_profile(f'{name} one step', profiled,
                       [('K3', 'fused_edge_forward'),
-                       ('K4', 'fused_edge_backward')] if fused_path
-                      else [('K1+K2', 'sorted_kernel')])
+                       ('K4', 'fused_edge_backward')] + SEGMENT_SHARES
+                      if fused_path else SEGMENT_SHARES)
     return {'k1': module['segment_sum_sorted'],
             'k2': module['softmax_aggregate_sorted'],
             'k3': fused['fused_edge_forward'],

@@ -5,12 +5,14 @@ Rebuilds the model from a run directory (``.pt`` checkpoint plus
 ``model_kwargs.yaml`` / ``cmd_args.yaml`` sidecars), rebuilds the data
 pipeline from the saved flags, scores every pose and writes
 ``<task>_<output_fname>`` into the run directory. Runs on the GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``--num_devices`` is the reference's flag: None
+or 1 runs on the one device; more is refused until data parallelism is
+ported.
 
 Usage:
     python -m pointvs_tpu_torch.inference <run_dir_or_ckpt> <test_types> \
         <data_root> [--model_task t] [--batch_size N] [--output_fname f] \
-        [--top1] [--device cuda|cpu]
+        [--num_devices 1] [--top1] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -58,9 +60,14 @@ def main(argv=None):
     parser.add_argument('--model_task', default=None)
     parser.add_argument('--batch_size', type=int, default=None)
     parser.add_argument('--output_fname', default='predictions.txt')
+    parser.add_argument('--num_devices', type=int, default=None)
     parser.add_argument('--top1', action='store_true')
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
     args = parser.parse_args(argv)
+    if args.num_devices not in (None, 1):
+        raise NotImplementedError(
+            f'--num_devices {args.num_devices}: data parallelism is not in '
+            f'the port yet (see ROADMAP.md, Queue 1, item 5)')
 
     device = resolve_device(args.device)
     trainer, loader = get_model_and_test_dl(

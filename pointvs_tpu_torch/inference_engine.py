@@ -101,7 +101,7 @@ def fused_network(model, batch: GraphBatch, differentiable: bool):
         if differentiable:
             agg_feats, phi, _, msg = fused_edge_pass(
                 h, hc_r[:, :k], extras, edge_prev, params, edge_mask,
-                batch.senders, attention, layer.tanh)
+                batch.senders, attention, layer.tanh, agg.src_offsets)
         else:
             agg_feats, phi, _, msg = fused_edge_forward(
                 h, hc_r[:, :k], extras, edge_mask, batch.senders, edge_prev,

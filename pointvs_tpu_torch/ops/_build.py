@@ -28,9 +28,13 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C signature of every exported function, by library.
 SIGNATURES = {
     'segment_kernels': {
-        'pvs_segment_sum_sorted': (_P, _P, _P, _I64, _I, _I, _P),
-        'pvs_softmax_aggregate_sorted': (_P, _P, _P, _P, _P, _P, _P, _I64,
-                                         _I, _I, _I, _P),
+        # data, offsets, out, k, num_segments, stream
+        'pvs_segment_sum_sorted': (_P, _P, _P, _I, _I, _P),
+        # feat, logits, trans, mask, offsets, out, seg_max, k,
+        # num_segments, softmax, stream
+        'pvs_softmax_aggregate_sorted': (_P,) * 7 + (_I, _I, _I, _P),
+        # variant index, int[5] as pvs_fused_forward_info's
+        'pvs_segment_kernel_info': (_I, _P),
     },
     'fused_egnn': {
         # h, h_dst, extras, mask, senders, prev, 9 weights, agg, phi, att,
@@ -127,3 +131,19 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem_bytes',
+                    'dynamic_smem_bytes', 'blocks_per_sm')
+
+
+def read_kernel_info(library: str, function: str, *args) -> dict:
+    """A kernel's resources on the current CUDA device (builds it if
+    needed): registers per thread, spill bytes per thread, shared bytes per
+    block and the blocks resident per SM at those. ``args`` come before
+    the info array (a variant's index)."""
+    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = getattr(load(library), function)(*args, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f'{function} failed: cudaError {err}')
+    return dict(zip(KERNEL_INFO_KEYS, info))

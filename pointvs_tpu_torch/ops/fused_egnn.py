@@ -201,25 +201,10 @@ def fused_edge_forward(h, h_dst, extras, edge_mask, senders, prev, params,
 
 fused_edge_forward.launches = 0
 
-KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem_bytes',
-                    'dynamic_smem_bytes', 'blocks_per_sm')
-
-
-def read_kernel_info(library: str, function: str) -> dict:
-    """A tile kernel's resources on the current CUDA device (builds it if
-    needed): registers per thread, spill bytes per thread, shared bytes per
-    block and the blocks resident per SM at those."""
-    import ctypes
-    from pointvs_tpu_torch.ops._build import load
-    info = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
-    err = getattr(load(library), function)(ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f'{function} failed: cudaError {err}')
-    return dict(zip(KERNEL_INFO_KEYS, info))
-
-
 def kernel_info() -> dict:
-    """K3's resources on the current CUDA device (``read_kernel_info``)."""
+    """K3's resources on the current CUDA device
+    (``_build.read_kernel_info``)."""
+    from pointvs_tpu_torch.ops._build import read_kernel_info
     return read_kernel_info('fused_egnn', 'pvs_fused_forward_info')
 
 
@@ -229,20 +214,24 @@ class FusedEdgePass(torch.autograd.Function):
     sender cotangents scattered to the nodes with K1.
 
     ``apply(h, h_dst, extras, prev, w1, b1, w2, b2, cw1, cb1, cw2, attw,
-    attb, edge_mask, senders, attention, tanh)``; ``prev`` is None when
-    the edge residual is off. Only column 0 (radial) of ``extras`` gets a
-    gradient, as in the reference.
+    attb, edge_mask, senders, attention, tanh, offsets)``; ``prev`` is None
+    when the edge residual is off; ``offsets`` are the senders' row offsets
+    for K1 (``segment_kernels.segment_offsets``; found by K1's wrapper
+    when None). Only column 0 (radial) of ``extras`` gets a gradient, as in
+    the reference.
     """
 
     @staticmethod
     def forward(ctx, h, h_dst, extras, prev, w1, b1, w2, b2, cw1, cb1, cw2,
-                attw, attb, edge_mask, senders, attention, tanh):
+                attw, attb, edge_mask, senders, attention, tanh,
+                offsets=None):
         params = dict(zip(PARAM_NAMES, (w1, b1, w2, b2, cw1, cb1, cw2, attw,
                                         attb)))
         out = fused_edge_forward(h, h_dst, extras, edge_mask, senders, prev,
                                  params, attention, tanh)
         ctx.save_for_backward(h, h_dst, extras, prev, edge_mask, senders,
-                              w1, b1, w2, b2, cw1, cb1, cw2, attw, attb)
+                              offsets, w1, b1, w2, b2, cw1, cb1, cw2, attw,
+                              attb)
         ctx.attention, ctx.tanh = attention, tanh
         ctx.set_materialize_grads(False)
         return out
@@ -251,7 +240,7 @@ class FusedEdgePass(torch.autograd.Function):
     def backward(ctx, d_agg, d_phi, d_att, d_msg):
         from pointvs_tpu_torch.ops import segment_kernels
         from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward
-        (h, h_dst, extras, prev, edge_mask, senders,
+        (h, h_dst, extras, prev, edge_mask, senders, offsets,
          *weights) = ctx.saved_tensors
         params = dict(zip(PARAM_NAMES, weights))
         n, k = h.shape
@@ -271,17 +260,18 @@ class FusedEdgePass(torch.autograd.Function):
         d_extras = torch.zeros_like(extras)
         d_extras[:, 0] = torch.where(keep, d_radial, zero)
         d_h = segment_kernels.windowed_segment_sum(d_h_src.contiguous(),
-                                                   senders, n)
+                                                   senders, n, offsets)
         if d_prev is not None:
             d_prev = torch.where(keep[:, None], d_prev, zero)
         return (d_h, d_h_dst, d_extras, d_prev,
-                *[d_params[p] for p in PARAM_NAMES], None, None, None, None)
+                *[d_params[p] for p in PARAM_NAMES], None, None, None, None,
+                None)
 
 
 def fused_edge_pass(h, h_dst, extras, prev, params, edge_mask, senders,
-                    attention: str, tanh: bool):
+                    attention: str, tanh: bool, offsets=None):
     """(agg, phi, att, messages), differentiable in h, h_dst, extras[:, 0],
-    prev and every parameter."""
+    prev and every parameter; ``offsets`` as ``FusedEdgePass``'s."""
     return FusedEdgePass.apply(h, h_dst, extras, prev,
                                *[params[p] for p in PARAM_NAMES], edge_mask,
-                               senders, attention, tanh)
+                               senders, attention, tanh, offsets)

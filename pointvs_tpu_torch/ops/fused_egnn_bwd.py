@@ -35,7 +35,6 @@ from pointvs_tpu_torch.ops.fused_egnn import (
     check_edge_inputs,
     edge_mlp_forward,
     ptr,
-    read_kernel_info,
 )
 
 def _dsilu(x):
@@ -190,5 +189,7 @@ fused_edge_backward.launches = 0
 
 
 def kernel_info() -> dict:
-    """K4's resources on the current CUDA device (``read_kernel_info``)."""
+    """K4's resources on the current CUDA device
+    (``_build.read_kernel_info``)."""
+    from pointvs_tpu_torch.ops._build import read_kernel_info
     return read_kernel_info('fused_egnn_bwd', 'pvs_fused_backward_info')

@@ -7,13 +7,38 @@ falls back from one to the other. Each wrapper counts its launches in
 ``<wrapper>.launches`` so a run can show that it went through the kernel.
 
 Contract shared by both: ``sorted_ids`` is int32, sorted ascending, and an
-id equal to ``num_segments`` marks a padding edge, which is dropped.
+id equal to ``num_segments`` marks a padding edge, which is dropped. The
+kernels read each row's edge range from ``segment_offsets``: a caller that
+launches several times over one id array finds them once and passes them
+in (``offsets=``); the wrappers find them only when they are not given.
 """
 from __future__ import annotations
 
 import torch
 
 _MODES = ('softmax', 'sigmoid')
+
+
+def segment_offsets(sorted_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """int32 [num_segments + 1]: ``offsets[n]`` is the first edge whose id
+    is >= n, so row n's edges are ``[offsets[n], offsets[n + 1])`` and
+    ``offsets[num_segments]`` is the first padding edge.
+
+    The counterpart of the JAX wrappers' window starts (``jnp.searchsorted``
+    outside the kernel), for every row. On a GPU each call is counted in
+    ``segment_offsets.launches``.
+    """
+    targets = torch.arange(num_segments + 1, dtype=sorted_ids.dtype,
+                           device=sorted_ids.device)
+    offsets = torch.searchsorted(sorted_ids.contiguous(), targets,
+                                 out_int32=True)
+    if sorted_ids.device.type == 'cuda':
+        segment_offsets.launches += 1
+    return offsets
+
+
+segment_offsets.launches = 0
 
 
 def windowed_segment_sum_plain(data: torch.Tensor, sorted_ids: torch.Tensor,
@@ -73,6 +98,19 @@ def _check_cuda(name, ids, num_segments, **floats):
                              f'{ids.shape[0]}')
 
 
+def _offsets_for(name, ids, num_segments, offsets):
+    """The given offsets, checked, or ``segment_offsets`` of the ids."""
+    if offsets is None:
+        return segment_offsets(ids, num_segments)
+    if (offsets.device != ids.device or offsets.dtype != torch.int32
+            or tuple(offsets.shape) != (num_segments + 1,)):
+        raise ValueError(f'{name}: offsets must be int32 '
+                         f'[{num_segments + 1}] on {ids.device}, got '
+                         f'{tuple(offsets.shape)} {offsets.dtype} on '
+                         f'{offsets.device}')
+    return offsets.contiguous()
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -83,10 +121,12 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def windowed_segment_sum(data: torch.Tensor, sorted_ids: torch.Tensor,
-                         num_segments: int) -> torch.Tensor:
+                         num_segments: int,
+                         offsets: torch.Tensor | None = None) -> torch.Tensor:
     """[E, K] f32 data + ascending int32 ids -> [num_segments, K] sums.
 
-    CUDA: kernel K1 ``segment_sum_sorted``. CPU: the plain version.
+    CUDA: kernel K1 ``segment_sum_sorted`` over ``offsets`` (found here
+    when not given). CPU: the plain version, which ignores ``offsets``.
     """
     if data.device.type == 'cpu' and sorted_ids.device.type == 'cpu':
         return windowed_segment_sum_plain(data, sorted_ids, num_segments)
@@ -94,17 +134,18 @@ def windowed_segment_sum(data: torch.Tensor, sorted_ids: torch.Tensor,
         raise ValueError(f'data must be [E, K], got {tuple(data.shape)}')
     _check_cuda('segment_sum_sorted', sorted_ids, num_segments, data=data)
     data = data.contiguous()
-    ids = sorted_ids.contiguous()
-    e, k = data.shape
+    k = data.shape[1]
     out = torch.empty((num_segments, k), device=data.device,
                       dtype=torch.float32)
     if num_segments == 0 or k == 0:
         return out
+    offsets = _offsets_for('segment_sum_sorted', sorted_ids, num_segments,
+                           offsets)
     from pointvs_tpu_torch.ops._build import load
     lib = load('segment_kernels')
     with torch.cuda.device(data.device):
         err = lib.pvs_segment_sum_sorted(
-            data.data_ptr(), ids.data_ptr(), out.data_ptr(), e, k,
+            data.data_ptr(), offsets.data_ptr(), out.data_ptr(), k,
             num_segments, _stream(data.device))
     _raise_on(err, 'segment_sum_sorted')
     windowed_segment_sum.launches += 1
@@ -115,12 +156,14 @@ windowed_segment_sum.launches = 0
 
 
 def fused_softmax_aggregate(feat, logits, trans, mask, sorted_ids,
-                            num_segments: int, mode: str = 'softmax'):
+                            num_segments: int, mode: str = 'softmax',
+                            offsets: torch.Tensor | None = None):
     """Attention-weighted aggregation in one pass (see the plain version
     for the exact outputs). feat [E, K], logits [E], trans [E, 3],
     mask [E], all f32; returns (out [N, K+6], seg_max [N]).
 
-    CUDA: kernel K2 ``softmax_aggregate_sorted``. CPU: the plain version.
+    CUDA: kernel K2 ``softmax_aggregate_sorted`` over ``offsets`` (found
+    here when not given). CPU: the plain version, which ignores them.
     """
     if mode not in _MODES:
         raise ValueError(f'mode must be one of {_MODES}, got {mode!r}')
@@ -134,22 +177,24 @@ def fused_softmax_aggregate(feat, logits, trans, mask, sorted_ids,
                          'mask [E]')
     _check_cuda('softmax_aggregate_sorted', sorted_ids, num_segments,
                 feat=feat, logits=logits, trans=trans, mask=mask)
-    feat, logits, trans, mask, ids = (t.contiguous() for t in tensors)
-    e, k = feat.shape
+    feat, logits, trans, mask = (t.contiguous() for t in tensors[:4])
+    k = feat.shape[1]
     out = torch.empty((num_segments, k + 6), device=feat.device,
                       dtype=torch.float32)
     seg_max = torch.empty((num_segments,), device=feat.device,
                           dtype=torch.float32)
     if num_segments == 0:
         return out, seg_max
+    offsets = _offsets_for('softmax_aggregate_sorted', sorted_ids,
+                           num_segments, offsets)
     from pointvs_tpu_torch.ops._build import load
     lib = load('segment_kernels')
     with torch.cuda.device(feat.device):
         err = lib.pvs_softmax_aggregate_sorted(
             feat.data_ptr(), logits.data_ptr(), trans.data_ptr(),
-            mask.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            seg_max.data_ptr(), e, k, num_segments,
-            int(mode == 'softmax'), _stream(feat.device))
+            mask.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            seg_max.data_ptr(), k, num_segments, int(mode == 'softmax'),
+            _stream(feat.device))
     _raise_on(err, 'softmax_aggregate_sorted')
     fused_softmax_aggregate.launches += 1
     return out, seg_max
@@ -157,18 +202,37 @@ def fused_softmax_aggregate(feat, logits, trans, mask, sorted_ids,
 
 fused_softmax_aggregate.launches = 0
 
+# The variants of csrc/segment_kernels.cu, in the order of
+# pvs_segment_kernel_info: K1 with 4- or 16-byte columns, and with two
+# 4-byte columns per lane; K2 with 4- or 16-byte feature columns.
+KERNEL_VARIANTS = ('segment_sum_sorted<4B>', 'segment_sum_sorted<16B>',
+                   'segment_sum_sorted<4B x2>',
+                   'softmax_aggregate_sorted<4B>',
+                   'softmax_aggregate_sorted<16B>')
+
+
+def kernel_info() -> dict:
+    """Registers, spills, shared bytes and resident blocks per SM of every
+    K1/K2 variant on the current CUDA device (builds them if needed)."""
+    from pointvs_tpu_torch.ops._build import read_kernel_info
+    return {name: read_kernel_info('segment_kernels',
+                                   'pvs_segment_kernel_info', i)
+            for i, name in enumerate(KERNEL_VARIANTS)}
+
 
 def _launch_counted():
     from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward
     from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward
-    return {'segment_sum_sorted': windowed_segment_sum,
+    return {'segment_offsets': segment_offsets,
+            'segment_sum_sorted': windowed_segment_sum,
             'softmax_aggregate_sorted': fused_softmax_aggregate,
             'fused_edge_forward': fused_edge_forward,
             'fused_edge_backward': fused_edge_backward}
 
 
 def launch_counts() -> dict:
-    """Launches so far of every CUDA kernel of the port (K1-K4), by name."""
+    """Launches so far of every CUDA kernel of the port (K1-K4), and the
+    offset computations on a GPU, by name."""
     return {name: fn.launches for name, fn in _launch_counted().items()}
 
 

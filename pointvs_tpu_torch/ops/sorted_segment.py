@@ -10,7 +10,9 @@ The segment sum and the sorted gather are each other's transpose, as in
 the reference's custom VJPs (``_wss_bwd``, ``_gsi_bwd``): the sum's
 backward is a row gather by the ids, and the gather's backward is the sum,
 so on a GPU every gradient scattered back to the nodes goes through
-kernel K1 (deterministic, no atomics).
+kernel K1 (deterministic, no atomics). Each op takes the ids' row offsets
+(``segment_kernels.segment_offsets``) where its caller has them, so that
+K1 finds no offsets of its own.
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ def _gather_rows(node_values, ids, num_segments):
     return out * (valid[:, None] if out.dim() > 1 else valid)
 
 
-def _segment_sum(data, ids, num_segments):
+def _segment_sum(data, ids, num_segments, offsets=None):
     squeeze = data.dim() == 1
     out = segment_kernels.windowed_segment_sum(
-        data[:, None] if squeeze else data, ids, num_segments)
+        data[:, None] if squeeze else data, ids, num_segments, offsets)
     return out[:, 0] if squeeze else out
 
 
@@ -38,42 +40,45 @@ class _SegmentSum(torch.autograd.Function):
     """Forward K1 (plain on the CPU); backward a row gather (``_wss_bwd``)."""
 
     @staticmethod
-    def forward(ctx, data, sorted_ids, num_segments):
+    def forward(ctx, data, sorted_ids, num_segments, offsets):
         ctx.save_for_backward(sorted_ids)
         ctx.num_segments = num_segments
-        return _segment_sum(data, sorted_ids, num_segments)
+        return _segment_sum(data, sorted_ids, num_segments, offsets)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return _gather_rows(g, ids, ctx.num_segments), None, None
+        return _gather_rows(g, ids, ctx.num_segments), None, None, None
 
 
 class _GatherSorted(torch.autograd.Function):
     """Forward a row gather; backward K1 over the same ids (``_gsi_bwd``)."""
 
     @staticmethod
-    def forward(ctx, node_values, sorted_ids, num_segments):
-        ctx.save_for_backward(sorted_ids)
+    def forward(ctx, node_values, sorted_ids, num_segments, offsets):
+        ctx.save_for_backward(sorted_ids, offsets)
         ctx.num_segments = num_segments
         return _gather_rows(node_values, sorted_ids, num_segments)
 
     @staticmethod
     def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        return _segment_sum(g.contiguous(), ids, ctx.num_segments), None, None
+        ids, offsets = ctx.saved_tensors
+        return (_segment_sum(g.contiguous(), ids, ctx.num_segments, offsets),
+                None, None, None)
 
 
 def windowed_segment_sum(data: torch.Tensor, sorted_ids: torch.Tensor,
-                         num_segments: int) -> torch.Tensor:
+                         num_segments: int,
+                         offsets: torch.Tensor | None = None) -> torch.Tensor:
     """segment_sum(data, sorted_ids) for [E] or [E, K] data."""
-    return _SegmentSum.apply(data, sorted_ids, num_segments)
+    return _SegmentSum.apply(data, sorted_ids, num_segments, offsets)
 
 
 def gather_by_sorted_ids(node_values: torch.Tensor, sorted_ids: torch.Tensor,
-                         num_segments: int) -> torch.Tensor:
+                         num_segments: int,
+                         offsets: torch.Tensor | None = None) -> torch.Tensor:
     """node_values[ids] with padding ids giving zero rows."""
-    return _GatherSorted.apply(node_values, sorted_ids, num_segments)
+    return _GatherSorted.apply(node_values, sorted_ids, num_segments, offsets)
 
 
 def windowed_segment_max(values: torch.Tensor, sorted_ids: torch.Tensor,

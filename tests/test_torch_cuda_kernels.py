@@ -6,7 +6,13 @@ on a machine with a CUDA GPU and nvcc. Without a GPU the tests skip.
 
 K1/K2 edge cases (also used by tests/test_torch_segment_kernels.py against
 the JAX package): K not a multiple of 8, empty rows, an all-padding tail,
-tied maximum logits, rows with every edge masked, and E < 4 * 128. K3/K4
+tied maximum logits, rows with every edge masked, and E < 4 * 128; besides
+``CASES``, a hub row of 300 edges, rows of exactly one edge, a batch of
+padding edges only and a single row. K1 runs at widths 1, 2, 3, 4, 13,
+16, 32, 35, 36 and 132 (4- and 16-byte columns, a lane or a few per row,
+two 4-byte columns per lane, more 16-byte columns than lanes), with its
+row offsets passed in and found by the wrapper, and twice for identical
+bits. K3/K4
 edge cases (``make_edge_case``, also used by tests/test_torch_fused_egnn.py
 against the JAX package): empty senders, fully masked senders, a padding
 tail, NaN canaries in the previous messages, E < 128, a single block of
@@ -35,19 +41,32 @@ from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward, \
 TOL = dict(atol=1e-5, rtol=1e-5)
 CASES = ['plain', 'small', 'empty_rows', 'padding_tail', 'tied_max',
          'all_masked_rows']
+EXTRA_CASES = ['hub', 'one_edge', 'all_padding', 'n1']
+K1_WIDTHS = [1, 2, 3, 4, 13, 16, 32, 35, 36, 132]
 
 
 def make_case(name):
     """(ids, feat, logits, trans, mask, n) for one edge case."""
-    rng = np.random.RandomState(CASES.index(name))
+    rng = np.random.RandomState((CASES + EXTRA_CASES).index(name))
     n, e, k, pad = 300, 2400, 13, 200          # K not a multiple of 8
     if name == 'small':                        # E < 4 * 128
         n, e, k, pad = 40, 300, 16, 20
+    if name == 'all_padding':                  # no real edge at all
+        pad = e
+    if name == 'n1':                           # a single row
+        n, e, pad = 1, 40, 10
     ids = np.sort(rng.randint(0, n, e - pad))
     if name == 'empty_rows':                   # every other row empty
         ids = np.sort(rng.randint(0, n // 2, e - pad)) * 2
     if name == 'padding_tail':                 # last rows have no edges
         ids = np.sort(rng.randint(0, n // 2, e - pad))
+    if name == 'hub':                          # row 7 has 300 edges
+        ids = rng.randint(0, n - 1, e - pad - 300)
+        ids = np.sort(np.concatenate([ids + (ids >= 7), np.full(300, 7)]))
+    if name == 'one_edge':                     # rows of exactly one edge
+        n, k = 300, 16
+        ids = np.sort(rng.choice(n, 250, replace=False))
+        e = len(ids) + pad
     ids = np.concatenate([ids, np.full(pad, n)]).astype(np.int32)
     feat = rng.randn(e, k).astype(np.float32)
     logits = (rng.randn(e) * 2).astype(np.float32)
@@ -205,6 +224,121 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     assert after['segment_sum_sorted'] == before['segment_sum_sorted'] + 1
     assert (after['softmax_aggregate_sorted']
             == before['softmax_aggregate_sorted'] + 2)
+
+
+def _width_case(case, k):
+    """(ids, data [E, k], n): a case's ids with features of width k."""
+    ids, _, _, _, _, n = make_case(case)
+    rng = np.random.RandomState(100 + k)
+    return ids, rng.randn(len(ids), k).astype(np.float32), n
+
+
+def _unaligned_copy(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary, so the kernels take their 4-byte loads."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = flat.view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', K1_WIDTHS)
+@pytest.mark.parametrize('case', CASES + EXTRA_CASES[:2])
+def test_k1_widths_match_plain(case, k, cuda_device):
+    """K1 at every width against the plain version (evaluated in float64:
+    the f32 plain version on the card adds by atomics, in no fixed order,
+    and on the 300-edge row errs by as much as the gate), also with 4-byte
+    loads at a width that takes 16-byte ones; offsets passed in and found
+    by the wrapper, and a repeat, give identical bits; the wrapper finds
+    offsets only when none are passed."""
+    ids_np, data_np, n = _width_case(case, k)
+    data, ids = _t(data_np, ids_np, device=cuda_device)
+    before = sk.launch_counts()
+    offsets = sk.segment_offsets(ids, n)
+    got = sk.windowed_segment_sum(data, ids, n, offsets)
+    again = sk.windowed_segment_sum(data, ids, n, offsets)
+    found = sk.windowed_segment_sum(data, ids, n)
+    unaligned = sk.windowed_segment_sum(_unaligned_copy(data), ids, n,
+                                        offsets)
+    want = sk.windowed_segment_sum_plain(data.double(), ids, n).float()
+    torch.cuda.synchronize()
+    after = sk.launch_counts()
+    np.testing.assert_array_equal(offsets.cpu().numpy(),
+                                  np.searchsorted(ids_np, np.arange(n + 1)))
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(unaligned, want, **TOL)
+    assert torch.equal(got, again) and torch.equal(got, found)
+    assert after['segment_sum_sorted'] == before['segment_sum_sorted'] + 4
+    assert after['segment_offsets'] == before['segment_offsets'] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width', ['own', 32])
+@pytest.mark.parametrize('mode', ['softmax', 'sigmoid'])
+@pytest.mark.parametrize('case', CASES + EXTRA_CASES[:2])
+def test_k2_matches_plain_with_offsets(case, mode, width, cuda_device):
+    """K2 in both modes at the case's width (13 or 16) and at 32, against
+    the plain version (in float64, as for K1): offsets passed in or found
+    by the wrapper, and a repeat, give identical bits; the dead column and
+    sigmoid's seg_max are zero."""
+    ids, feat, logits, trans, mask, n = make_case(case)
+    if width == 32:
+        feat = np.random.RandomState(132).randn(len(ids), 32).astype(
+            np.float32)
+    args = _t(feat, logits, trans, mask, ids, device=cuda_device)
+    k = feat.shape[1]
+    before = sk.launch_counts()
+    offsets = sk.segment_offsets(args[4], n)
+    got = sk.fused_softmax_aggregate(*args, n, mode, offsets)
+    again = sk.fused_softmax_aggregate(*args, n, mode, offsets)
+    found = sk.fused_softmax_aggregate(*args, n, mode)
+    want = sk.fused_softmax_aggregate_plain(
+        *[a.double() for a in args[:4]], args[4], n, mode)
+    torch.cuda.synchronize()
+    after = sk.launch_counts()
+    for g, a, f, w in zip(got, again, found, want):
+        torch.testing.assert_close(g, w.float(), **TOL)
+        assert torch.equal(g, a) and torch.equal(g, f)
+    assert torch.all(got[0][:, k + 3] == 0)
+    if mode == 'sigmoid':
+        assert torch.all(got[1] == 0)
+    assert (after['softmax_aggregate_sorted']
+            == before['softmax_aggregate_sorted'] + 3)
+    assert after['segment_offsets'] == before['segment_offsets'] + 2
+
+
+def two_launch_mean_to_src(agg, data, mask):
+    """``EdgeAggregator.mean_to_src`` as two K1 launches (sums, counts)."""
+    total = agg.sum_to_src(data, mask)
+    counts = agg.sum_to_src(mask, torch.ones_like(mask))
+    denom = torch.maximum(counts, counts.new_tensor(1.0))
+    return total / (denom[:, None] if data.dim() > 1 else denom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', ['rows', 'vector'])
+def test_mean_to_src_one_launch_equals_two_launch_form(shape, cuda_device):
+    """The packed [data * mask | mask] launch sums each column alone in
+    edge order, so it gives the two-launch form's bits."""
+    ids, feat, _, trans, mask, n = make_case('plain')
+    data = trans if shape == 'rows' else feat[:, 0].copy()
+    ids_t, data_t, mask_t = _t(ids, data, mask, device=cuda_device)
+    agg = EdgeAggregator(ids_t, ids_t, mask_t, num_nodes=n)
+    outs, grads = [], []
+    for fn in (agg.mean_to_src, lambda d, m: two_launch_mean_to_src(
+            agg, d, m)):
+        leaf = data_t.clone().requires_grad_(True)
+        before = sk.launch_counts()['segment_sum_sorted']
+        out = fn(leaf, mask_t)
+        outs.append((out, sk.launch_counts()['segment_sum_sorted'] - before))
+        (out * out).sum().backward()
+        grads.append(leaf.grad)
+    (one, one_launches), (two, two_launches) = outs
+    assert (one_launches, two_launches) == (1, 2)
+    assert torch.equal(one, two)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-6, rtol=0)
 
 
 def _edge_tensors(case, device):
@@ -377,5 +511,8 @@ def test_aggregation_gradients_on_gpu_match_cpu(case, cuda_device):
     assert after['segment_sum_sorted'] > counts['segment_sum_sorted']
     assert (after['softmax_aggregate_sorted']
             == counts['softmax_aggregate_sorted'] + 2)
+    # The aggregator's two offset computations (senders, and the sorted
+    # receivers for gather_dst's backward); no launch found its own.
+    assert after['segment_offsets'] == counts['segment_offsets'] + 2
     for g, w in zip(got, run(torch.device('cpu'))):
         torch.testing.assert_close(g, w, **TOL)

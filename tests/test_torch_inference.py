@@ -4,8 +4,9 @@ A ``.pt`` checkpoint plus ``model_kwargs.yaml`` / ``cmd_args.yaml``
 sidecars (the layout of tests/test_torch_import.py) holds weights of the
 JAX model's shapes. ``pointvs_tpu.inference`` and
 ``pointvs_tpu_torch.inference --device cpu`` must write the same rows in
-the same order, probabilities within 2e-3 (the file prints 3 decimals).
-Also: the port's entry point refuses to run without CUDA unless asked for
+the same order, probabilities within 2e-3 (the file prints 3 decimals),
+given the same ``--num_devices 1``; ``--num_devices 2`` is refused as a
+missing feature. Also: the port's entry point refuses to run without CUDA unless asked for
 the CPU, and the port imports nothing of JAX or of the JAX package.
 """
 import re
@@ -56,8 +57,9 @@ def test_cli_predictions_match_jax(run_dir):
     from pointvs_tpu.inference import main as jax_main
     from pointvs_tpu_torch.inference import main as port_main
 
-    args = [str(run_dir), str(RESOURCES / 'test.types'), str(RESOURCES)]
-    jax_main(args + ['--output_fname', 'jax.txt', '--num_devices', '1'])
+    args = [str(run_dir), str(RESOURCES / 'test.types'), str(RESOURCES),
+            '--num_devices', '1']
+    jax_main(args + ['--output_fname', 'jax.txt'])
     trainer = port_main(args + ['--output_fname', 'port.txt', '--device',
                                 'cpu', '--top1'])
     want, got = _rows(run_dir / 'pose_jax.txt'), _rows(
@@ -77,6 +79,15 @@ def test_entry_point_raises_without_cuda(run_dir, monkeypatch):
     with pytest.raises(RuntimeError, match='--device cpu'):
         port_main([str(run_dir), str(RESOURCES / 'test.types'),
                    str(RESOURCES)])
+
+
+def test_cli_refuses_more_devices_by_name(run_dir):
+    """A reference command line with --num_devices 2 gets past argparse
+    and is refused as a missing feature, before anything is loaded."""
+    from pointvs_tpu_torch.inference import main as port_main
+    with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
+        port_main([str(run_dir), str(RESOURCES / 'test.types'),
+                   str(RESOURCES), '--num_devices', '2', '--device', 'cpu'])
 
 
 def test_orbax_run_dir_is_refused(tmp_path):
