@@ -63,7 +63,25 @@ Phases:
    passes give identical parameter gradients; the saved checkpoint reloads
    to the same scores; step time by CUDA events and each path's profiled
    kernel share, K1's, K2's, K3's and K4's per launch, and the top kernels
-   by name.
+   by name;
+7. training CLI: ``pointvs_tpu_torch.main.main`` (in process, so the
+   launch counters can be read) trains the README 6-layer model (k=32,
+   softmax attention, residual, normalise, tanh, GraphNorm, compact) on the
+   pose set for 2 epochs at batch 32 with one augmented copy of each
+   active, edge dropout 0.1, validation after each epoch, --top1 and
+   --end_flag: 96 items, 3 weighted-sampled steps an epoch. Checks the run
+   directory's files, K2 at 6 launches per training step and validation
+   forward, K1 in every step, at most one offset computation per batch,
+   finite losses in metrics.jsonl, and the same command line with
+   ``--device cpu`` within the trajectory gate (the dropout seeds come from
+   one host generator, so the masks match). Then ``python -m
+   pointvs_tpu_torch.resume_training`` in a subprocess continues the run to
+   epoch 3 (exit 0, ``pose_ckpt_epoch_3.pt``), and one step's parameter
+   gradients with ``--remat`` must be within 1e-6 of the step's without.
+   Prints the CLI's step ms by CUDA events (median, p90), each epoch's
+   wall time, poses per second, and the host share of an epoch (wall minus
+   the profiler's device time of a second run's steps); and the step ms
+   and epoch wall of a third run with ``--prefetch 0`` (no loader thread).
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -933,6 +951,149 @@ def phase_training(torch, np, root: Path, types: Path):
             'k4': fused['fused_edge_backward']}
 
 
+# ----------------------------------------------------------------- 7
+CLI_FLAGS = ['--layers', '6', '-k', '32', '--egnn_attention',
+             '--softmax_attention', '--egnn_residual', '--egnn_normalise',
+             '--egnn_tanh', '--graphnorm', '--compact', '-b', '32', '-ep',
+             '2', '--augmented_actives', '1', '--dropout', '0.1',
+             '--radius', '10', '--edge_radius', '4']
+CLI_RUN_FILES = ('cmd_args.yaml', 'model_kwargs.yaml', 'output.log',
+                 'metrics.jsonl', 'checkpoints/pose_ckpt_epoch_1.pt',
+                 'checkpoints/pose_ckpt_epoch_2.pt', 'pose_predictions.txt',
+                 'pose_predictions_epoch_1.txt', '_FINISHED')
+
+
+def cli_argv(run: Path, types: Path, device: str, validate=True,
+             extra=()):
+    data = str(types.parent)
+    argv = ['egnn', str(run), '--train_data_root_pose', data,
+            '--train_types_pose', str(types)] + CLI_FLAGS
+    if validate:
+        argv += ['--test_data_root_pose', data, '--test_types_pose',
+                 str(types), '--val_on_epoch_end', '--top1', '--end_flag']
+    return argv + ['--device', device] + list(extra)
+
+
+def _remat_grad_diff(torch, trainer, types: Path):
+    """max |grad with remat - grad without| over the parameters, for one
+    training forward and backward with dropout on a batch of 32 poses."""
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.data.loader import get_data_loader
+    from pointvs_tpu_torch.models.registry import build_model
+    from pointvs_tpu_torch.training.losses import loss_fn
+    batch = next(iter(get_data_loader(
+        types.parent, types, batch_size=32, radius=10, edge_radius=4,
+        polar_hydrogens=False, prefetch=0)))[0]
+    batch = to_device(batch, trainer.device)
+    grads = []
+    for remat in (False, True):
+        model = build_model('egnn', **dict(trainer.model_kwargs,
+                                           remat=remat))
+        model.load_state_dict(trainer.model.state_dict())
+        model.to(trainer.device).train()
+        loss_sum, weight = loss_fn(model(batch, train=True,
+                                         dropout_seed=0xC0FFEE),
+                                   batch, 'classification')
+        (loss_sum / torch.clamp_min(weight, 1.0)).backward()
+        grads.append([p.grad for p in model.parameters()])
+    return max(float((a - b).abs().max()) for a, b in zip(*grads))
+
+
+def phase_training_cli(torch, np, root: Path, types: Path, card: str):
+    from torch.profiler import ProfilerActivity, profile
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    layers = 6
+    run = root / 'cli_cuda'
+    sk.reset_launch_counts()
+    start = time.perf_counter()
+    gpu = train_main(cli_argv(run, types, 'cuda'))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = sk.launch_counts()
+    missing = [f for f in CLI_RUN_FILES if not (run / f).exists()]
+    check(not missing, f'training CLI: run directory lacks {missing}')
+    items = 64 + 32   # the poses and one augmented copy of each active
+    steps = len(gpu.train_losses)
+    check(steps == 2 * 3, f'training CLI: {steps} steps, expected 2 x 3')
+    val_batches = 4   # 64 poses at batch 32, after epoch 1 and at the end
+    check(counts['softmax_aggregate_sorted'] == layers * (steps
+                                                          + val_batches)
+          and counts['segment_sum_sorted'] >= layers * steps
+          and counts['fused_edge_forward'] == 0
+          and counts['fused_edge_backward'] == 0,
+          f'training CLI launches {counts}: expected K2 = {layers} x '
+          f'({steps} steps + {val_batches} validation forwards), K1 >= '
+          f'{layers * steps}, no K3/K4')
+    check(counts['segment_offsets'] <= steps + val_batches,
+          f'training CLI: {counts["segment_offsets"]} offset computations '
+          f'for {steps + val_batches} batches')
+    logged = [json.loads(line)['Loss (train, pose)']
+              for line in (run / 'metrics.jsonl').read_text().splitlines()
+              if 'Loss (train, pose)' in line]
+    check(logged and np.isfinite(logged).all()
+          and np.isfinite(gpu.train_losses).all(),
+          f'training CLI: losses {gpu.train_losses}, logged {logged}')
+
+    cpu = train_main(cli_argv(root / 'cli_cpu', types, 'cpu'))
+    diff = float(np.abs(np.subtract(gpu.train_losses,
+                                    cpu.train_losses)).max())
+    check(np.allclose(gpu.train_losses, cpu.train_losses, **TRAJ_TOL),
+          f'training CLI: GPU and CPU trajectories differ by {diff}')
+
+    # Resume to epoch 3 as a user would, in a process of its own.
+    cmd_args = (run / 'cmd_args.yaml').read_text()
+    check('epochs_pose: 2' in cmd_args, 'cmd_args.yaml lacks epochs_pose')
+    (run / 'cmd_args.yaml').write_text(
+        cmd_args.replace('epochs_pose: 2', 'epochs_pose: 3'))
+    resumed = subprocess.run(
+        [sys.executable, '-m', 'pointvs_tpu_torch.resume_training',
+         str(run)], cwd=REPO, capture_output=True, text=True, timeout=600)
+    ckpt = run / 'checkpoints' / 'pose_ckpt_epoch_3.pt'
+    check(resumed.returncode == 0 and ckpt.exists(),
+          f'resume_training exited {resumed.returncode}:\n'
+          f'{resumed.stderr[-3000:]}')
+    p_epoch = torch.load(ckpt, map_location='cpu')['p_epoch']
+    check(p_epoch == 3, f'resumed checkpoint holds p_epoch {p_epoch}')
+
+    remat_diff = _remat_grad_diff(torch, gpu, types)
+    check(remat_diff <= 1e-6, f'--remat changes gradients by {remat_diff}')
+
+    # Device time of the steps: the training alone (no validation) under
+    # the profiler, in a run of its own.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = train_main(cli_argv(root / 'cli_profiled', types, 'cuda',
+                                       validate=False))
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    ) / 1e3 / len(profiled.train_losses)
+    # The same training without the loader's producer thread: its
+    # featurisation then no longer runs beside the steps' dispatch.
+    serial = train_main(cli_argv(root / 'cli_prefetch0', types, 'cuda',
+                                 validate=False, extra=['--prefetch', '0']))
+    serial_ms = np.asarray(serial.step_ms())
+    ms = np.asarray(gpu.step_ms())
+    epoch_s = gpu.epoch_seconds
+    host = [1 - steps / 2 * device_ms / (1e3 * s) for s in epoch_s]
+    print(f'training CLI: {card}: {steps} steps, wall {wall:.3f} s '
+          f'(featurisation, training, validation, checkpoints); launches '
+          f'{counts}; losses {gpu.train_losses}; max|gpu - cpu| loss '
+          f'{diff:.3e}; resumed to p_epoch {p_epoch}; max|remat - plain| '
+          f'grad {remat_diff:.3e}')
+    print(f'training CLI: {card}: step_ms median {np.median(ms):.3f} p90 '
+          f'{np.percentile(ms, 90):.3f} (CUDA events, {len(ms)} steps of '
+          f'32 graphs) {ms.round(3).tolist()}; epoch wall s '
+          f'{[round(s, 3) for s in epoch_s]} (epoch 1 featurises); poses '
+          f'per s {[round(items / s, 1) for s in epoch_s]}; device ms per '
+          f'step {device_ms:.3f} (profiled run); host share of the epoch '
+          f'{[round(h, 3) for h in host]}')
+    print(f'training CLI: {card}: with --prefetch 0 step_ms median '
+          f'{np.median(serial_ms):.3f} p90 {np.percentile(serial_ms, 90):.3f} '
+          f'{serial_ms.round(3).tolist()}; epoch wall s '
+          f'{[round(s, 3) for s in serial.epoch_seconds]}')
+    return counts
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -950,6 +1111,7 @@ def main() -> int:
             types, n_poses = write_pose_set(np, root / 'data')
             launches = phase_serving(torch, np, root, types, n_poses)
             train_launches = phase_training(torch, np, root, types)
+            cli_launches = phase_training_cli(torch, np, root, types, card)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -976,7 +1138,8 @@ def main() -> int:
               train_launches['k4'], 'k4', 'k4'),
     ]
     print(f'launches on the main paths: serving {launches}; training '
-          f'(module path K1/K2, fused path K3/K4) {train_launches}')
+          f'(module path K1/K2, fused path K3/K4) {train_launches}; '
+          f'training CLI {cli_launches}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -94,8 +94,13 @@ def pick_bucket(size: int, buckets: Sequence[int]) -> int:
 def pad_graphs_to_batch(samples: Sequence[GraphSample],
                         num_graphs: Optional[int] = None,
                         n_pad: Optional[int] = None,
-                        e_pad: Optional[int] = None) -> GraphBatch:
-    """Concatenate samples into one padded, sender-sorted GraphBatch."""
+                        e_pad: Optional[int] = None,
+                        node_buckets: Sequence[int] = DEFAULT_NODE_BUCKETS,
+                        edge_buckets: Sequence[int] = DEFAULT_EDGE_BUCKETS
+                        ) -> GraphBatch:
+    """Concatenate samples into one padded, sender-sorted GraphBatch; the
+    padded sizes are ``n_pad`` / ``e_pad`` or else the smallest bucket
+    that fits."""
     if not samples:
         raise ValueError('pad_graphs_to_batch needs at least one sample')
     num_graphs = num_graphs or len(samples)
@@ -104,9 +109,9 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
     total_nodes = sum(s.num_nodes for s in samples)
     total_edges = sum(s.num_edges for s in samples)
     n_pad = n_pad if n_pad is not None else pick_bucket(
-        max(total_nodes, 1), DEFAULT_NODE_BUCKETS)
+        max(total_nodes, 1), node_buckets)
     e_pad = e_pad if e_pad is not None else pick_bucket(
-        max(total_edges, 1), DEFAULT_EDGE_BUCKETS)
+        max(total_edges, 1), edge_buckets)
     if n_pad < total_nodes or e_pad < total_edges:
         raise ValueError(f'pad sizes ({n_pad},{e_pad}) smaller than actual '
                          f'({total_nodes},{total_edges})')

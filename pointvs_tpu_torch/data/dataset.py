@@ -1,38 +1,69 @@
-"""Host-side dataset: types manifest -> GraphSamples, for scoring.
+"""Host-side dataset: types manifest -> GraphSamples.
 
-Counterpart of the evaluation path of ``pointvs_tpu/data/dataset.py``
-(``PointCloudDataset`` in ``mode='val'``): labels straight from the types
-file, smina-type or atomic-number featurisation with the compact
-one-hot + entity-bit scheme, box filter, radius graph with inter/intra
-radii (``estimate_bonds`` => intra 2.0 A) and optional pruning. Edges are
-sorted by (sender, receiver), stably, as the reference sorts them.
-Augmentation, rotation and the on-disk graph cache are training features
-and are not here.
+Counterpart of ``pointvs_tpu/data/dataset.py`` (``PointCloudDataset``):
+
+- classification labels from the types file, or relabelled by pose RMSD
+  with the max_active / min_inactive / max_inactive cut-offs;
+- augmented actives: each active repeated ``augmented_active_count`` times
+  past the real items, its ligand re-rotated by at least
+  ``augmented_active_min_angle`` degrees, labelled decoy; the rotation of
+  an augmented item depends only on (seed, epoch, item), within a size cap
+  per item (``aug_size_cap``, ``_aug_draw``);
+- class-balancing sample weights; label noise ``p_noise``; entity dropout
+  ``p_remove_entity`` (edges rebuilt on the entity kept); a whole-complex
+  rotation ``rot``; regression targets (``multi_regression``: 3 values);
+- smina-type or atomic-number featurisation with the compact one-hot +
+  entity-bit scheme; box filter; radius graph with inter/intra radii
+  (``estimate_bonds`` => intra 2.0 A) and optional pruning; edges sorted by
+  (sender, receiver), stably;
+- an in-memory cache of boxed graphs and their features (4 GiB budget) and
+  an on-disk cache (``cache_dir``, ``data/blob.py`` files). Augmented items
+  bypass both.
+
+The dataset's own ``RandomState(seed)`` is drawn in the reference's order
+inside ``__getitem__``: the label-noise draw (every classification item),
+then entity dropout (two draws, when enabled), then the rotation (three).
 """
 from __future__ import annotations
 
+import hashlib
+import math
 from collections import defaultdict
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
+from pointvs_tpu_torch.data.blob import load_blob, save_blob
 from pointvs_tpu_torch.data.buckets import GraphSample
 from pointvs_tpu_torch.data.preprocessing import (
+    KEYS,
     concat_structs,
     coords_of,
     generate_edges,
     make_bit_vector,
     make_box,
     read_struct,
+    rotate_struct,
     subset,
+    uniform_random_rotation,
 )
 from pointvs_tpu_torch.data.types_files import (
     parse_classification_types,
     parse_regression_types,
 )
-from pointvs_tpu_torch.utils import expand_path
+from pointvs_tpu_torch.logging import get_logger
+from pointvs_tpu_torch.utils import expand_path, shorten_home
+
+LOG = get_logger()
 
 _RECOGNISED_ATOMIC_NUMBERS = (6, 7, 8, 9, 15, 16, 17)
 _OTHER_GROUPINGS = ((35, 53), (3, 11, 19), (4, 12, 20), (26, 29, 30))
+# Augmented-active size caps (the reference's defaults): probe rotations,
+# slack on nodes and on edges, redraws before the fallback rotation.
+_AUG_PROBES, _AUG_SLACK_N, _AUG_SLACK_E, _AUG_RETRIES = 4, 1.6, 1.8, 4
+_PROBE_EPOCH = 1 << 30   # probe keys sit far above any real epoch
+_MEM_CACHE_BYTES = 4 << 30
 
 
 def build_atomic_number_map(polar_hydrogens: bool):
@@ -55,10 +86,21 @@ class PointCloudDataset:
     def __init__(self, base_path, types_fname, radius: float = 12,
                  polar_hydrogens: bool = True,
                  use_atomic_numbers: bool = False, compact: bool = True,
+                 rot: bool = False, augmented_active_count: int = 0,
+                 augmented_active_min_angle: float = 90,
+                 max_active_rms_distance: Optional[float] = None,
+                 min_inactive_rms_distance: Optional[float] = None,
+                 max_inactive_rms_distance: Optional[float] = None,
                  model_task: str = 'classification',
-                 edge_radius: float | None = None,
+                 edge_radius: Optional[float] = None,
                  estimate_bonds: bool = False, prune: bool = False,
-                 extended_atom_types: bool = False):
+                 p_remove_entity: float = 0,
+                 extended_atom_types: bool = False, p_noise: float = -1,
+                 cache_dir=None, seed: int = 0):
+        if (max_active_rms_distance is None) != (
+                min_inactive_rms_distance is None):
+            raise ValueError('max_active_rms_distance and '
+                             'min_inactive_rms_distance go together')
         self.base_path = expand_path(base_path)
         if not self.base_path.exists():
             raise FileNotFoundError(f'Dataset {self.base_path} does not '
@@ -67,22 +109,44 @@ class PointCloudDataset:
         self.polar_hydrogens = polar_hydrogens
         self.use_atomic_numbers = use_atomic_numbers
         self.compact = compact
+        self.rot = rot
         self.model_task = model_task
         self.edge_radius = edge_radius if edge_radius is not None else 4.0
         self.estimate_bonds = estimate_bonds
         self.prune = prune
+        self.p_remove_entity = p_remove_entity
+        self.p_noise = p_noise
         self.extended_atom_types = extended_atom_types
+        self.augmented_active_min_angle = augmented_active_min_angle
+        self.rng = np.random.RandomState(seed)
+        self.seed = seed
+        self._aug_epoch = 0           # set by the train loader each epoch
+        self._aug_caps: dict = {}
+        self.aug_rejects = 0
+        self.aug_fallbacks = 0
+        self.cache_dir = Path(cache_dir) if cache_dir else None
+        if self.cache_dir:
+            self.cache_dir.mkdir(parents=True, exist_ok=True)
+        self._mem_cache = {}
+        self._mem_cache_budget = _MEM_CACHE_BYTES
+        self._seen_files: set = set()
+        self._file_fps: dict = {}
+        self.sample_weights = None
 
         if model_task.endswith('regression'):
             entries = parse_regression_types(self.base_path, types_fname)
             self.targets = list(zip(entries.pki, entries.pkd, entries.ic50))
-            self.labels = None
+            self.receptor_fnames = entries.receptors
+            self.ligand_fnames = entries.ligands
+            self.pre_aug_ds_len = len(self.ligand_fnames)
+            self.labels = np.array([])
         else:
-            entries = parse_classification_types(types_fname)
-            self.labels = np.array([-1 if l is None else l
-                                    for l in entries.labels], np.int64)
-        self.receptor_fnames = entries.receptors
-        self.ligand_fnames = entries.ligands
+            self._init_classification(
+                types_fname, max_active_rms_distance,
+                min_inactive_rms_distance, max_inactive_rms_distance,
+                augmented_active_count)
+        LOG.info(f'There are {len(self.ligand_fnames)} data points in '
+                 f'{shorten_home(base_path)}')
 
         self._z_lut = None
         if use_atomic_numbers:
@@ -96,22 +160,138 @@ class PointCloudDataset:
             raise NotImplementedError('Hydrogens temporarily disabled.')
         else:
             self.n_features = 11 + 8 * extended_atom_types
+        self.feature_dim = (self.n_features + 1 if compact
+                            else self.n_features * 2)
+
+    def _init_classification(self, types_fname, max_active_rmsd,
+                             min_inactive_rmsd, max_inactive_rmsd,
+                             aug_count):
+        label_by_rmsd = any(v is not None for v in (
+            max_active_rmsd, min_inactive_rmsd, max_inactive_rmsd))
+        if label_by_rmsd:
+            max_active_rmsd = (np.inf if max_active_rmsd is None
+                               else max_active_rmsd)
+            max_inactive_rmsd = (np.inf if max_inactive_rmsd is None
+                                 else max_inactive_rmsd)
+            min_inactive_rmsd = (0 if min_inactive_rmsd is None
+                                 else min_inactive_rmsd)
+        entries = parse_classification_types(types_fname)
+        labels, recs, ligs, aug_recs, aug_ligs = [], [], [], [], []
+        for label, rmsd, rec, lig in zip(entries.labels, entries.rmsds,
+                                         entries.receptors, entries.ligands):
+            if label_by_rmsd:
+                if rmsd is None or rmsd < 0:
+                    continue
+                if rmsd < max_active_rmsd:
+                    label = 1
+                elif rmsd >= max_inactive_rmsd:
+                    continue
+                elif rmsd >= min_inactive_rmsd:
+                    label = 0
+                else:
+                    continue
+            if label:
+                aug_recs += [rec] * aug_count
+                aug_ligs += [lig] * aug_count
+            labels.append(label)
+            recs.append(rec)
+            ligs.append(lig)
+        self.pre_aug_ds_len = len(ligs)
+        self.receptor_fnames = recs + aug_recs
+        self.ligand_fnames = ligs + aug_ligs
+        labels = labels + [0] * len(aug_ligs)
+        self.labels = np.array([-1 if v is None else v for v in labels],
+                               np.int64)
+        # Class-balancing weights; None when single-class or unlabelled.
+        if len(labels) and labels[0] is not None:
+            active_count = int(np.sum(self.labels == 1))
+            total = len(self.labels)
+            if active_count not in (0, total):
+                weights = 1.0 / np.array([total - active_count,
+                                          active_count], np.float64)
+                self.sample_weights = weights[np.clip(self.labels, 0, 1)]
 
     def __len__(self):
         return len(self.ligand_fnames)
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch that keys the augmented items' rotations."""
+        self._aug_epoch = int(epoch)
+
+    # -- augmented actives ------------------------------------------- #
+    def _aug_attempt_rng(self, item: int, epoch: int,
+                         attempt: int) -> np.random.RandomState:
+        entropy = [int(self.seed) & 0x7fffffff, int(epoch), int(item)]
+        if attempt:
+            entropy.append(int(attempt))
+        seed = np.random.SeedSequence(entropy).generate_state(1)[0]
+        return np.random.RandomState(int(seed))
+
+    def aug_size_cap(self, item: int):
+        """(node, edge) cap on ``item``'s augmented graphs: the slack times
+        the largest of the unrotated graph and the probe rotations, and at
+        least the first probe's size (the fallback rotation)."""
+        hit = self._aug_caps.get(item)
+        if hit is not None:
+            return hit
+        lig_path, rec_path = self._paths_for(item)
+        base = self._load_boxed_graph(lig_path, rec_path)
+        n_max, e_max = len(base[0]['x']), len(base[1])
+        fb_n = fb_e = 0
+        for j in range(_AUG_PROBES):
+            g = self._build_graph(lig_path, rec_path,
+                                  self.augmented_active_min_angle,
+                                  self._aug_attempt_rng(
+                                      item, _PROBE_EPOCH + j, 0))
+            if j == 0:
+                fb_n, fb_e = len(g[0]['x']), len(g[1])
+            n_max = max(n_max, len(g[0]['x']))
+            e_max = max(e_max, len(g[1]))
+        cap = (max(int(math.ceil(n_max * _AUG_SLACK_N)), fb_n),
+               max(int(math.ceil(e_max * _AUG_SLACK_E)), fb_e))
+        self._aug_caps[item] = cap
+        return cap
+
+    def _aug_draw(self, item: int, epoch: int):
+        """Rotations keyed (seed, epoch, item, attempt) until one fits
+        ``aug_size_cap``; after the retries, the first probe's rotation."""
+        n_cap, e_cap = self.aug_size_cap(item)
+        lig_path, rec_path = self._paths_for(item)
+        for attempt in range(_AUG_RETRIES + 1):
+            g = self._build_graph(
+                lig_path, rec_path, self.augmented_active_min_angle,
+                self._aug_attempt_rng(item, epoch, attempt))
+            if len(g[0]['x']) <= n_cap and len(g[1]) <= e_cap:
+                return g
+            self.aug_rejects += 1
+        self.aug_fallbacks += 1
+        return self._build_graph(lig_path, rec_path,
+                                 self.augmented_active_min_angle,
+                                 self._aug_attempt_rng(item, _PROBE_EPOCH, 0))
+
+    # -- labels, paths, graphs --------------------------------------- #
     def _label_for(self, item: int):
         if self.model_task == 'classification':
-            return np.float32(self.labels[item])
+            label = int(self.labels[item]) if len(self.labels) else 0
+            if self.rng.rand() < self.p_noise:
+                label = 1 - label
+            return np.float32(label)
         pki, pkd, ic50 = self.targets[item]
         if self.model_task == 'multi_regression':
             return np.array([pki, pkd, ic50], np.float32)
         vals = [v for v in (pki, pkd, ic50) if v is not None]
         return np.float32(max(vals) if vals else 0.0)
 
-    def _build_struct(self, lig_path, rec_path):
-        struct = make_box(concat_structs(read_struct(rec_path),
-                                         read_struct(lig_path),
+    def _paths_for(self, item: int):
+        return (self.base_path / self.ligand_fnames[item],
+                self.base_path / self.receptor_fnames[item])
+
+    def _build_struct(self, lig_path, rec_path, aug_angle: float = 0,
+                      rng=None):
+        lig = read_struct(lig_path)
+        if aug_angle:
+            lig = rotate_struct(lig, aug_angle, rng)
+        struct = make_box(concat_structs(read_struct(rec_path), lig,
                                          self.n_features,
                                          extended=self.extended_atom_types),
                           radius=self.radius)
@@ -122,6 +302,12 @@ class PointCloudDataset:
             struct = dict(struct, types=self._z_lut[z]
                           + struct['bp'] * self.n_features)
         return struct
+
+    def _build_graph(self, lig_path, rec_path, aug_angle: float = 0,
+                     rng=None):
+        """(struct, rows, cols, edge_attr) of one complex."""
+        return self._edges_for(self._build_struct(lig_path, rec_path,
+                                                  aug_angle, rng))
 
     def _edges_for(self, struct):
         edge_radius = self.edge_radius if self.edge_radius > 0 else 4
@@ -138,18 +324,96 @@ class PointCloudDataset:
         onehot[np.arange(len(order)), attrs[order]] = 1.0
         return struct, rows, cols, onehot
 
+    # -- caches ------------------------------------------------------ #
+    def _file_fp(self, path) -> tuple:
+        """(size, mtime_ns), once per file: a pose rewritten in place must
+        not be served from the disk cache."""
+        key = str(path)
+        hit = self._file_fps.get(key)
+        if hit is None:
+            st = Path(path).stat()
+            hit = self._file_fps[key] = (st.st_size, st.st_mtime_ns)
+        return hit
+
+    def _cache_key(self, lig_path, rec_path) -> Optional[Path]:
+        if self.cache_dir is None:
+            return None
+        params = (str(lig_path), str(rec_path), self._file_fp(lig_path),
+                  self._file_fp(rec_path), self.radius, self.edge_radius,
+                  self.estimate_bonds, self.prune, self.polar_hydrogens,
+                  self.use_atomic_numbers, self.extended_atom_types,
+                  'torch-lex1')
+        digest = hashlib.sha1(repr(params).encode()).hexdigest()[:24]
+        return self.cache_dir / f'{digest}.bin'
+
+    def _mem_cache_put(self, key, value, nbytes: int):
+        if key is not None and nbytes <= self._mem_cache_budget:
+            self._mem_cache[key] = value
+            self._mem_cache_budget -= nbytes
+
+    def _load_boxed_graph(self, lig_path, rec_path):
+        """The unrotated graph, through the memory and disk caches."""
+        mem_key = (str(lig_path), str(rec_path))
+        if mem_key in self._mem_cache:
+            return self._mem_cache[mem_key]
+        cache_path = self._cache_key(lig_path, rec_path)
+        if cache_path is not None and cache_path.exists():
+            blob = load_blob(cache_path)
+            graph = ({k: blob[k] for k in KEYS}, blob['rows'], blob['cols'],
+                     blob['attrs'])
+        else:
+            graph = self._build_graph(lig_path, rec_path)
+            if cache_path is not None:
+                tmp = cache_path.with_suffix('.tmp.bin')
+                save_blob(tmp, {'rows': graph[1], 'cols': graph[2],
+                                'attrs': graph[3],
+                                **{k: graph[0][k] for k in KEYS}})
+                tmp.rename(cache_path)
+        self._mem_cache_put(mem_key, graph,
+                            sum(v.nbytes for v in graph[0].values())
+                            + sum(a.nbytes for a in graph[1:]))
+        return graph
+
     def __getitem__(self, item: int) -> GraphSample:
-        lig_path = self.base_path / self.ligand_fnames[item]
-        rec_path = self.base_path / self.receptor_fnames[item]
+        label = self._label_for(item)
+        lig_path, rec_path = self._paths_for(item)
         for path in (lig_path, rec_path):
-            if not path.is_file():
-                raise FileNotFoundError(f'{path} does not exist.')
-        struct, rows, cols, edge_attr = self._edges_for(
-            self._build_struct(lig_path, rec_path))
-        return GraphSample(
-            node_feats=make_bit_vector(struct['types'], self.n_features,
-                                       self.compact),
-            coords=coords_of(struct).astype(np.float32),
-            senders=rows, receivers=cols, edge_attr=edge_attr,
-            y=self._label_for(item),
-            lig_fname=str(lig_path), rec_fname=str(rec_path))
+            if str(path) not in self._seen_files:
+                if not path.is_file():
+                    raise FileNotFoundError(f'{path} does not exist.')
+                self._seen_files.add(str(path))
+        is_augmented = (not self.model_task.endswith('regression')
+                        and item >= self.pre_aug_ds_len)
+        if is_augmented:
+            struct, rows, cols, attrs = self._aug_draw(item,
+                                                       self._aug_epoch)
+        else:
+            struct, rows, cols, attrs = self._load_boxed_graph(lig_path,
+                                                               rec_path)
+        # Entity dropout: keep the ligand or the receptor, rebuild its
+        # edges, label 0.
+        dropped = (self.p_remove_entity > 0
+                   and self.rng.rand() < self.p_remove_entity)
+        if dropped:
+            keep_bp = 0 if self.rng.rand() < 0.5 else 1
+            struct, rows, cols, attrs = self._edges_for(
+                subset(struct, struct['bp'] == keep_bp))
+            label = (np.float32(0) if np.ndim(label) == 0
+                     else np.zeros(3, np.float32))
+        feat_key = (None if is_augmented or dropped
+                    else (str(lig_path), str(rec_path), 'feats'))
+        cached = self._mem_cache.get(feat_key)
+        if cached is not None:
+            coords, feats = cached
+        else:
+            coords = coords_of(struct).astype(np.float32)
+            feats = make_bit_vector(struct['types'], self.n_features,
+                                    self.compact)
+            self._mem_cache_put(feat_key, (coords, feats),
+                                coords.nbytes + feats.nbytes)
+        if self.rot:
+            coords = uniform_random_rotation(coords, self.rng).astype(
+                np.float32)
+        return GraphSample(node_feats=feats, coords=coords, senders=rows,
+                           receivers=cols, edge_attr=attrs, y=label,
+                           lig_fname=str(lig_path), rec_fname=str(rec_path))

@@ -1,18 +1,43 @@
-"""Sequential scoring loader (counterpart of the evaluation path of
-``pointvs_tpu/data/loader.py``).
+"""Batched, prefetching graph loader (counterpart of
+``pointvs_tpu/data/loader.py``, graph layout on one device).
 
 Yields ``(GraphBatch, BatchMeta)`` with ``batch_size`` graph slots per
-batch, in types-file order; a short last batch leaves its spare slots
-empty (``graph_mask == 0``), as the reference's single-device collation
-does. Batches stay on the host; ``data.buckets.to_device`` moves them.
+batch; a short last batch leaves its spare slots empty
+(``graph_mask == 0``).
+
+- Sampling: in ``mode='train'`` for classification with class weights,
+  ``len(dataset)`` draws with replacement by weight; otherwise the items in
+  order, shuffled in training. The index stream is the reference's
+  ``RandomState(seed)``: ``choice(n, n, replace=True, p=...)`` or
+  ``shuffle``.
+- Each training pass sets the dataset's epoch (``set_epoch``), which keys
+  the augmented actives' rotations.
+- With ``prefetch > 0`` one producer thread featurises and collates ahead
+  of the consumer; it is the only thread that draws from the dataset's
+  random stream, so the draws keep their order. A producer's exception is
+  raised in the consumer.
+- Deterministic loaders (not training; no rotation, noise or entity
+  dropout) keep their collated batches after the first pass.
+
+Batches stay on the host: the consumer moves each to the device
+(``data.buckets.to_device``, pinned memory and non-blocking copies on the
+consumer's stream). The reference's TPU window capacity (``meta.cap``),
+its data-parallel split and its device-resident dataset are not here.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, List, Tuple
 
 import numpy as np
 
-from pointvs_tpu_torch.data.buckets import GraphBatch, pad_graphs_to_batch
+from pointvs_tpu_torch.data.buckets import (
+    DEFAULT_EDGE_BUCKETS,
+    DEFAULT_NODE_BUCKETS,
+    GraphBatch,
+    pad_graphs_to_batch,
+)
 from pointvs_tpu_torch.data.dataset import PointCloudDataset
 
 
@@ -29,36 +54,156 @@ class BatchMeta:
         self.graph_mask = graph_mask
 
 
-class ScoringLoader:
-    """Iterable over (GraphBatch, BatchMeta) pairs, in dataset order."""
+class GraphDataLoader:
+    """Iterable over (GraphBatch, BatchMeta) pairs."""
 
-    def __init__(self, dataset: PointCloudDataset, batch_size: int = 32):
+    def __init__(self, dataset: PointCloudDataset, batch_size: int = 32,
+                 mode: str = 'train', drop_last: bool = False,
+                 prefetch: int = 2, seed: int = 0,
+                 node_buckets=DEFAULT_NODE_BUCKETS,
+                 edge_buckets=DEFAULT_EDGE_BUCKETS):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.mode = mode
+        self.shuffle = mode == 'train'
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.rng = np.random.RandomState(seed)
+        self.node_buckets = node_buckets
+        self.edge_buckets = edge_buckets
+        self.use_weighted_sampler = (
+            mode == 'train' and dataset.model_task == 'classification'
+            and dataset.sample_weights is not None)
+        self._cacheable = (mode != 'train' and not dataset.rot
+                           and dataset.p_noise <= 0
+                           and dataset.p_remove_entity <= 0)
+        self._batch_cache = None
+        # Training passes started; a resumed run's loader counts from 0,
+        # as its index stream replays from its seed.
+        self._epochs_started = 0
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
-    def __iter__(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
-        for start in range(0, len(self.dataset), self.batch_size):
-            samples = [self.dataset[i] for i in range(
-                start, min(start + self.batch_size, len(self.dataset)))]
-            batch = pad_graphs_to_batch(samples, num_graphs=self.batch_size)
+    def _epoch_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.use_weighted_sampler:
+            weights = np.asarray(self.dataset.sample_weights, np.float64)
+            return self.rng.choice(n, size=n, replace=True,
+                                   p=weights / weights.sum())
+        idx = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx
+
+    def _produce(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+        indices = self._epoch_indices()
+        for start in range(0, len(indices), self.batch_size):
+            chunk = indices[start:start + self.batch_size]
+            if len(chunk) < self.batch_size and self.drop_last:
+                return
+            samples = [self.dataset[int(i)] for i in chunk]
+            batch = pad_graphs_to_batch(samples, num_graphs=self.batch_size,
+                                        node_buckets=self.node_buckets,
+                                        edge_buckets=self.edge_buckets)
             yield batch, BatchMeta([s.lig_fname for s in samples],
                                    [s.rec_fname for s in samples],
-                                   np.asarray(batch.y),
-                                   np.asarray(batch.graph_mask))
+                                   batch.y, batch.graph_mask)
+
+    def _prefetched(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        done = object()
+        errors = []
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for item in self._produce():
+                    if stop.is_set():
+                        return
+                    q.put(item)
+            except BaseException as exc:   # raised in the consumer
+                errors.append(exc)
+            finally:
+                q.put(done)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    if errors:
+                        raise errors[0]
+                    return
+                yield item
+        finally:
+            # A consumer that stops early lets the producer finish.
+            stop.set()
+            while thread.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+
+    def __iter__(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+        if self.mode == 'train':
+            self.dataset.set_epoch(self._epochs_started)
+            self._epochs_started += 1
+        if self._batch_cache is not None:
+            yield from self._batch_cache
+            return
+        cache = [] if self._cacheable else None
+        source = (self._prefetched() if self.prefetch > 0
+                  else self._produce())
+        for item in source:
+            if cache is not None:
+                cache.append(item)
+            yield item
+        if cache is not None:
+            self._batch_cache = cache
 
 
-def get_data_loader(data_root, types_fname, batch_size: int = 32,
-                    mode: str = 'val', **dataset_kwargs) -> ScoringLoader:
-    """Dataset + loader for scoring (``mode='val'``). Training loaders
-    (weighted sampling, rotation, augmentation) come with the training
-    slice (ROADMAP.md, Queue 1)."""
-    if mode != 'val':
+def get_data_loader(
+        data_root, types_fname=None, batch_size: int = 32,
+        mode: str = 'val', compact: bool = True,
+        use_atomic_numbers: bool = False, radius: float = 6,
+        rot: bool = False, augmented_actives: int = 0,
+        min_aug_angle: float = 30, polar_hydrogens: bool = True,
+        model_task: str = 'classification', max_active_rms_distance=None,
+        min_inactive_rms_distance=None, max_inactive_rms_distance=None,
+        fname_suffix: str = 'parquet', edge_radius=None,
+        prune: bool = False, estimate_bonds: bool = False,
+        p_noise: float = -1, p_remove_entity: float = 0,
+        extended_atom_types: bool = False, prefetch: int = 2,
+        seed: int = 0, cache_dir=None,
+        node_buckets=DEFAULT_NODE_BUCKETS,
+        edge_buckets=DEFAULT_EDGE_BUCKETS) -> GraphDataLoader:
+    """Dataset + loader with the reference's keywords. Unlike the
+    reference, ``rot`` defaults to False (the scoring loader's setting) and
+    ``mode`` to ``'val'``; parquet structures only."""
+    if fname_suffix != 'parquet':
         raise NotImplementedError(
-            f"mode={mode!r}: only mode='val' is in the port yet (training "
-            f"loaders: see ROADMAP.md, Queue 1)")
-    return ScoringLoader(PointCloudDataset(data_root, types_fname,
-                                           **dataset_kwargs),
-                         batch_size=batch_size)
+            f'fname_suffix={fname_suffix!r}: the port reads parquet '
+            f'structures only (see ROADMAP.md, Queue 1)')
+    dataset = PointCloudDataset(
+        data_root, types_fname, radius=radius,
+        polar_hydrogens=polar_hydrogens,
+        use_atomic_numbers=use_atomic_numbers, compact=compact, rot=rot,
+        augmented_active_count=augmented_actives,
+        augmented_active_min_angle=min_aug_angle,
+        max_active_rms_distance=max_active_rms_distance,
+        min_inactive_rms_distance=min_inactive_rms_distance,
+        max_inactive_rms_distance=max_inactive_rms_distance,
+        model_task=model_task, edge_radius=edge_radius,
+        estimate_bonds=estimate_bonds, prune=prune,
+        p_remove_entity=p_remove_entity,
+        extended_atom_types=extended_atom_types, p_noise=p_noise,
+        cache_dir=cache_dir, seed=seed)
+    return GraphDataLoader(dataset, batch_size=batch_size, mode=mode,
+                           prefetch=prefetch, seed=seed,
+                           node_buckets=node_buckets,
+                           edge_buckets=edge_buckets)

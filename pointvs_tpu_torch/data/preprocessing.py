@@ -17,10 +17,15 @@ parquet schema keys ``x, y, z, atomic_number, types, bp`` (bp 0 = ligand,
   overlap); optional pruning of atoms not connected to the first
   inter-molecular edge's source.
 - ``make_bit_vector``: compact one-hot + receptor/ligand bit featurisation.
+- ``uniform_random_rotation`` / ``rotate_struct``: rotations drawn from a
+  caller's ``RandomState`` in the reference's draw order, so seeded streams
+  give the reference's rotations bit for bit.
 """
 from __future__ import annotations
 
+import os
 from collections import defaultdict
+from functools import lru_cache
 from typing import Dict
 
 import numpy as np
@@ -30,10 +35,18 @@ Struct = Dict[str, np.ndarray]
 
 
 def read_struct(path) -> Struct:
-    """Parquet structure file -> struct dict."""
+    """Parquet structure file -> struct dict. Cached per (path, size,
+    mtime): augmented items re-read their files every epoch. Treat the
+    arrays as read-only."""
+    path = str(path)
+    st = os.stat(path)
+    return _read_struct_cached(path, (st.st_size, st.st_mtime_ns))
+
+
+@lru_cache(maxsize=4096)
+def _read_struct_cached(path: str, _fingerprint) -> Struct:
     import pyarrow.parquet as pq
-    table = pq.ParquetFile(str(path)).read(columns=list(KEYS),
-                                           use_threads=False)
+    table = pq.ParquetFile(path).read(columns=list(KEYS), use_threads=False)
     return {k: table.column(k).to_numpy() for k in KEYS}
 
 
@@ -50,6 +63,59 @@ def concat_structs(rec: Struct, lig: Struct, n_features: int,
     rec_types = rec['types'] + (n_features + 8 * int(extended))
     return {k: np.concatenate([lig[k], rec_types if k == 'types' else rec[k]])
             for k in KEYS}
+
+
+def random_rotation_matrix(rng) -> np.ndarray:
+    """Rotation drawn uniformly over SO(3) (Arvo's fast random rotation
+    matrices, 1992): a random z rotation reflected through a random
+    Householder plane. Three draws from ``rng``, in the order x2, x3,
+    theta."""
+    x2 = 2 * np.pi * rng.rand()
+    x3 = rng.rand()
+    theta = 2 * np.pi * rng.rand()
+    ct, st = np.cos(theta), np.sin(theta)
+    s3 = np.sqrt(x3)
+    vx, vy, vz = np.cos(x2) * s3, np.sin(x2) * s3, np.sqrt(1 - x3)
+    # -(householder @ rot_z), householder = I - 2 v v^T
+    h00, h01, h02 = 1 - 2 * vx * vx, -2 * vx * vy, -2 * vx * vz
+    h11, h12 = 1 - 2 * vy * vy, -2 * vy * vz
+    h22 = 1 - 2 * vz * vz
+    return -np.array([
+        [h00 * ct + h01 * st, -h00 * st + h01 * ct, h02],
+        [h01 * ct + h11 * st, -h01 * st + h11 * ct, h12],
+        [h02 * ct + h12 * st, -h02 * st + h12 * ct, h22],
+    ])
+
+
+def uniform_random_rotation(x: np.ndarray, rng) -> np.ndarray:
+    """[N, 3] points times a uniformly drawn rotation (float64). Rotating
+    about the centroid and translating the centroid through the same
+    rotation, as PointVS does, is just ``x @ m``."""
+    return np.asarray(x).reshape((-1, 3)) @ random_rotation_matrix(rng)
+
+
+def angle_3d(v1: np.ndarray, v2: np.ndarray) -> float:
+    """Angle between two 3-vectors (the first rows of matrices)."""
+    v1 = np.asarray(v1, dtype=np.float64).reshape((-1, 3))
+    v2 = np.asarray(v2, dtype=np.float64).reshape((-1, 3))
+    dot = float(np.einsum('ij,ij->i', v1, v2)[0])
+    denom = max(1e-7, float(np.linalg.norm(v1) * np.linalg.norm(v2)))
+    return float(np.arccos(np.clip(dot / denom, -1.0, 1.0)))
+
+
+def rotate_struct(struct: Struct, min_angle_deg: float, rng) -> Struct:
+    """A copy whose coordinates are rotated, redrawn until the first atom's
+    position vector has turned by at least ``min_angle_deg`` (the
+    augmented actives' ligand rotation)."""
+    min_rads = np.pi * min_angle_deg / 180
+    initial = coords_of(struct)
+    candidate = initial
+    while angle_3d(initial[0, :], candidate[0, :]) < min_rads:
+        candidate = uniform_random_rotation(initial, rng)
+    out = dict(struct)
+    for j, key in enumerate('xyz'):
+        out[key] = np.ascontiguousarray(candidate[:, j])
+    return out
 
 
 def _pairwise_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:

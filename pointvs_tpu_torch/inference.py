@@ -36,7 +36,7 @@ def get_model_and_test_dl(model_path, test_types, data_root, device,
         model_task = 'classification'
     trainer.set_task(model_task)
     loader = get_data_loader(
-        data_root, test_types,
+        data_root, test_types, rot=False,
         batch_size=batch_size or cmd_args.get('batch_size', 32),
         compact=cmd_args.get('compact', True),
         radius=cmd_args.get('radius', 10),

@@ -37,10 +37,11 @@ from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 
 def supports_fusion(model) -> bool:
-    """The reference's model conditions (dropout and bf16 are refused by
-    the port's model itself)."""
+    """The reference's model conditions (bf16 is refused by the port's
+    model itself)."""
     return (isinstance(model, SartorrasEGNN)
             and not model.permutation_invariance
+            and model.dropout == 0
             and not (model.edge_residual
                      and (model.rezero or model.gated_residual)))
 

@@ -1,0 +1,194 @@
+"""Training CLI (counterpart of ``pointvs_tpu/main.py``).
+
+Usage:
+    python -m pointvs_tpu_torch.main <model> <save_path> \\
+        --train_data_root_pose <root> --train_types_pose <types> \\
+        [--test_data_root_pose <root> --test_types_pose <types>] \\
+        -ep 1 --layers 3 [--device cpu] [... every flag of the reference]
+
+Writes the reference's run directory: ``cmd_args.yaml`` (with
+``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
+``metrics.jsonl``, ``checkpoints/<task>_ckpt_epoch_<n>.pt``,
+``<task>_predictions*.txt`` and, with ``--end_flag``, ``_FINISHED``. Runs
+on the GPU unless ``--device cpu`` is given. Flags whose feature the port
+does not have raise ``NotImplementedError`` naming ROADMAP.md
+(``refuse_unported``).
+"""
+from __future__ import annotations
+
+import os
+import socket
+from pathlib import Path
+
+import torch
+
+from pointvs_tpu_torch.config import model_kwargs_from_args, parse_args, \
+    regression_task_of
+from pointvs_tpu_torch.data.loader import get_data_loader
+from pointvs_tpu_torch.device import resolve_device
+from pointvs_tpu_torch.logging import get_logger
+from pointvs_tpu_torch.models.registry import MODEL_REGISTRY
+from pointvs_tpu_torch.training.engine import Trainer
+from pointvs_tpu_torch.utils import load_yaml, mkdir, save_yaml
+
+
+def refuse_unported(args) -> None:
+    """Raise for the first flag whose feature is not in the port."""
+    refusals = (
+        (args.num_devices not in (None, 1),
+         f'--num_devices {args.num_devices}', 'data parallelism'),
+        (args.multihost, '--multihost', 'multi-host training'),
+        (args.graph_shard > 1, f'--graph_shard {args.graph_shard}',
+         'edge parallelism'),
+        (args.device_cache == 'on', '--device_cache on',
+         'the device-resident dataset'),
+        (args.bf16, '--bf16', 'the bfloat16 feature path'),
+        (args.double, '--double', 'float64 training'),
+        (args.include_strain_info, '--include_strain_info',
+         'strain-energy inputs'),
+        (args.synthpharm or args.synth_pharm, '--synthpharm',
+         'SynthPharmDataset'),
+        (args.model_task == 'both', '--model_task both',
+         'sequential pose -> affinity training (the multitask model)'),
+        (args.model not in MODEL_REGISTRY, f'model {args.model!r}',
+         f'models other than {sorted(MODEL_REGISTRY)}'),
+        (args.scatter_cap is not None, '--scatter_cap',
+         "the TPU kernels' window capacity (the port's segment kernel "
+         'has none)'),
+    )
+    for refused, flag, feature in refusals:
+        if refused:
+            raise NotImplementedError(
+                f'{flag}: {feature} is not in the port (see ROADMAP.md, '
+                f'Queue 1)')
+
+
+def build_loaders(args):
+    """(train_pose, train_affinity, test_pose, test_affinity,
+    regression_task) from the flags, as the reference builds them."""
+    regression_task = regression_task_of(args)
+    dl_kwargs = dict(
+        batch_size=args.batch_size, compact=args.compact,
+        radius=args.radius, use_atomic_numbers=args.use_atomic_numbers,
+        rot=False, polar_hydrogens=args.hydrogens,
+        fname_suffix=args.input_suffix, edge_radius=args.edge_radius,
+        estimate_bonds=args.estimate_bonds, prune=args.prune,
+        extended_atom_types=args.extended_atom_types,
+        prefetch=args.prefetch, seed=args.seed, cache_dir=args.cache_dir)
+    if args.node_bucket:
+        dl_kwargs['node_buckets'] = (args.node_bucket,)
+    if args.edge_bucket:
+        dl_kwargs['edge_buckets'] = (args.edge_bucket,)
+    train_kwargs = dict(mode='train', augmented_actives=args.augmented_actives,
+                        min_aug_angle=args.min_aug_angle,
+                        p_noise=args.p_noise,
+                        p_remove_entity=args.p_remove_entity, **dl_kwargs)
+    train_pose = train_affinity = test_pose = test_affinity = None
+    if args.model_task != 'regression' and args.train_types_pose:
+        train_pose = get_data_loader(
+            args.train_data_root_pose, args.train_types_pose,
+            max_active_rms_distance=args.max_active_rmsd,
+            min_inactive_rms_distance=args.min_inactive_rmsd,
+            max_inactive_rms_distance=args.max_inactive_rmsd,
+            model_task='classification', **train_kwargs)
+    if args.model_task in ('regression', 'multi_regression') \
+            and args.train_types_affinity:
+        train_affinity = get_data_loader(
+            args.train_data_root_affinity, args.train_types_affinity,
+            model_task=regression_task, **train_kwargs)
+    if 'regression' not in args.model_task and args.test_data_root_pose:
+        test_pose = get_data_loader(
+            args.test_data_root_pose, args.test_types_pose, mode='val',
+            model_task='classification', **dl_kwargs)
+    if args.model_task != 'classification' and args.test_data_root_affinity:
+        test_affinity = get_data_loader(
+            args.test_data_root_affinity, args.test_types_affinity,
+            mode='val', model_task=regression_task, **dl_kwargs)
+    return train_pose, train_affinity, test_pose, test_affinity, \
+        regression_task
+
+
+def run_phases(trainer, args, loaders) -> None:
+    """The pose phase and its validation, then the affinity phase and its
+    validation; each training phase continues from the trainer's epoch."""
+    train_pose, train_affinity, test_pose, test_affinity, regression_task \
+        = loaders
+    top1 = getattr(args, 'top1', False)
+    val_on_epoch_end = getattr(args, 'val_on_epoch_end', False)
+    for task, train, test, epochs in (
+            ('classification', train_pose, test_pose,
+             getattr(args, 'epochs_pose', 0)),
+            (regression_task, train_affinity, test_affinity,
+             getattr(args, 'epochs_affinity', 0))):
+        if train is None and test is None:
+            continue
+        trainer.set_task(task)
+        if epochs and train is not None and trainer.epoch < epochs:
+            trainer.train_model(
+                train, epochs=epochs, top1_on_end=top1,
+                epoch_end_validation_set=test if val_on_epoch_end else None)
+        if test is not None:
+            trainer.val(test, top1_on_end=top1)
+    if getattr(args, 'end_flag', False):
+        (trainer.save_path / '_FINISHED').write_text('')
+
+
+def main(argv=None):
+    """Run the CLI; returns the Trainer."""
+    args = parse_args(argv)
+    if args.load_args is not None:
+        for key, value in load_yaml(args.load_args).items():
+            if hasattr(args, key):
+                setattr(args, key, value)
+    refuse_unported(args)
+    for types_arg, root_arg in (
+            ('train_types_pose', 'train_data_root_pose'),
+            ('train_types_affinity', 'train_data_root_affinity'),
+            ('test_types_pose', 'test_data_root_pose'),
+            ('test_types_affinity', 'test_data_root_affinity')):
+        if getattr(args, types_arg) and not getattr(args, root_arg):
+            raise SystemExit(f'--{types_arg} requires --{root_arg} to be '
+                             f'set')
+    device = resolve_device(args.device)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+    if args.wandb_project is None:
+        save_path = Path(args.save_path).expanduser()
+    elif args.wandb_run is None:
+        raise SystemExit(
+            'wandb_run must be specified if wandb_project is specified.')
+    else:
+        save_path = Path(args.save_path, args.wandb_project,
+                         args.wandb_run).expanduser()
+    save_path = mkdir(save_path)
+    log = get_logger(log_path=save_path)
+    args.hostname = socket.gethostname()
+    args.slurm_jobid = os.getenv('SLURM_JOBID')
+    save_yaml(vars(args), save_path / 'cmd_args.yaml')
+
+    loaders = build_loaders(args)
+    datasets = [dl.dataset for dl in loaders[:4] if dl is not None]
+    if not datasets:
+        raise SystemExit('No datasets specified — nothing to do.')
+    model_kwargs = model_kwargs_from_args(args, datasets[0].feature_dim)
+    trainer = Trainer(
+        args.model, save_path, device, learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay, optimiser=args.optimiser,
+        use_1cycle=args.use_1cycle, warm_restarts=args.warm_restarts,
+        only_save_best_models=args.only_save_best_models,
+        regression_loss=args.regression_loss, seed=args.seed,
+        wandb_project=args.wandb_project, wandb_run=args.wandb_run,
+        wandb_dir=args.wandb_dir, profile=args.profile,
+        num_devices=args.num_devices, **model_kwargs)
+    if args.load_weights is not None:
+        trainer.load_weights(args.load_weights)
+    if args.import_torch_weights:
+        trainer.import_torch_weights(args.import_torch_weights)
+    run_phases(trainer, args, loaders)
+    log.info('Done.')
+    return trainer
+
+
+if __name__ == '__main__':
+    main()

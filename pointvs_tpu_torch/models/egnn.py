@@ -13,15 +13,22 @@ into the JAX package unchanged: ``layers.0.m`` embeds the input;
 ``layers.{i}`` holds ``edge_mlp.{0,2}``, ``node_mlp.{0,1,3}`` (index 1 is
 the GraphNorm), ``coord_mlp.{0,2}``, ``att_mlp.0``, ``node_att_mlp.0`` and
 ``{edge,node}_gate_parameter``; ``feats_linear_layers`` is the head.
+
+Training options: ``dropout`` drops undirected edges (``ops/edge_dropout``,
+from an explicit per-step seed) when the forward is called with
+``train=True``; ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``nn.remat``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pointvs_tpu_torch.data.buckets import GraphBatch
 from pointvs_tpu_torch.models.layers import activation, mlp
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
+from pointvs_tpu_torch.ops.edge_dropout import undirected_edge_dropout
 from pointvs_tpu_torch.ops.graphnorm import GraphNorm
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
@@ -214,8 +221,6 @@ class SartorrasEGNN(nn.Module):
         del scan_layers, model_task
         unsupported = {
             'bf16': (bf16, 'mixed precision'),
-            'remat': (remat, 'training'),
-            'dropout': (dropout > 0, 'training'),
             'include_strain_info': (include_strain_info,
                                     'strain-energy inputs'),
             'edge_shard_axis': (edge_shard_axis is not None, 'scale-out'),
@@ -225,6 +230,8 @@ class SartorrasEGNN(nn.Module):
                 raise NotImplementedError(
                     f'{flag} is not in the port yet ({item}; {_ROADMAP})')
         self.num_layers = num_layers
+        self.dropout = dropout
+        self.remat = remat
         self.permutation_invariance = permutation_invariance
         self.edge_residual = edge_residual
         self.gated_residual = gated_residual
@@ -250,8 +257,18 @@ class SartorrasEGNN(nn.Module):
             acts = acts[:-1] + ('softplus',)
         self.feats_linear_layers = mlp(k, dims, acts)
 
-    def embed(self, batch: GraphBatch) -> torch.Tensor:
-        """Input linear + message-passing stack -> node embeddings."""
+    def embed(self, batch: GraphBatch, train: bool = False,
+              dropout_seed=None) -> torch.Tensor:
+        """Input linear + message-passing stack -> node embeddings; with
+        ``train``, ``dropout`` of the undirected edges masked out as drawn
+        by ``dropout_seed`` (a uint32)."""
+        if train and self.dropout > 0:
+            if dropout_seed is None:
+                raise ValueError('a training forward with dropout needs a '
+                                 'dropout_seed')
+            batch = batch._replace(edge_mask=undirected_edge_dropout(
+                batch.senders, batch.receivers, batch.edge_mask,
+                self.dropout, dropout_seed))
         h = self.layers[0](batch.node_feats)
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,
@@ -260,14 +277,19 @@ class SartorrasEGNN(nn.Module):
                              inv_recv_perm=batch.inv_recv_perm)
         num_graphs = batch.graph_mask.shape[0]
         edge_messages = None
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers[1:]:
-            h, coord, edge_messages = layer(
-                h, coord, edge_messages, agg, batch.edge_attr,
-                batch.edge_mask, batch.node_mask, batch.graph_id, num_graphs)
+            args = (h, coord, edge_messages, agg, batch.edge_attr,
+                    batch.edge_mask, batch.node_mask, batch.graph_id,
+                    num_graphs)
+            h, coord, edge_messages = (
+                checkpoint(layer, *args, use_reentrant=False) if remat
+                else layer(*args))
         return h
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
-        h = self.embed(batch)
+    def forward(self, batch: GraphBatch, train: bool = False,
+                dropout_seed=None) -> torch.Tensor:
+        h = self.embed(batch, train, dropout_seed)
         pooled = masked_graph_mean_pool(h, batch.graph_id,
                                         batch.graph_mask.shape[0],
                                         batch.node_mask)

@@ -1,9 +1,10 @@
-"""Rebuild a scoring Trainer from a run directory or a ``.pt`` checkpoint.
+"""Rebuild a Trainer from a run directory or a ``.pt`` checkpoint.
 
 Counterpart of ``pointvs_tpu/models/load_model.py``: locate the latest
 checkpoint, read the ``model_kwargs.yaml`` / ``cmd_args.yaml`` sidecars,
-rebuild the model and load its weights. Run directories written by the JAX
-package hold orbax checkpoints, which the port cannot read yet.
+rebuild the model with the run's optimiser settings and load its weights,
+optimiser state and epoch counters. Run directories written by the JAX
+package hold orbax checkpoints, which the port cannot read.
 """
 from __future__ import annotations
 
@@ -14,27 +15,40 @@ from pointvs_tpu_torch.utils import expand_path, find_latest_checkpoint, \
     load_yaml
 
 
-def resolve_run(weights_path) -> Tuple[Path, Path]:
-    """(checkpoint_path, run_root) from a run dir or a checkpoint file."""
+def resolve_run(weights_path, model_task: str = '') -> Tuple[Path, Path]:
+    """(checkpoint_path, run_root) from a run dir or a checkpoint file; in
+    a run dir, the newest checkpoint whose name starts with ``model_task``
+    (``pose`` or ``affinity``; empty: any)."""
     weights_path = expand_path(weights_path)
     ckpt = (weights_path if weights_path.is_file()
-            else find_latest_checkpoint(weights_path))
+            else find_latest_checkpoint(weights_path, model_task))
     if ckpt.suffix not in ('.pt', '.pth'):
         raise NotImplementedError(
             f'{ckpt} is not a .pt checkpoint; orbax run directories of the '
-            f'JAX package are not readable by the port yet (checkpoints: '
-            f'see ROADMAP.md, Queue 1)')
+            f'JAX package are not readable by the port (see ROADMAP.md, '
+            f'Queue 1)')
     root = ckpt.parent
     if root.name == 'checkpoints':
         root = root.parent
     return ckpt, root
 
 
-def load_model(weights_path, device):
-    """Returns (trainer, model_kwargs, cmd_args)."""
+def load_model(weights_path, device, init_path: bool = False):
+    """Returns (trainer, model_kwargs, cmd_args).
+
+    ``init_path`` reopens the run directory for continued training: the
+    trainer writes its sidecars and records there, and loads the newest
+    checkpoint of the run's task. Otherwise the trainer is silent.
+    """
     from pointvs_tpu_torch.training.engine import Trainer
 
-    ckpt, root = resolve_run(weights_path)
+    weights_path = expand_path(weights_path)
+    prefix = ''
+    if init_path and weights_path.is_dir():
+        task = (load_yaml(weights_path / 'model_kwargs.yaml') or {}).get(
+            'model_task', 'classification')
+        prefix = 'affinity' if 'regression' in task else 'pose'
+    ckpt, root = resolve_run(weights_path, prefix)
     model_kwargs = load_yaml(root / 'model_kwargs.yaml') or {}
     cmd_args_path = root / 'cmd_args.yaml'
     cmd_args = load_yaml(cmd_args_path) if cmd_args_path.exists() else {}
@@ -51,7 +65,16 @@ def load_model(weights_path, device):
         model_kwargs['edge_attention'] = cmd_args['edge_attention']
     model_kwargs.pop('act', None)
 
-    trainer = Trainer(cmd_args.get('model', 'egnn'), root, device,
-                      **model_kwargs)
+    trainer = Trainer(
+        cmd_args.get('model', 'egnn'), root, device,
+        learning_rate=cmd_args.get('learning_rate', 1e-3),
+        weight_decay=cmd_args.get('weight_decay', 1e-4),
+        optimiser=cmd_args.get('optimiser', 'adam'),
+        use_1cycle=cmd_args.get('use_1cycle', False),
+        warm_restarts=cmd_args.get('warm_restarts', False),
+        only_save_best_models=cmd_args.get('only_save_best_models', False),
+        regression_loss=cmd_args.get('regression_loss', 'mse'),
+        seed=cmd_args.get('seed', 2), silent=not init_path,
+        **model_kwargs)
     trainer.load_weights(ckpt)
     return trainer, model_kwargs, cmd_args

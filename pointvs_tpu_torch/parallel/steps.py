@@ -46,21 +46,26 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
                     model_task: str, regression_loss: str = 'mse',
                     with_metrics: bool = False,
                     use_fused: bool = False) -> Callable:
-    """Returns ``step(batch, lr)``: one optimiser step on a batch of
-    tensors on the model's device. It returns the loss (a 0-d tensor, left
-    on the device) or, with ``with_metrics``, the 5-vector ``[loss,
-    act_sum, act_cnt, dec_sum, dec_cnt]``.
+    """Returns ``step(batch, lr, dropout_seed=None)``: one optimiser step
+    on a batch of tensors on the model's device, with the model's edge
+    dropout drawn from ``dropout_seed`` (a uint32; the reference's step
+    rng). It returns the loss (a 0-d tensor, left on the device) or, with
+    ``with_metrics``, the 5-vector ``[loss, act_sum, act_cnt, dec_sum,
+    dec_cnt]``.
 
     ``use_fused`` runs the forward through ``fused_train.fused_apply``
     (kernels K3 forward, K4 backward), which computes the same function as
     the module forward for the configurations it supports.
     """
-    forward = (lambda batch: fused_apply(model, batch)) if use_fused \
-        else model
 
-    def step(batch, lr: float) -> torch.Tensor:
+    def forward(batch, dropout_seed):
+        if use_fused:   # fused configurations have no dropout
+            return fused_apply(model, batch)
+        return model(batch, train=True, dropout_seed=dropout_seed)
+
+    def step(batch, lr: float, dropout_seed=None) -> torch.Tensor:
         model.train()
-        logits = forward(batch)
+        logits = forward(batch, dropout_seed)
         loss_sum, weight = loss_fn(logits, batch, model_task,
                                    regression_loss)
         loss = loss_sum / torch.clamp_min(weight, 1.0)
@@ -79,7 +84,7 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 
 def make_eval_step(model, model_task: Optional[str] = None,
                    use_fused: bool = False) -> Callable:
-    """Returns ``step(batch) -> logits``.
+    """Returns ``step(batch) -> logits``; it never drops edges.
 
     The fused engine (``inference_engine.fused_forward``, kernel K3) is
     taken under the reference's gate: ``use_fused``, at least 6 layers and

@@ -3,14 +3,22 @@
 Counterpart of ``pointvs_tpu/training/engine.py``: ``set_task``,
 ``training_setup``, ``train_model`` (epoch/batch loop, the learning rate
 from the schedule each step, a NaN guard, mean active/decoy training
-predictions), ``on_epoch_end``, ``save``, ``load_weights``, ``val`` and the
-predictions-file format (``<label> | <prob> <rec> <lig>``, three decimals).
-Checkpoints are ``.pt`` files in the reference layout
-(``training/checkpoints.py``).
+predictions), ``on_epoch_end``, ``save``, ``load_weights``,
+``import_torch_weights``, ``val`` and the predictions-file format
+(``<label> | <prob> <rec> <lig>``, three decimals). Checkpoints are ``.pt``
+files in the reference layout (``training/checkpoints.py``). Unless
+``silent``, the Trainer writes ``model_kwargs.yaml`` and appends the
+reference's records to ``metrics.jsonl`` (``MetricsLogger``).
+
+Each training step takes one uint32 edge-dropout seed, drawn on the host
+from a ``torch.Generator`` seeded with ``seed`` (the counterpart of the
+reference's per-step rng), so a CPU run and a GPU run drop the same edges.
+``profile`` traces steps 3-8 of the first epoch with ``torch.profiler``
+into ``<save_path>/profile``. On a GPU every step is bracketed by CUDA
+events (``step_ms``); ``epoch_seconds`` holds each epoch's wall time.
 
 ``train_model`` takes any loader that yields ``(batch, meta)`` and has a
-``len()``; the port's own loader still scores only (its training
-augmentation and sampling are not ported yet, ROADMAP.md Queue 1).
+``len()``.
 """
 from __future__ import annotations
 
@@ -31,13 +39,16 @@ from pointvs_tpu_torch.parallel.steps import make_eval_step, \
     make_train_step
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
     save_checkpoint
+from pointvs_tpu_torch.training.metrics_logger import MetricsLogger
 from pointvs_tpu_torch.training.optimisers import build_optimiser, \
     make_lr_schedule
-from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
+from pointvs_tpu_torch.utils import expand_path, format_time, get_logger, \
+    mkdir, save_yaml
 
 LOG = get_logger()
 
 VALID_TASKS = ('classification', 'regression', 'multi_regression')
+PROFILE_STEPS = (3, 8)   # first epoch's traced batches: [start, stop)
 
 
 class Trainer:
@@ -51,26 +62,38 @@ class Trainer:
                  only_save_best_models: bool = False,
                  regression_loss: str = 'mse', log_interval: int = 10,
                  seed: int = 2, fused_training: bool = False,
-                 **model_kwargs):
+                 wandb_project: Optional[str] = None,
+                 wandb_run: Optional[str] = None, wandb_dir=None,
+                 silent: bool = False, profile: bool = False,
+                 num_devices: Optional[int] = None, **model_kwargs):
         if use_1cycle and warm_restarts:
             raise ValueError('1cycle and warm restarts are mutually '
                              'exclusive')
+        if num_devices not in (None, 1):
+            raise NotImplementedError(
+                f'num_devices={num_devices}: data parallelism is not in the '
+                f'port yet (see ROADMAP.md, Queue 1)')
         self.save_path = expand_path(save_path)
         self.device = device
+        self.silent = silent
         self.predictions_file = self.save_path / 'predictions.txt'
         self.lr = learning_rate
         self.weight_decay = weight_decay
+        self.optimiser_name = optimiser
         self.use_1cycle = use_1cycle
         self.warm_restarts = warm_restarts
         self.only_save_best_models = only_save_best_models
         self.regression_loss = regression_loss
         self.log_interval = log_interval
         self.fused_training = fused_training
+        self.profile = profile
+        self.model_kwargs = dict(model_kwargs)
         self.model = build_model(model_name, **model_kwargs)
         init_parameters(self.model, torch.Generator().manual_seed(seed))
         self.model.to(device).eval()
         self.optimiser = build_optimiser(self.model.parameters(), optimiser,
                                          weight_decay, learning_rate)
+        self.dropout_rng = torch.Generator().manual_seed(seed)
         self.set_task(model_kwargs.get('model_task', 'classification'))
         self.p_epoch = 0
         self.a_epoch = 0
@@ -80,9 +103,25 @@ class Trainer:
         self.scheduler = None
         # Every training step's loss, in order (fetched at log intervals).
         self.train_losses: list = []
+        self.epoch_seconds: list = []
+        self._step_events: list = []
         # Raw scores of the last val() call, in predictions-file row order
         # (probabilities for classification, outputs otherwise).
         self.val_scores = np.zeros((0,), np.float32)
+        if not silent:
+            mkdir(self.save_path)
+            save_yaml(self.model_kwargs, self.save_path / 'model_kwargs.yaml')
+        self.logger = MetricsLogger(
+            self.save_path, wandb_project=wandb_project, wandb_run=wandb_run,
+            wandb_dir=wandb_dir, config={**self.model_kwargs,
+                                         'model': model_name})
+        if not silent:
+            LOG.info(f'Model parameters: {self.param_count}')
+        self.logger.log({'Parameters': self.param_count})
+
+    @property
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.model.parameters())
 
     def set_task(self, task: str):
         if task not in VALID_TASKS:
@@ -97,6 +136,15 @@ class Trainer:
         return self.a_epoch if 'regression' in self.model_task \
             else self.p_epoch
 
+    def step_ms(self) -> list:
+        """Each GPU training step's time by its CUDA events, in order."""
+        if self._step_events:
+            torch.cuda.synchronize(self.device)
+        return [a.elapsed_time(b) for a, b in self._step_events]
+
+    def _next_dropout_seed(self) -> int:
+        return int(torch.randint(0, 1 << 32, (), generator=self.dropout_rng))
+
     # ------------------------------------------------------------------ #
     def training_setup(self, data_loader, epochs: int,
                        model_task: Optional[str] = None):
@@ -107,6 +155,56 @@ class Trainer:
             use_1cycle=self.use_1cycle, warm_restarts=self.warm_restarts)
         return self.epoch, time.time()
 
+    def _log_step(self, epoch_idx, batch_idx, steps_per_epoch, epochs,
+                  loss_val, lr_now, slots, eta):
+        """The reference's per-interval records and log line."""
+        task = self.model_task_for_fnames
+        if self.model_task == 'classification':
+            self.logger.log({
+                'Mean active prediction (train)': self.active_mean_pred,
+                'Mean inactive prediction (train)': self.decoy_mean_pred})
+        self.logger.log({
+            f'Loss (train, {task})': loss_val,
+            f'Learning rate (train, {task})': lr_now,
+            f'Batch (train, {task})':
+                epoch_idx * steps_per_epoch + batch_idx + 1,
+            f'Examples seen (train, {task})': self.global_iter * slots,
+            f'Time remaining (train, {task})': format_time(eta)})
+        if not self.silent:
+            LOG.info(f'Epoch {epoch_idx + 1}/{epochs} batch '
+                     f'{batch_idx + 1}/{steps_per_epoch} loss '
+                     f'{loss_val:.4f} lr {lr_now:.2e} mean active/decoy '
+                     f'prediction {self.active_mean_pred:.3f}/'
+                     f'{self.decoy_mean_pred:.3f} eta {format_time(eta)}')
+
+    def _profiler(self, epoch_idx, init_epoch, batch_idx, prof):
+        """Start or stop the trace of the first epoch's window; returns
+        the running profiler or None."""
+        if not self.profile or epoch_idx != init_epoch:
+            return prof
+        if batch_idx == PROFILE_STEPS[0] and prof is None:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
+        elif batch_idx == PROFILE_STEPS[1] and prof is not None:
+            prof = self._stop_profiler(prof)
+        return prof
+
+    def _stop_profiler(self, prof):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = mkdir(self.save_path / 'profile') / (
+            f'trace_{self.model_task_for_fnames}_epoch_{self.epoch + 1}'
+            f'.json')
+        prof.export_chrome_trace(str(out))
+        LOG.info(f'Wrote a profile of steps {PROFILE_STEPS[0]}-'
+                 f'{PROFILE_STEPS[1] - 1} to {out}')
+        return None
+
     def train_model(self, data_loader, epochs: int = 1,
                     epoch_end_validation_set=None,
                     top1_on_end: bool = False):
@@ -116,16 +214,28 @@ class Trainer:
                                   self.model_task, self.regression_loss,
                                   with_metrics=True,
                                   use_fused=self.fused_training)
+        timed = self.device.type == 'cuda'
         steps_per_epoch = len(data_loader)
         total_steps = max(1, (epochs - init_epoch) * steps_per_epoch)
         sched_step = init_epoch * steps_per_epoch
         done_steps = 0
+        prof = None
         for epoch_idx in range(init_epoch, epochs):
             epoch_start = time.time()
             losses, pending = [], []
             for batch_idx, (batch, _) in enumerate(data_loader):
+                prof = self._profiler(epoch_idx, init_epoch, batch_idx, prof)
                 lr_now = self.scheduler(sched_step)
-                stats = step_fn(to_device(batch, self.device), lr_now)
+                seed = self._next_dropout_seed()
+                batch = to_device(batch, self.device)
+                if timed:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                stats = step_fn(batch, lr_now, seed)
+                if timed:
+                    events[1].record()
+                    self._step_events.append(events)
                 sched_step += 1
                 self.global_iter += 1
                 done_steps += 1
@@ -153,15 +263,23 @@ class Trainer:
                 if not batch_idx % self.log_interval:
                     eta = ((time.time() - start) / done_steps
                            * (total_steps - done_steps))
-                    LOG.info(f'Epoch {epoch_idx + 1}/{epochs} batch '
-                             f'{batch_idx + 1}/{steps_per_epoch} loss '
-                             f'{losses[-1]:.4f} lr {lr_now:.2e} mean '
-                             f'active/decoy prediction '
-                             f'{self.active_mean_pred:.3f}/'
-                             f'{self.decoy_mean_pred:.3f} eta {eta:.1f} s')
-            LOG.info(f'Epoch {epoch_idx + 1} done in '
-                     f'{time.time() - epoch_start:.1f}s, mean loss '
-                     f'{np.mean(losses) if losses else float("nan"):.4f}')
+                    self._log_step(epoch_idx, batch_idx, steps_per_epoch,
+                                   epochs, losses[-1], lr_now,
+                                   batch.graph_mask.shape[0], eta)
+            if prof is not None:   # an epoch shorter than the window
+                prof = self._stop_profiler(prof)
+            self.epoch_seconds.append(time.time() - epoch_start)
+            if not self.silent:
+                LOG.info(f'Epoch {epoch_idx + 1} done in '
+                         f'{self.epoch_seconds[-1]:.1f}s, mean loss '
+                         f'{np.mean(losses) if losses else float("nan"):.4f}')
+            dataset = getattr(data_loader, 'dataset', None)
+            if getattr(dataset, 'aug_rejects', 0):
+                self.logger.log({
+                    'Augmented rotation redraws (cumulative)':
+                        dataset.aug_rejects,
+                    'Augmented rotation fallbacks (cumulative)':
+                        dataset.aug_fallbacks})
             self.on_epoch_end(epoch_end_validation_set, epochs, top1_on_end)
 
     def on_epoch_end(self, epoch_end_validation_set, epochs: int,
@@ -195,16 +313,30 @@ class Trainer:
 
     def load_weights(self, checkpoint_file):
         """Load a reference-schema ``.pt`` checkpoint (strict: missing or
-        unexpected keys raise), with the optimiser state where the file
-        holds the port's own."""
+        unexpected keys raise) and its epoch counters, with the optimiser
+        state where the file holds one (the counterpart of the reference
+        restoring its orbax state)."""
+        meta = self._load_state(checkpoint_file)
+        if 'optimiser_state_dict' in meta:
+            self.optimiser.load_state_dict(meta['optimiser_state_dict'])
+        LOG.info(f'Loaded weights from {checkpoint_file}')
+
+    def import_torch_weights(self, checkpoint_file):
+        """Weights and epoch counters of a reference-schema ``.pt``
+        checkpoint, with a fresh optimiser (ref ``import_torch_weights``)."""
+        self._load_state(checkpoint_file)
+        self.optimiser = build_optimiser(self.model.parameters(),
+                                         self.optimiser_name,
+                                         self.weight_decay, self.lr)
+        LOG.info(f'Imported weights from {checkpoint_file}')
+
+    def _load_state(self, checkpoint_file) -> dict:
         state_dict, meta = load_reference_checkpoint(
             expand_path(checkpoint_file))
         self.model.load_state_dict(state_dict, strict=True)
-        if 'optimiser_state_dict' in meta:
-            self.optimiser.load_state_dict(meta['optimiser_state_dict'])
-        self.p_epoch = meta['p_epoch']
-        self.a_epoch = meta['a_epoch']
-        LOG.info(f'Loaded weights from {checkpoint_file}')
+        self.p_epoch = int(meta['p_epoch'])
+        self.a_epoch = int(meta['a_epoch'])
+        return meta
 
     # ------------------------------------------------------------------ #
     def val(self, data_loader, predictions_file=None,
@@ -228,6 +360,7 @@ class Trainer:
                 logits[real], y_true, meta)
             rows.append(text)
             scores.append(batch_scores)
+            self._update_mean_preds(logits[real], y_true)
         predictions_file.write_text(''.join(rows), encoding='utf-8')
         self.val_scores = (np.concatenate(scores) if scores
                            else np.zeros((0,), np.float32))
@@ -267,17 +400,40 @@ class Trainer:
                              f'{recs[i]} {ligs[i]}')
         return '\n'.join(lines) + ('\n' if lines else ''), scores
 
+    def _update_mean_preds(self, logits: np.ndarray, y_true: np.ndarray):
+        """Mean active/decoy validation predictions (ref
+        ``_update_mean_preds``)."""
+        if self.model_task != 'classification':
+            return
+        preds = 1 / (1 + np.exp(-logits[:, 0]))
+        labels = y_true[:, 0]
+        if (labels > 0.5).any():
+            self.active_mean_pred = float(np.mean(preds[labels > 0.5]))
+        if (labels < 0.5).any():
+            self.decoy_mean_pred = float(np.mean(preds[labels < 0.5]))
+        self.logger.log({
+            'Mean active prediction (val)': self.active_mean_pred,
+            'Mean inactive prediction (val)': self.decoy_mean_pred})
+
     def _score_and_track(self, predictions_file) -> bool:
         """Log the file's top-1 (classification) or Pearson r (regression)
         and track the best (ref ``_score_and_track``)."""
         if self.model_task == 'classification':
             metric = top_n(predictions_file)
             best = metric > self.test_metric
+            if best:
+                self.test_metric = metric
             LOG.info(f'Validation Top1: {metric:.3f}')
+            self.logger.log({'Validation Top1': metric,
+                             'Best validation Top1': self.test_metric,
+                             'Epoch (pose)': self.p_epoch})
         else:
             metric, p_value = regression_pearson(predictions_file)
             best = p_value < 0.05 and metric > self.test_metric
+            if best:
+                self.test_metric = metric
             LOG.info(f"Pearson's correlation coefficient: {metric:.3f}")
-        if best:
-            self.test_metric = metric
+            self.logger.log({"Pearson's correlation coefficient": metric,
+                             'Best PCC': self.test_metric,
+                             'Epoch (affinity)': self.a_epoch})
         return best or not self.only_save_best_models

@@ -1,37 +1,35 @@
-"""Host helpers: paths, yaml sidecars, checkpoint lookup, logging.
+"""Host helpers: paths, yaml sidecars, checkpoint lookup, timers.
 
-Own copies of the helpers the serving path needs from the reference's
-``pointvs_tpu/utils.py`` and ``pointvs_tpu/logging.py``.
+Own copies of the helpers the port needs from the reference's
+``pointvs_tpu/utils.py``; ``get_logger`` is ``logging.get_logger``.
 """
 from __future__ import annotations
 
-import logging
+import math
 import os
+import time
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import yaml
 
-
-def get_logger(name: str = 'PointVS-TPU-torch') -> logging.Logger:
-    """Named logger with one stream handler; LOGLEVEL sets the level."""
-    logger = logging.getLogger(name)
-    logger.propagate = False
-    logger.setLevel(os.environ.get('LOGLEVEL', 'INFO').upper())
-    if not logger.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter(
-            '{asctime} [{levelname}] [{module}:{lineno}] {name}: {message}',
-            '%Y:%m:%d %H:%M:%S', style='{'))
-        logger.addHandler(handler)
-    return logger
+from pointvs_tpu_torch.logging import get_logger  # noqa: F401 (re-export)
 
 
 def expand_path(*paths) -> Path:
     """Expand ~ and environment variables; return an absolute Path."""
     return Path(os.path.expandvars(
         Path(*[str(p) for p in paths]).expanduser())).absolute()
+
+
+def shorten_home(path) -> Path:
+    """The home directory prefix replaced by ``~``, for display."""
+    home = str(Path.home())
+    path = str(Path(path))
+    if path.startswith(home):
+        return Path('~' + path[len(home):])
+    return Path(path)
 
 
 def mkdir(*paths) -> Path:
@@ -81,13 +79,14 @@ def load_yaml(fname) -> Any:
         return yaml.load(f, Loader=_TolerantLoader)
 
 
-def find_latest_checkpoint(root) -> Path:
-    """Newest ``*ckpt_epoch_*`` entry under <root>/checkpoints or <root>."""
+def find_latest_checkpoint(root, model_task: str = '') -> Path:
+    """Newest ``<model_task>*ckpt_epoch_*`` entry under <root>/checkpoints
+    or <root>, by modification time then name."""
     root = expand_path(root)
     for candidate_dir in (root / 'checkpoints', root):
         if not candidate_dir.is_dir():
             continue
-        ckpts = list(candidate_dir.glob('*ckpt_epoch_*'))
+        ckpts = list(candidate_dir.glob(f'{model_task}*ckpt_epoch_*'))
         if ckpts:
             return max(ckpts, key=lambda p: (p.stat().st_mtime, str(p)))
     raise FileNotFoundError(f'No checkpoints found under {root}')
@@ -100,3 +99,31 @@ def get_n_cols(fname) -> int:
             if line.strip():
                 return len(line.split())
     return 0
+
+
+def format_time(t) -> str:
+    """Seconds -> ``HH:MM:SS`` (``--:--:--`` when unknown)."""
+    if t is None or (isinstance(t, float) and (math.isnan(t) or t < 0)):
+        return '--:--:--'
+    t = int(t)
+    return f'{t // 3600:02d}:{(t % 3600) // 60:02d}:{t % 60:02d}'
+
+
+class Timer:
+    """Wall-clock context manager; prints ``name: HH:MM:SS`` on exit when
+    named."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name
+        self.start = None
+        self.interval = 0.0
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.interval = time.perf_counter() - self.start
+        if self.name:
+            print(f'{self.name}: {format_time(self.interval)}')
+        return False

@@ -1,0 +1,59 @@
+"""The training CLI on the GPU against the same command on the CPU.
+
+Needs a CUDA GPU and nvcc; without a GPU the test skips (inside its
+fixture). It imports no JAX, so it runs as
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda_cli.py``.
+A small model (3 layers, k=16, softmax attention, edge dropout 0.1) trains
+for 2 epochs at batch 2 on a 12-line types file over the test complexes
+with mixed labels (weighted sampling) and one augmented copy of each
+active; the GPU run's per-step losses must be within the trajectory gate
+(atol 1e-4, rtol 1e-5) of the CPU run's, and its launches must show K2
+in every layer of every step.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pointvs_tpu_torch.main import main as train_main
+from pointvs_tpu_torch.ops import segment_kernels as sk
+
+RESOURCES = Path(__file__).parent / 'resources'
+LAYERS = 3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    return torch.device('cuda')
+
+
+def _argv(run, types, device):
+    return ['egnn', str(run), '--train_data_root_pose', str(RESOURCES),
+            '--train_types_pose', str(types), '--layers', str(LAYERS), '-k',
+            '16', '--egnn_attention', '--softmax_attention',
+            '--egnn_residual', '--egnn_normalise', '--egnn_tanh',
+            '--graphnorm', '--compact', '-b', '2', '-ep', '2', '--radius',
+            '4', '--estimate_bonds', '--augmented_actives', '1', '--dropout',
+            '0.1', '--device', device]
+
+
+@pytest.mark.cuda
+def test_cli_on_the_gpu_matches_the_cpu(tmp_path, cuda_device):
+    del cuda_device
+    pairs = ('rec_0.parquet lig_0.parquet', 'rec.parquet lig.parquet')
+    types = tmp_path / 'train.types'
+    types.write_text(''.join(f'{int(i % 3 == 0)} -1 {0.5 + i:.1f} '
+                             f'{pairs[i % 2]}\n' for i in range(12)))
+    sk.reset_launch_counts()
+    gpu = train_main(_argv(tmp_path / 'gpu', types, 'cuda'))
+    counts = sk.launch_counts()
+    cpu = train_main(_argv(tmp_path / 'cpu', types, 'cpu'))
+    steps = len(gpu.train_losses)
+    assert steps == 2 * 8   # 12 items + 4 augmented, batch 2, 2 epochs
+    assert counts['softmax_aggregate_sorted'] == LAYERS * steps
+    assert counts['segment_sum_sorted'] >= LAYERS * steps
+    np.testing.assert_allclose(gpu.train_losses, cpu.train_losses,
+                               atol=1e-4, rtol=1e-5)

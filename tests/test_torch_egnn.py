@@ -150,8 +150,7 @@ def test_state_dict_round_trip(scan_layers):
 
 
 def test_out_of_slice_flags_raise():
-    for flag, value in (('bf16', True), ('remat', True), ('dropout', 0.1),
-                        ('include_strain_info', True)):
+    for flag, value in (('bf16', True), ('include_strain_info', True)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             build_model('egnn', dim_input=DIM_IN, k=K, dim_output=1,
                         **{flag: value})

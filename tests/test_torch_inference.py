@@ -101,7 +101,9 @@ def test_orbax_run_dir_is_refused(tmp_path):
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
-    'training.losses', 'training.optimisers')
+    'training.losses', 'training.optimisers', 'main', 'resume_training',
+    'config', 'logging', 'data.loader', 'data.blob', 'ops.edge_dropout',
+    'training.metrics_logger')
 
 
 def test_port_imports_no_jax():
