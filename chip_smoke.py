@@ -45,15 +45,24 @@ Phases:
    and K4, whose products run on tensor cores in 3xTF32, also 3 x their
    product flops / 495 TFLOP/s TF32, the bound the JSON line carries);
 5. serving: 64 poses (seeded rigid perturbations of the test ligand in
-   its pocket) scored at batch 32 through ``pointvs_tpu_torch.inference``
-   for three models (reference-default flags at 3 layers, the README's
-   6-layer softmax-attention model, sigmoid attention at 3 layers), and
-   the 6-layer model once more through ``make_eval_step(use_fused=True)``
-   (K3 in every layer). Kernel launch counts must equal layers x batches;
+   its pocket) scored at batch 32, k=32, through
+   ``pointvs_tpu_torch.inference``: egnn with reference-default flags at 3
+   layers, the README's 6-layer softmax-attention model, sigmoid
+   attention at 3 layers, and the 6-layer model once more through
+   ``make_eval_step(use_fused=True)`` (K3 in every layer); the multitask
+   model with the README's flags (pose head on the module path, affinity
+   head through K3) and with ``--edge_attention_final_only`` (K2 on the
+   last layer alone; K3 with each layer's own attention mode); lucid at 6
+   layers (attention, coordinate and feature norms, 2 fourier features,
+   GraphNorm: K1 over the sorted receivers); en_transformer at 6 layers
+   and 4 heads. Each kernel's launches must equal the configuration's
+   count per batch (SERVING) x batches, and no other kernel may launch;
    64 finite rows must be written; scores must match a ``--device cpu``
-   run (and the fused scores the module path's) within 1e-4; one offset
-   computation per batch; one profiled forward's kernel time, K1's, K2's
-   and K3's per launch, and the top kernels by name;
+   run (and the fused scores the module path's) within 1e-4; one profiled
+   forward's kernel time, K1's, K2's and K3's per launch, and the top
+   kernels by name. Then K1 over the first pose batch's
+   ``receivers_sorted`` at widths 1, 3, 4, 32 and 33 against its plain
+   version in float64, bit-identical on repeat, and timed as in phase 3;
 6. training: the ``Trainer`` takes 5 steps on the README 6-layer model
    (k=32, batch 32) on the module path (K1/K2 forward and backward) and on
    the fused path (K3 forward, K4 backward). Launch counts per path (at
@@ -81,7 +90,17 @@ Phases:
    Prints the CLI's step ms by CUDA events (median, p90), each epoch's
    wall time, poses per second, and the host share of an epoch (wall minus
    the profiler's device time of a second run's steps); and the step ms
-   and epoch wall of a third run with ``--prefetch 0`` (no loader thread).
+   and epoch wall of a third run with ``--prefetch 0`` (no loader thread);
+8. lucid (3 layers, also with dropout 0.1, whose masks are a hash of the
+   step's seed) and en_transformer (3 layers, 4 heads) through the
+   ``Trainer``: 5 steps on the card and on the CPU within the trajectory
+   gate, K1 launches, step ms by CUDA events;
+9. multitask CLI: ``pointvs_tpu_torch.main multitask ... --model_task both
+   -ep 1 -ea 1`` with the README model on the pose set and affinity labels
+   drawn from the seed: both checkpoints and predictions files, epoch
+   counters, K2 at 6 launches per step and validation forward, the same
+   command with ``--device cpu`` within the trajectory gate, step ms by
+   CUDA events.
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -631,34 +650,73 @@ def write_pose_set(np, root: Path, n_poses=64):
 
 
 README_6L = dict(num_layers=6, edge_attention=True, softmax_attention=True)
-# name -> (flags, counted kernel, other kernels it may launch, fused).
-# Each counted kernel and the fused path's K1 (the coordinate means)
-# launch once per layer and batch; each batch finds its offsets once.
+LUCID_6L = dict(num_layers=6, attention=True, norm_coords=True,
+                norm_feats=True, fourier_features=2, graphnorm=True)
+# The multitask runs add a softplus affinity head: relu on random weights
+# scores most poses 0, which would hold the GPU to the CPU on zeros.
+MULTITASK_6L = dict(README_6L, final_softplus=True)
+FINAL_ONLY_6L = dict(MULTITASK_6L, edge_attention_final_only=True)
+# name -> (model, flags, task, fused, launches per batch by kernel,
+# offset computations per batch). Every other kernel must not launch.
 SERVING = {
-    'default_3l': (dict(num_layers=3), 'segment_sum_sorted', (), False),
-    'readme_softmax_6l': (README_6L, 'softmax_aggregate_sorted', (), False),
-    'sigmoid_3l': (dict(num_layers=3, edge_attention=True),
-                   'softmax_aggregate_sorted', (), False),
-    'readme_softmax_6l_fused': (README_6L, 'fused_edge_forward',
-                                ('segment_sum_sorted',), True),
+    'default_3l': ('egnn', dict(num_layers=3), None, False,
+                   {'segment_sum_sorted': 3}, 1),
+    'readme_softmax_6l': ('egnn', README_6L, None, False,
+                          {'softmax_aggregate_sorted': 6}, 1),
+    'sigmoid_3l': ('egnn', dict(num_layers=3, edge_attention=True), None,
+                   False, {'softmax_aggregate_sorted': 3}, 1),
+    'readme_softmax_6l_fused': ('egnn', README_6L, None, True,
+                                {'fused_edge_forward': 6,
+                                 'segment_sum_sorted': 6}, 1),
+    # The multitask model: the pose head on the module path, the affinity
+    # head through K3; with a final-only switch K2 runs on the last layer
+    # alone (K1 takes the other five) and K3 runs each layer's own mode.
+    'multitask_readme_6l': ('multitask', MULTITASK_6L, 'classification',
+                            False,
+                            {'softmax_aggregate_sorted': 6}, 1),
+    'multitask_readme_6l_fused': ('multitask', MULTITASK_6L, 'regression',
+                                  True,
+                                  {'fused_edge_forward': 6,
+                                   'segment_sum_sorted': 6}, 1),
+    'multitask_final_only_6l': ('multitask', FINAL_ONLY_6L,
+                                'classification', False,
+                                {'softmax_aggregate_sorted': 1,
+                                 'segment_sum_sorted': 5}, 1),
+    'multitask_final_only_6l_fused': ('multitask', FINAL_ONLY_6L,
+                                      'classification', True,
+                                      {'fused_edge_forward': 6,
+                                       'segment_sum_sorted': 6}, 1),
+    # lucid: two means at the receivers a layer (K1 over receivers_sorted,
+    # whose offsets are found once a batch beside the senders').
+    'lucid_6l': ('lucid', LUCID_6L, None, False,
+                 {'segment_sum_sorted': 12}, 2),
+    # en_transformer: the 4 heads' softmax denominators, the value sum and
+    # the coordinate mean, one K1 each a layer.
+    'en_transformer_6l': ('en_transformer', dict(num_layers=6, heads=4),
+                          None, False, {'segment_sum_sorted': 18}, 1),
 }
 MODEL_KWARGS = dict(dim_input=12, k=32, dim_output=1, residual=True,
                     normalize=True, tanh=True, graphnorm=True,
                     model_task='classification')
 
 
-def write_run_dir(torch, run: Path, flags: dict):
+def write_run_dir(torch, run: Path, flags: dict, model: str = 'egnn'):
+    """A run directory of random weights from SEED: a pose checkpoint, and
+    for the multitask model an affinity one with the same weights."""
     from pointvs_tpu_torch.models.layers import init_parameters
     from pointvs_tpu_torch.models.registry import build_model
     from pointvs_tpu_torch.utils import save_yaml
     model_kwargs = dict(MODEL_KWARGS, **flags)
-    model = build_model('egnn', **model_kwargs)
-    init_parameters(model, torch.Generator().manual_seed(SEED))
+    net = build_model(model, **model_kwargs)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
     (run / 'checkpoints').mkdir(parents=True)
-    torch.save({'model_state_dict': model.state_dict(), 'p_epoch': 0,
-                'a_epoch': 0}, run / 'checkpoints' / 'pose_ckpt_epoch_0.pt')
+    tasks = ('pose', 'affinity') if model == 'multitask' else ('pose',)
+    for task in tasks:
+        torch.save({'model_state_dict': net.state_dict(), 'p_epoch': 0,
+                    'a_epoch': 0},
+                   run / 'checkpoints' / f'{task}_ckpt_epoch_0.pt')
     save_yaml(model_kwargs, run / 'model_kwargs.yaml')
-    save_yaml({'model': 'egnn', 'batch_size': 32, 'radius': 10,
+    save_yaml({'model': model, 'batch_size': 32, 'radius': 10,
                'edge_radius': 4.0, 'compact': True,
                'egnn_attention': flags.get('edge_attention', False)},
               run / 'cmd_args.yaml')
@@ -743,14 +801,16 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
     from pointvs_tpu_torch.ops import segment_kernels as sk
     launches, module_scores = {}, {}
     batches = -(-n_poses // 32)
-    for name, (flags, kernel, others, fused) in SERVING.items():
+    for name, (model, flags, task, fused, per_batch, offsets) in \
+            SERVING.items():
         run = root / name
-        write_run_dir(torch, run, flags)
+        write_run_dir(torch, run, flags, model)
         args = [str(run), str(types), str(root / 'data'), '--batch_size',
-                '32']
+                '32'] + (['--model_task', task] if task else [])
         if fused:
             trainer, loader = inference.get_model_and_test_dl(
-                *args[:3], torch.device('cuda'), batch_size=32)
+                *args[:3], torch.device('cuda'), model_task=task,
+                batch_size=32)
             loader = list(loader)   # featurise before the counted run
         sk.reset_launch_counts()
         start = time.perf_counter()
@@ -762,19 +822,14 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = sk.launch_counts()
-        expect = flags['num_layers'] * batches
-        for counted in (kernel,) + others:
-            check(counts[counted] == expect,
-                  f'{name}: {counted} launched {counts[counted]} times, '
-                  f'expected {expect}')
-        check(counts['segment_offsets'] == batches,
-              f'{name}: {counts["segment_offsets"]} offset computations '
-              f'for {batches} batches')
-        for other, count in counts.items():
-            check(other in (kernel, 'segment_offsets') + others
-                  or count == 0,
-                  f'{name}: unexpected {other} launches ({count})')
-        rows = (run / 'pose_gpu.txt').read_text().splitlines()
+        for kernel, count in counts.items():
+            expect = per_batch.get(kernel, 0) * batches
+            if kernel == 'segment_offsets':
+                expect = offsets * batches
+            check(count == expect, f'{name}: {kernel} launched {count} '
+                                   f'times, expected {expect}')
+        prefix = 'affinity' if 'regression' in (task or '') else 'pose'
+        rows = (run / f'{prefix}_gpu.txt').read_text().splitlines()
         gpu = trainer.val_scores
         check(len(rows) == n_poses and len(gpu) == n_poses
               and np.isfinite(gpu).all(),
@@ -784,21 +839,25 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         diff = float(np.abs(gpu - cpu).max())
         check(diff <= 1e-4, f'{name}: GPU and CPU scores differ by {diff}')
         extra = ''
-        if fused:
-            module = module_scores['readme_softmax_6l']
+        module_name = name[:-len('_fused')] if fused else None
+        if module_name in module_scores and SERVING[module_name][2] == task:
+            module = module_scores[module_name]
             fdiff = float(np.abs(gpu - module).max())
             check(fdiff <= 1e-4, f'{name}: fused and module scores differ '
                                  f'by {fdiff}')
             extra = f' max|fused-module|={fdiff:.2e}'
         module_scores[name] = gpu
         trainer, loader = inference.get_model_and_test_dl(
-            *args[:3], trainer.device, batch_size=32)
-        forward = ((lambda b, m=trainer.model: fused_forward(m, b)) if fused
-                   else trainer.model)
+            *args[:3], trainer.device, model_task=task, batch_size=32)
+        kw = {'task': task} if model == 'multitask' else {}
+        forward = ((lambda b, m=trainer.model: fused_forward(m, b, **kw))
+                   if fused else
+                   (lambda b, m=trainer.model: m(b, **kw)))
         fwd, sizes, profiled = forward_profile(torch, trainer, loader,
                                                forward)
-        launches[name] = counts[kernel]
-        print(f'serving: {name} poses={n_poses} wall={wall:.3f} s '
+        launches[name] = counts
+        print(f'serving: {name} ({model}{", " + task if task else ""}) '
+              f'poses={n_poses} wall={wall:.3f} s '
               f'poses_per_s={n_poses / wall:.1f} '
               f'forward_ms_per_batch={fwd:.3f} launches={counts} '
               f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
@@ -808,6 +867,70 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
                       [('K3', 'fused_edge_forward')] + SEGMENT_SHARES
                       if fused else SEGMENT_SHARES)
     return launches
+
+
+K1_RECEIVER_WIDTHS = (1, 3, 4, 32, 33)   # lucid's means are 3+1 and 32+1
+
+
+def phase_receiver_sorted(torch, np, root: Path, types: Path):
+    """K1 over the real pose batch's receivers_sorted (lucid's
+    mean_to_dst), at widths 1, 3, 4, 32 and 33, against its plain version
+    in float64 and bit-identical on repeat; timed as the other K1 rows."""
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.data.loader import get_data_loader
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
+    dev = torch.device('cuda')
+    batch = to_device(next(iter(get_data_loader(
+        types.parent, types, batch_size=32, radius=10, edge_radius=4,
+        polar_hydrogens=False, prefetch=0, mode='val')))[0], dev)
+    n = batch.node_feats.shape[0]
+    agg = EdgeAggregator(batch.senders, batch.receivers, batch.edge_mask, n,
+                         recv_perm=batch.recv_perm)
+    ids = agg.receivers_sorted
+    offsets = agg.receiver_offsets()
+    host_ids = ids.cpu().numpy()
+    check(np.array_equal(offsets.cpu().numpy(), np.searchsorted(
+        host_ids, np.arange(n + 1))), 'receiver offsets wrong')
+    real = int((host_ids < n).sum())
+    deg = np.diff(offsets.cpu().numpy())
+    rng = np.random.default_rng(SEED + 2)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    err, timings = 0.0, {}
+    for kw in K1_RECEIVER_WIDTHS:
+        data = torch.from_numpy(rng.standard_normal(
+            (len(host_ids), kw)).astype(np.float32)).to(dev)
+        got = sk.windowed_segment_sum(data, ids, n, offsets)
+        again = sk.windowed_segment_sum(data, ids, n, offsets)
+        want = sk.windowed_segment_sum_plain(data.double(), ids, n).float()
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, **TOL),
+              f'K1 on receivers_sorted disagrees with plain at K={kw}')
+        check(torch.equal(got, again),
+              f'K1 on receivers_sorted not bit-identical at K={kw}')
+        err = max(err, (got - want).abs().max().item())
+        launch = lambda: sk.windowed_segment_sum(  # noqa: E731
+            data, ids, n, offsets)
+        v = dict(ms=time_cuda(torch, launch, flush),
+                 device_ms=profiled_ms(torch, launch, flush,
+                                       'segment_sum_sorted'),
+                 plain_ms=time_cuda(torch, lambda: sk.windowed_segment_sum_plain(
+                     data, ids, n), flush),
+                 library_ms=time_cuda(torch, lambda: torch.zeros(
+                     (n + 1, kw), device=dev).index_add_(0, ids, data),
+                     flush),
+                 bound=bound_ms(*k1_work(real, n, kw)))
+        timings[f'k1r_{kw}'] = v
+        print(f'kernels: k1 on receivers_sorted K={kw} N={n} '
+              f'E={len(host_ids)} (real {real}, max {int(deg.max())} edges '
+              f'a row, {int((deg[:int(batch.node_mask.sum())] == 0).sum())} '
+              f'real rows empty) ms={v["ms"]:.4f} (profiler device time '
+              f'{v["device_ms"]:.4f}) plain_ms={v["plain_ms"]:.4f} '
+              f'library_ms={v["library_ms"]:.4f} bound_ms='
+              f'{v["bound"][0]:.4f} ({v["bound"][1]}) share_of_bound='
+              f'{v["bound"][0] / v["ms"]:.3f} max_abs_err vs float64 '
+              f'{(got - want).abs().max().item():.2e}')
+    return err, timings
 
 
 # ----------------------------------------------------------------- 6
@@ -1094,6 +1217,167 @@ def phase_training_cli(torch, np, root: Path, types: Path, card: str):
     return counts
 
 
+# ----------------------------------------------------------------- 8
+# The lucid and en_transformer families through the Trainer, 5 steps on
+# the card against the same on the CPU (depth cut to 3 layers for the CPU
+# runs' time; lucid also with dropout 0.1, whose masks the port draws from
+# the step's seed, the same on both devices).
+FAMILY_TRAIN = {
+    'lucid_3l': ('lucid', dict(LUCID_6L, num_layers=3)),
+    'lucid_3l_dropout': ('lucid', dict(LUCID_6L, num_layers=3,
+                                       dropout=0.1)),
+    'en_transformer_3l': ('en_transformer', dict(num_layers=3, heads=4)),
+}
+# K1 launches a step, at least: lucid's two receiver means a layer and
+# its pair gather's backward; en_transformer's three sums a layer and the
+# backward of its two gathers and of the denominators' gather.
+FAMILY_K1_PER_LAYER = {'lucid': 3, 'en_transformer': 6}
+
+
+def phase_family_training(torch, np, root: Path, types: Path, card: str):
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.training.engine import Trainer
+    _, loader = inference.get_model_and_test_dl(
+        str(root / 'readme_softmax_6l'), str(types), str(root / 'data'),
+        torch.device('cpu'), batch_size=32)
+    host = list(loader)
+    steps = [host[i % len(host)] for i in range(TRAIN_STEPS)]
+    out = {}
+    for name, (model, flags) in FAMILY_TRAIN.items():
+        losses, counts = {}, {}
+        for device in ('cuda', 'cpu'):
+            trainer = Trainer(model, root / f'train_{name}_{device}',
+                              torch.device(device), learning_rate=TRAIN_LR,
+                              weight_decay=1e-4, seed=SEED,
+                              **dict(MODEL_KWARGS, **flags))
+            sk.reset_launch_counts()
+            trainer.train_model(steps, epochs=1)
+            counts[device] = sk.launch_counts()
+            losses[device] = np.asarray(trainer.train_losses)
+            check(len(losses[device]) == TRAIN_STEPS
+                  and np.isfinite(losses[device]).all(),
+                  f'{name} on {device}: losses {losses[device]}')
+            if device == 'cuda':
+                ms = np.asarray(trainer.step_ms())
+        gpu = counts['cuda']
+        k1_min = FAMILY_K1_PER_LAYER[model] * flags['num_layers'] \
+            * TRAIN_STEPS
+        check(gpu['segment_sum_sorted'] >= k1_min
+              and gpu['softmax_aggregate_sorted'] == 0
+              and gpu['fused_edge_forward'] == 0
+              and gpu['fused_edge_backward'] == 0
+              and gpu['segment_offsets'] <= 2 * TRAIN_STEPS,
+              f'{name}: launches {gpu}, expected K1 >= {k1_min}, no K2-K4, '
+              f'at most 2 offset computations a step')
+        check(not any(counts['cpu'].values()),
+              f'{name}: a CPU run launched a CUDA kernel')
+        diff = float(np.abs(losses['cuda'] - losses['cpu']).max())
+        check(np.allclose(losses['cuda'], losses['cpu'], **TRAJ_TOL),
+              f'{name}: GPU and CPU trajectories differ by {diff}')
+        out[name] = gpu
+        print(f'family training: {card}: {name} {TRAIN_STEPS} steps, '
+              f'launches {gpu} ({gpu["segment_sum_sorted"] / TRAIN_STEPS:.1f} '
+              f'K1 a step); losses {losses["cuda"].tolist()}; max|gpu - cpu| '
+              f'loss {diff:.3e}; step_ms median {np.median(ms):.3f} '
+              f'(CUDA events) {ms.round(3).tolist()}')
+    return out
+
+
+# ----------------------------------------------------------------- 9
+MT_CLI_FLAGS = ['--layers', '6', '-k', '32', '--egnn_attention',
+                '--softmax_attention', '--egnn_residual', '--egnn_normalise',
+                '--egnn_tanh', '--graphnorm', '--compact', '-b', '32', '-ep',
+                '1', '-ea', '1', '--dropout', '0.1', '--radius', '10',
+                '--edge_radius', '4', '--model_task', 'both', '--end_flag',
+                '--seed', str(SEED)]
+MT_RUN_FILES = ('checkpoints/pose_ckpt_epoch_1.pt',
+                'checkpoints/affinity_ckpt_epoch_1.pt',
+                'pose_predictions.txt', 'affinity_predictions.txt',
+                'metrics.jsonl', 'cmd_args.yaml', '_FINISHED')
+
+
+def write_affinity_types(np, types: Path, seed: int) -> Path:
+    """The pose set's complexes with pKi / pKd / IC50 labels drawn from
+    ``seed`` (pKi always given; each other label missing, -1, with
+    probability 0.3)."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for line in types.read_text().splitlines():
+        rec, lig = line.split()[-2:]
+        values = rng.uniform(3.0, 9.0, 3)
+        values[1:][rng.random(2) < 0.3] = -1.0
+        lines.append(' '.join(f'{v:.3f}' for v in values) + f' {rec} {lig}')
+    out = types.parent / 'affinity.types'
+    out.write_text('\n'.join(lines) + '\n')
+    return out
+
+
+def phase_multitask_cli(torch, np, root: Path, types: Path, card: str):
+    """``pointvs_tpu_torch.main multitask ... --model_task both -ep 1 -ea
+    1`` (in process, for the launch counters): the README model trains
+    the pose phase, validates, then trains the affinity phase on seeded
+    labels and validates; the same on the CPU within the trajectory gate.
+    """
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    affinity = write_affinity_types(np, types, SEED)
+    data = str(types.parent)
+
+    def argv(run, device):
+        return (['multitask', str(run), '--train_data_root_pose', data,
+                 '--train_types_pose', str(types), '--test_data_root_pose',
+                 data, '--test_types_pose', str(types),
+                 '--train_data_root_affinity', data,
+                 '--train_types_affinity', str(affinity),
+                 '--test_data_root_affinity', data,
+                 '--test_types_affinity', str(affinity)] + MT_CLI_FLAGS
+                + ['--device', device])
+
+    run = root / 'mt_cli_cuda'
+    sk.reset_launch_counts()
+    start = time.perf_counter()
+    gpu = train_main(argv(run, 'cuda'))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = sk.launch_counts()
+    missing = [f for f in MT_RUN_FILES if not (run / f).exists()]
+    check(not missing, f'multitask CLI: run directory lacks {missing}')
+    steps = len(gpu.train_losses)
+    check(steps == 2 + 2, f'multitask CLI: {steps} steps, expected 2 pose '
+                          f'+ 2 affinity')
+    check((gpu.p_epoch, gpu.a_epoch) == (1, 1),
+          f'multitask CLI: epochs {(gpu.p_epoch, gpu.a_epoch)}')
+    forwards = steps + 4   # 2 validation batches after each phase
+    check(counts['softmax_aggregate_sorted'] == 6 * forwards
+          and counts['segment_sum_sorted'] >= 6 * steps
+          and counts['fused_edge_forward'] == 0
+          and counts['fused_edge_backward'] == 0
+          and counts['segment_offsets'] <= forwards,
+          f'multitask CLI launches {counts}: expected K2 = 6 x {forwards} '
+          f'forwards, K1 >= {6 * steps}, no K3/K4, one offset computation '
+          f'a batch')
+    cpu = train_main(argv(root / 'mt_cli_cpu', 'cpu'))
+    diff = float(np.abs(np.subtract(gpu.train_losses,
+                                    cpu.train_losses)).max())
+    check(np.allclose(gpu.train_losses, cpu.train_losses, **TRAJ_TOL),
+          f'multitask CLI: GPU and CPU trajectories differ by {diff}')
+    for fname in ('pose_predictions.txt', 'affinity_predictions.txt'):
+        rows = (run / fname).read_text().splitlines()
+        check(len(rows) >= 64, f'multitask CLI: {fname} has {len(rows)} '
+                               f'rows')
+    ms = np.asarray(gpu.step_ms())
+    print(f'multitask CLI: {card}: {steps} steps (pose, pose, affinity, '
+          f'affinity), wall {wall:.3f} s; launches {counts} (K2 '
+          f'{counts["softmax_aggregate_sorted"] / forwards:.1f} and K1 '
+          f'{counts["segment_sum_sorted"] / forwards:.1f} a forward or '
+          f'step); losses {gpu.train_losses}; max|gpu - cpu| loss '
+          f'{diff:.3e}; step_ms {ms.round(3).tolist()} (CUDA events, 32 '
+          f'graphs) median {np.median(ms):.3f}; epochs p/a '
+          f'{gpu.p_epoch}/{gpu.a_epoch}')
+    return counts
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1110,8 +1394,15 @@ def main() -> int:
             root = Path(tmp)
             types, n_poses = write_pose_set(np, root / 'data')
             launches = phase_serving(torch, np, root, types, n_poses)
+            recv_err, recv_timings = phase_receiver_sorted(torch, np, root,
+                                                           types)
+            err['k1'] = max(err['k1'], recv_err)
+            timings.update(recv_timings)
             train_launches = phase_training(torch, np, root, types)
             cli_launches = phase_training_cli(torch, np, root, types, card)
+            family_launches = phase_family_training(torch, np, root, types,
+                                                    card)
+            mt_launches = phase_multitask_cli(torch, np, root, types, card)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1125,13 +1416,21 @@ def main() -> int:
                 'plain_ms': v['plain_ms'], 'bound_ms': v['bound'][0],
                 'bound_by': v['bound'][1], 'library_ms': v['library_ms']}
 
+    def served(kernel, names=None):
+        """Launches of ``kernel`` over the serving runs (or ``names``)."""
+        return sum(counts[kernel] for name, counts in launches.items()
+                   if names is None or name in names)
+
+    softmax_runs = [name for name in SERVING if name != 'sigmoid_3l']
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
-              launches['default_3l'], 'k1', 'k1_36'),
+              served('segment_sum_sorted'), 'k1', 'k1_36'),
         entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
-              launches['readme_softmax_6l'], 'softmax', 'softmax'),
+              served('softmax_aggregate_sorted', softmax_runs), 'softmax',
+              'softmax'),
         entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
-              launches['sigmoid_3l'], 'sigmoid', 'sigmoid'),
+              served('softmax_aggregate_sorted', ['sigmoid_3l']),
+              'sigmoid', 'sigmoid'),
         entry('fused_edge_forward', K3_SOURCE, K3_REPLACES,
               train_launches['k3'], 'k3', 'k3'),
         entry('fused_edge_backward', K4_SOURCE, K4_REPLACES,
@@ -1139,7 +1438,8 @@ def main() -> int:
     ]
     print(f'launches on the main paths: serving {launches}; training '
           f'(module path K1/K2, fused path K3/K4) {train_launches}; '
-          f'training CLI {cli_launches}')
+          f'training CLI {cli_launches}; lucid / en_transformer training '
+          f'{family_launches}; multitask CLI {mt_launches}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -157,7 +157,8 @@ _FLAGS = (
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('model', type=str,
-                        help='Point cloud network (the port has egnn)')
+                        help='Point cloud network (the port has egnn, multitask, '
+                             'lucid, en_transformer and lie_transformer)')
     parser.add_argument('save_path', type=str,
                         help='Directory for experiment outputs')
     for name, aliases, kwargs in _FLAGS:

@@ -4,7 +4,9 @@
 Rebuilds the model from a run directory (``.pt`` checkpoint plus
 ``model_kwargs.yaml`` / ``cmd_args.yaml`` sidecars), rebuilds the data
 pipeline from the saved flags, scores every pose and writes
-``<task>_<output_fname>`` into the run directory. Runs on the GPU unless
+``<task>_<output_fname>`` into the run directory. ``--model_task`` picks
+the task (``both`` serves as ``classification``); for a multitask run
+directory it also picks the head and the newest checkpoint of that task. Runs on the GPU unless
 ``--device cpu`` is given. ``--num_devices`` is the reference's flag: None
 or 1 runs on the one device; more is refused until data parallelism is
 ported.
@@ -29,7 +31,8 @@ LOG = get_logger()
 def get_model_and_test_dl(model_path, test_types, data_root, device,
                           model_task=None, batch_size=None):
     """(trainer, loader) rebuilt from a run directory."""
-    trainer, model_kwargs, cmd_args = load_model(model_path, device)
+    trainer, model_kwargs, cmd_args = load_model(model_path, device,
+                                                 model_task=model_task)
     model_task = model_task or model_kwargs.get('model_task',
                                                 'classification')
     if model_task == 'both':

@@ -2,9 +2,12 @@
 kernel (K3, ``ops/fused_egnn.py``).
 
 Counterpart of ``pointvs_tpu/inference_engine.py`` (``supports_fusion``,
-``_layer_attention``, ``fused_forward``; node attention is read by the
-layer's own ``node_update``) and
-of the layer walk of ``pointvs_tpu/fused_train.py``. It reads the port's
+``_layer_attention``, ``fused_forward``) and of the layer walk of
+``pointvs_tpu/fused_train.py``. Each layer's attention mode is read from
+the layer itself, so the multitask model's first-only and final-only
+switches (``models/multitask._apply_switch``) give each layer its own mode
+in K3, and its node attention is read by the layer's own ``node_update``;
+the head is the model's ``head(pooled, task)``. It reads the port's
 ``nn.Module`` parameters (the reference state_dict schema) directly: the
 edge MLP, coordinate MLP and attention weights go into the kernel; the
 node side (node MLP, GraphNorm, node attention, residual, pooling, head)
@@ -30,6 +33,7 @@ import torch
 
 from pointvs_tpu_torch.data.buckets import GraphBatch
 from pointvs_tpu_torch.models.egnn import EPSILON, SartorrasEGNN
+from pointvs_tpu_torch.models.multitask import MultitaskSatorrasEGNN
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward, \
     fused_edge_pass
@@ -38,7 +42,7 @@ from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 def supports_fusion(model) -> bool:
     """The reference's model conditions (bf16 is refused by the port's
-    model itself)."""
+    model itself); the multitask model is a ``SartorrasEGNN``."""
     return (isinstance(model, SartorrasEGNN)
             and not model.permutation_invariance
             and model.dropout == 0
@@ -75,7 +79,15 @@ def _kernel_params(layer, attention: str, like: torch.Tensor) -> dict:
     return params
 
 
-def fused_network(model, batch: GraphBatch, differentiable: bool):
+def _task_kwargs(model, task) -> dict:
+    """``task`` for a multitask model's forward (the reference passes it
+    only to that family, and only when given)."""
+    return {'task': task} if isinstance(model, MultitaskSatorrasEGNN) \
+        and task else {}
+
+
+def fused_network(model, batch: GraphBatch, differentiable: bool,
+                  task=None):
     """The model's output through the fused edge pass in every layer."""
     h = model.layers[0](batch.node_feats)
     coord = batch.coords
@@ -117,20 +129,14 @@ def fused_network(model, batch: GraphBatch, differentiable: bool):
                               num_graphs)
     pooled = masked_graph_mean_pool(h, batch.graph_id, num_graphs,
                                     batch.node_mask)
-    return model.feats_linear_layers(pooled)
-
-
-def _refuse_task(task):
-    if task is not None:
-        raise NotImplementedError(
-            'per-task heads (MultitaskSatorrasEGNN) are not in the port yet '
-            '(see ROADMAP.md, Queue 1)')
+    return model.head(pooled, task)
 
 
 @torch.no_grad()
 def fused_forward(model, batch: GraphBatch, task=None) -> torch.Tensor:
-    """Forward equal to ``model(batch)`` with K3 in every layer."""
-    _refuse_task(task)
+    """Forward equal to ``model(batch[, task=task])`` with K3 in every
+    layer; the multitask model's head is the one ``task`` names (pose when
+    it is None or holds 'classification')."""
     if not supports_fusion(model):
-        return model(batch)
-    return fused_network(model, batch, differentiable=False)
+        return model(batch, **_task_kwargs(model, task))
+    return fused_network(model, batch, differentiable=False, task=task)

@@ -6,6 +6,10 @@ Usage:
         [--test_data_root_pose <root> --test_types_pose <types>] \\
         -ep 1 --layers 3 [--device cpu] [... every flag of the reference]
 
+Models: ``egnn``, ``multitask``, ``lucid`` and ``en_transformer`` (alias
+``lie_transformer``). ``--model_task both`` (multitask only) trains the
+pose phase and then the affinity phase, each followed by its validation.
+
 Writes the reference's run directory: ``cmd_args.yaml`` (with
 ``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
 ``metrics.jsonl``, ``checkpoints/<task>_ckpt_epoch_<n>.pt``,
@@ -27,7 +31,8 @@ from pointvs_tpu_torch.config import model_kwargs_from_args, parse_args, \
 from pointvs_tpu_torch.data.loader import get_data_loader
 from pointvs_tpu_torch.device import resolve_device
 from pointvs_tpu_torch.logging import get_logger
-from pointvs_tpu_torch.models.registry import MODEL_REGISTRY
+from pointvs_tpu_torch.models.registry import MODEL_REGISTRY, \
+    model_input_kind
 from pointvs_tpu_torch.training.engine import Trainer
 from pointvs_tpu_torch.utils import load_yaml, mkdir, save_yaml
 
@@ -48,10 +53,9 @@ def refuse_unported(args) -> None:
          'strain-energy inputs'),
         (args.synthpharm or args.synth_pharm, '--synthpharm',
          'SynthPharmDataset'),
-        (args.model_task == 'both', '--model_task both',
-         'sequential pose -> affinity training (the multitask model)'),
         (args.model not in MODEL_REGISTRY, f'model {args.model!r}',
-         f'models other than {sorted(MODEL_REGISTRY)}'),
+         f'the {model_input_kind(args.model)!r} input layout (the port has '
+         f'{sorted(MODEL_REGISTRY)})'),
         (args.scatter_cap is not None, '--scatter_cap',
          "the TPU kernels' window capacity (the port's segment kernel "
          'has none)'),
@@ -91,7 +95,7 @@ def build_loaders(args):
             min_inactive_rms_distance=args.min_inactive_rmsd,
             max_inactive_rms_distance=args.max_inactive_rmsd,
             model_task='classification', **train_kwargs)
-    if args.model_task in ('regression', 'multi_regression') \
+    if args.model_task in ('both', 'regression', 'multi_regression') \
             and args.train_types_affinity:
         train_affinity = get_data_loader(
             args.train_data_root_affinity, args.train_types_affinity,
@@ -141,6 +145,10 @@ def main(argv=None):
             if hasattr(args, key):
                 setattr(args, key, value)
     refuse_unported(args)
+    if args.model_task == 'both' and args.model != 'multitask':
+        raise RuntimeError(
+            'Sequential pose -> affinity training is only compatible with '
+            'the multitask architecture')
     for types_arg, root_arg in (
             ('train_types_pose', 'train_data_root_pose'),
             ('train_types_affinity', 'train_data_root_affinity'),
@@ -172,6 +180,8 @@ def main(argv=None):
     if not datasets:
         raise SystemExit('No datasets specified — nothing to do.')
     model_kwargs = model_kwargs_from_args(args, datasets[0].feature_dim)
+    if args.model_task == 'both':
+        model_kwargs['model_task'] = 'classification'
     trainer = Trainer(
         args.model, save_path, device, learning_rate=args.learning_rate,
         weight_decay=args.weight_decay, optimiser=args.optimiser,

@@ -246,6 +246,7 @@ class SartorrasEGNN(nn.Module):
             attention_activation_fn=attention_activation_fn,
             gated_residual=gated_residual, rezero=rezero,
             softmax_attention=softmax_attention)
+        self.layer_kwargs = layer_kwargs
         self.layers = nn.ModuleList(
             [InputEmbedding(dim_input, k)]
             + [EGNNLayer(k, **layer_kwargs) for _ in range(num_layers)])
@@ -287,10 +288,16 @@ class SartorrasEGNN(nn.Module):
                 else layer(*args))
         return h
 
+    def head(self, pooled: torch.Tensor, task=None) -> torch.Tensor:
+        """The output head on the pooled embeddings (one head here; the
+        multitask model picks one by ``task``)."""
+        del task
+        return self.feats_linear_layers(pooled)
+
     def forward(self, batch: GraphBatch, train: bool = False,
                 dropout_seed=None) -> torch.Tensor:
         h = self.embed(batch, train, dropout_seed)
         pooled = masked_graph_mean_pool(h, batch.graph_id,
                                         batch.graph_mask.shape[0],
                                         batch.node_mask)
-        return self.feats_linear_layers(pooled)
+        return self.head(pooled)

@@ -3,8 +3,14 @@
 Counterpart of ``pointvs_tpu/models/layers.py``. Initialisation follows the
 reference's torch defaults: every Linear draws weight and bias from
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)); the coordinate MLP's final layer is
-bias-free with xavier-uniform gain 0.001 (ref egnn_satorras.py:88-89).
-Parameters are drawn from an explicit ``torch.Generator``.
+bias-free with xavier-uniform gain 0.001 (ref egnn_satorras.py:88-89); the
+lucid family's Linears are xavier-normal with zero biases (ref
+egnn_lucid.py:102-107). Parameters are drawn from an explicit
+``torch.Generator``.
+
+Also the lucid family's pieces: ``fourier_encode_dist``, ``CoorsNorm``
+and ``HashDropout``, a dropout whose mask is a hash of the step's seed
+(the same on any device, like ``ops/edge_dropout``).
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from pointvs_tpu_torch.ops.edge_dropout import _MASK32, _mix
 
 ACTIVATIONS = {
     'silu': nn.SiLU,
@@ -35,6 +43,11 @@ class XavierLinear(nn.Linear):
                  bias: bool = True):
         self.gain = gain
         super().__init__(in_features, out_features, bias=bias)
+
+
+class XavierNormalLinear(nn.Linear):
+    """Linear whose weight is drawn xavier-normal and whose bias is zero
+    (the lucid family's init)."""
 
 
 def mlp(in_features: int, features: Sequence[int], acts: Sequence[str],
@@ -68,6 +81,12 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         if not isinstance(sub, nn.Linear):
             continue
         fan_in, fan_out = sub.in_features, sub.out_features
+        if isinstance(sub, XavierNormalLinear):
+            sub.weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
+                               generator=generator)
+            if sub.bias is not None:
+                sub.bias.zero_()
+            continue
         if isinstance(sub, XavierLinear):
             bound = sub.gain * math.sqrt(6.0 / (fan_in + fan_out))
         else:
@@ -76,3 +95,57 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         if sub.bias is not None:
             bias_bound = 1.0 / math.sqrt(fan_in)
             sub.bias.uniform_(-bias_bound, bias_bound, generator=generator)
+
+
+def fourier_encode_dist(x: torch.Tensor, num_encodings: int = 4
+                        ) -> torch.Tensor:
+    """[E, 1] squared distances -> [E, 2 * num_encodings + 1]: sin and cos
+    of x / 2**i for i < num_encodings, then x itself (egnn_pytorch's
+    encoding, as the lucid family calls it)."""
+    scales = 2.0 ** torch.arange(num_encodings, dtype=x.dtype,
+                                 device=x.device)
+    scaled = x / scales
+    return torch.cat([torch.sin(scaled), torch.cos(scaled), x], dim=-1)
+
+
+class CoorsNorm(nn.Module):
+    """Relative coordinate vectors scaled to unit length times a learnt
+    ``scale`` (init 1e-2). The clamp is inside the sqrt: padding edges
+    have rel_coors == 0, and sqrt'(0) would put NaN into every gradient
+    although the forward masks them out downstream."""
+
+    def __init__(self, scale_init: float = 1e-2, eps: float = 1e-8):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((1,), scale_init))
+        self.eps = eps
+
+    def forward(self, rel_coors: torch.Tensor) -> torch.Tensor:
+        sq = (rel_coors ** 2).sum(dim=-1, keepdim=True)
+        norm = torch.sqrt(torch.clamp_min(sq, self.eps ** 2))
+        return rel_coors / norm * self.scale
+
+
+class HashDropout(nn.Module):
+    """Inverted dropout drawn from the training step's uint32 seed.
+
+    Entry i (row-major) of the input at dropout site ``site`` is kept when
+    fmix32(fmix32(i ^ seed) ^ key(site)) / 2**32 >= rate, and kept
+    entries are scaled by 1 / (1 - rate), as flax's ``Dropout`` scales
+    them. The mask is a pure function of (seed, site, i), so a CPU and a
+    GPU run drop the same entries; its stream is not flax's. It holds no
+    parameters, so it can sit in a reference-schema Sequential.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, seed=None, site: int = 0):
+        if seed is None or self.rate <= 0:
+            return x
+        idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+        key = (int(site) * 0x9E3779B9 + 0x7F4A7C15) & _MASK32
+        h = _mix(_mix(idx ^ (int(seed) & _MASK32)) ^ key)
+        keep = (h.to(torch.float32) / 4294967296.0 >= self.rate).view(
+            x.shape)
+        return torch.where(keep, x / (1.0 - self.rate), x.new_zeros(()))

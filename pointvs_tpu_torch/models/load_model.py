@@ -33,25 +33,44 @@ def resolve_run(weights_path, model_task: str = '') -> Tuple[Path, Path]:
     return ckpt, root
 
 
-def load_model(weights_path, device, init_path: bool = False):
+def _sidecar(path: Path) -> dict:
+    """A run directory's yaml sidecar, empty when it has none."""
+    return (load_yaml(path) or {}) if path.exists() else {}
+
+
+def _task_prefix(task: str) -> str:
+    """Checkpoint name prefix of a task (``both`` serves as pose)."""
+    return 'affinity' if 'regression' in task else 'pose'
+
+
+def load_model(weights_path, device, init_path: bool = False,
+               model_task=None):
     """Returns (trainer, model_kwargs, cmd_args).
 
     ``init_path`` reopens the run directory for continued training: the
     trainer writes its sidecars and records there, and loads the newest
-    checkpoint of the run's task. Otherwise the trainer is silent.
+    checkpoint of the run's task; of a multitask run, the newest of either
+    task (every checkpoint holds both epoch counters, so the newest names
+    the phase to continue). Otherwise the trainer is silent, and in a
+    multitask run directory it loads the newest checkpoint of
+    ``model_task`` (default: the run's task).
     """
     from pointvs_tpu_torch.training.engine import Trainer
 
     weights_path = expand_path(weights_path)
     prefix = ''
-    if init_path and weights_path.is_dir():
-        task = (load_yaml(weights_path / 'model_kwargs.yaml') or {}).get(
+    if weights_path.is_dir():
+        saved_task = _sidecar(weights_path / 'model_kwargs.yaml').get(
             'model_task', 'classification')
-        prefix = 'affinity' if 'regression' in task else 'pose'
+        multitask = _sidecar(weights_path / 'cmd_args.yaml').get(
+            'model') == 'multitask'
+        if init_path and not multitask:
+            prefix = _task_prefix(saved_task)
+        elif multitask and not init_path:
+            prefix = _task_prefix(model_task or saved_task)
     ckpt, root = resolve_run(weights_path, prefix)
     model_kwargs = load_yaml(root / 'model_kwargs.yaml') or {}
-    cmd_args_path = root / 'cmd_args.yaml'
-    cmd_args = load_yaml(cmd_args_path) if cmd_args_path.exists() else {}
+    cmd_args = _sidecar(root / 'cmd_args.yaml')
     if cmd_args.get('double', False):
         raise NotImplementedError('--double (float64) runs are not in the '
                                   'port yet (see ROADMAP.md, Queue 1)')

@@ -4,9 +4,13 @@ Counterpart of ``pointvs_tpu/models/torch_import.py``. The port's modules
 already use the reference PointVS state_dict schema, so a reference
 checkpoint loads directly (after the reference's own legacy-key
 migrations, ``normalise_reference_keys``). ``state_dict_from_flax`` is the
-inverse of the JAX package's ``_satorras_flat``: it carries a JAX
-``SartorrasEGNN`` parameter tree (numpy arrays; unrolled ``egnn_layer_{i}``
-or scan-stacked ``egnn_scan`` layout) into that schema.
+inverse of the JAX package's ``_satorras_flat`` and ``_lucid_flat``: it
+carries a JAX parameter tree (numpy arrays; the unrolled ``*_layer_{i}``
+or the scan-stacked ``*_scan`` layout) of ``SartorrasEGNN``,
+``MultitaskSatorrasEGNN`` (heads ``feats_linear_layers_pose`` /
+``_affinity``) or ``LucidEGNN`` into the reference schema, and one of
+``EnTransformer``, which has no reference schema, into the port's keys
+(the JAX module names: ``tf_layer_{i}.q_proj``, ...).
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ def _flat(tree, prefix=()):
             yield prefix + (key,), np.asarray(value)
 
 
-# JAX layer-relative path prefix -> reference module key.
+# JAX layer-relative path prefix -> reference module key, per family.
 _LAYER_DENSE = {
     ('edge_mlp', 'TorchLinear_0', 'Dense_0'): 'edge_mlp.0',
     ('edge_mlp', 'TorchLinear_1', 'Dense_0'): 'edge_mlp.2',
@@ -63,21 +67,98 @@ _LAYER_RAW = {
     ('edge_gate',): 'edge_gate_parameter',
     ('node_gate',): 'node_gate_parameter',
 }
+# The reference PygLucidEGNN's Sequential indices (its Dropout modules
+# hold the places between).
+_LUCID_DENSE = {
+    ('edge_mlp', 'TorchLinear_0', 'Dense_0'): 'edge_mlp.0',
+    ('edge_mlp', 'TorchLinear_1', 'Dense_0'): 'edge_mlp.3',
+    ('edge_weight', 'TorchLinear_0', 'Dense_0'): 'edge_weight.0',
+    ('edge_weight', 'TorchLinear_1', 'Dense_0'): 'edge_weight.2',
+    ('node_lin1',): 'node_mlp.0',
+    ('node_lin2',): 'node_mlp.4',
+    ('coors_mlp', 'TorchLinear_0', 'Dense_0'): 'coors_mlp.0',
+    ('coors_mlp', 'TorchLinear_1', 'Dense_0'): 'coors_mlp.3',
+}
+_LUCID_RAW = {
+    ('node_norm', 'weight'): 'node_norm.weight',
+    ('node_norm', 'bias'): 'node_norm.bias',
+    ('coors_norm', 'scale'): 'coors_norm.scale',
+    ('node_graphnorm', 'weight'): 'node_mlp.2.weight',
+    ('node_graphnorm', 'bias'): 'node_mlp.2.bias',
+    ('node_graphnorm', 'mean_scale'): 'node_mlp.2.mean_scale',
+}
+_TF_DENSE = {
+    **{(name, 'Dense_0'): name
+       for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')},
+    **{(mlp, f'TorchLinear_{m}', 'Dense_0'): f'{mlp}.{2 * m}'
+       for mlp in ('edge_bias', 'ff', 'coord_mlp') for m in (0, 1)},
+}
+_TF_RAW = {(norm, name): f'{norm}.{name}' for norm in ('norm', 'ff_norm')
+           for name in ('weight', 'bias')}
+
+# Per family: (unrolled layer scope prefix, scan scope, port layer key
+# format, port index of the first layer, dense map, raw map).
+_FAMILIES = {
+    'egnn': ('egnn_layer_', 'egnn_scan', 'layers.{}', 1, _LAYER_DENSE,
+             _LAYER_RAW),
+    'lucid': ('lucid_layer_', 'lucid_scan', 'layers.{}', 1, _LUCID_DENSE,
+              _LUCID_RAW),
+    'en_transformer': ('tf_layer_', 'tf_scan', 'tf_layer_{}', 0, _TF_DENSE,
+                       _TF_RAW),
+}
+# The multitask heads -> port key.
+_TOP = {
+    ('head_pose', 'TorchLinear_0', 'Dense_0'): 'feats_linear_layers_pose.0',
+    ('head_affinity', 'TorchLinear_0', 'Dense_0'):
+        'feats_linear_layers_affinity.0',
+}
 
 
-def _layer_key(rel: Tuple[str, ...]) -> str:
-    if rel in _LAYER_RAW:
-        return _LAYER_RAW[rel]
-    if rel[:-1] in _LAYER_DENSE:
-        name = 'weight' if rel[-1] == 'kernel' else rel[-1]
-        return f'{_LAYER_DENSE[rel[:-1]]}.{name}'
+def _leaf_name(path) -> str:
+    return 'weight' if path[-1] == 'kernel' else path[-1]
+
+
+def _layer_key(rel: Tuple[str, ...], dense, raw) -> str:
+    if rel in raw:
+        return raw[rel]
+    if rel[:-1] in dense:
+        return f'{dense[rel[:-1]]}.{_leaf_name(rel)}'
     raise KeyError(f'no reference key for layer parameter {"/".join(rel)}')
 
 
+def _family(inner) -> str:
+    for name, (prefix, scan, *_rest) in _FAMILIES.items():
+        if any(key == scan or key.startswith(prefix) for key in inner):
+            return name
+    return 'egnn'
+
+
+def _top_key(family: str, path) -> str:
+    """Port key of a parameter outside the layers."""
+    head = path[0]
+    if head == 'input_embed':
+        module = ('layers.0.m' if family != 'en_transformer'
+                  else 'input_embed')
+        return f'{module}.{_leaf_name(path)}'
+    if head == 'head':
+        if family == 'lucid':     # one flax Dense
+            return f'feats_linear_layers.0.{_leaf_name(path)}'
+        m = int(path[1].rsplit('_', 1)[1])
+        module = 'head' if family == 'en_transformer' \
+            else 'feats_linear_layers'
+        return f'{module}.{2 * m}.{_leaf_name(path)}'
+    if path[:-1] in _TOP:
+        return f'{_TOP[path[:-1]]}.{_leaf_name(path)}'
+    raise KeyError(f'unexpected parameter {"/".join(path)}')
+
+
 def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
-    """JAX SartorrasEGNN params (``{'params': ...}`` or the inner tree, as
-    numpy or jax arrays) -> a state_dict in the reference schema."""
+    """JAX params of a graph-input family (``{'params': ...}`` or the
+    inner tree, as numpy or jax arrays) -> the port's state_dict (the
+    reference schema where there is one)."""
     inner = params['params'] if 'params' in params else params
+    family = _family(inner)
+    prefix, scan, layer_fmt, first, dense, raw = _FAMILIES[family]
     sd: Dict[str, np.ndarray] = {}
 
     def put(key, path, value):
@@ -86,23 +167,17 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 
     for path, value in _flat(inner):
         head = path[0]
-        if head == 'input_embed':
-            put(f'layers.0.m.{"weight" if path[-1] == "kernel" else "bias"}',
+        if head.startswith(prefix):
+            i = int(head[len(prefix):]) + first
+            put(f'{layer_fmt.format(i)}.{_layer_key(path[1:], dense, raw)}',
                 path, value)
-        elif head == 'head':
-            m = int(path[1].rsplit('_', 1)[1])
-            name = 'weight' if path[-1] == 'kernel' else 'bias'
-            put(f'feats_linear_layers.{2 * m}.{name}', path, value)
-        elif head.startswith('egnn_layer_'):
-            i = int(head[len('egnn_layer_'):]) + 1
-            put(f'layers.{i}.{_layer_key(path[1:])}', path, value)
-        elif head == 'egnn_scan':
-            key = _layer_key(path[1:])
+        elif head == scan:
+            key = _layer_key(path[1:], dense, raw)
             for i in range(value.shape[0]):
-                put(f'layers.{i + 1}.{key}', path, value[i])
+                put(f'{layer_fmt.format(i + first)}.{key}', path, value[i])
         else:
-            raise KeyError(f'unexpected parameter {"/".join(path)}')
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            put(_top_key(family, path), path, value)
+    return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
 
 

@@ -9,8 +9,9 @@ do (``_gu_bwd``, ``_gp_bwd``); the attention aggregations' backward is
 ``_fsp_bwd`` / ``_fsg_bwd`` line for line. Clamps use ``torch.maximum``,
 whose gradient splits ties 0.5/0.5 like ``jnp.maximum``
 (``_max_grad_factor``). The row offsets of ``senders`` are found once, when
-the aggregator is built, and those of ``receivers_sorted`` at the first
-gather whose backward sums over them; every kernel launch takes them.
+the aggregator is built, and those of ``receivers_sorted`` at their first
+use (a gather whose backward sums over them, or a sum to the receivers);
+every kernel launch takes them.
 """
 from __future__ import annotations
 
@@ -150,28 +151,54 @@ class _FusedSigmoid(torch.autograd.Function):
 
 
 class _SegmentMean(torch.autograd.Function):
-    """Per-destination mean of masked edge rows, the count clamped >= 1
+    """Per-node mean of masked edge rows, the count clamped >= 1
     (differentiable in the data, not the mask): one K1 over the packed
     [data * mask | mask] (each column summed alone, in edge order). The
-    backward gathers the data columns only, as the two-sum form's did:
-    PyTorch gathers rows of a multiple of 16 bytes (here K + 1 = 4
-    columns) on a CUDA path far slower than 12-byte ones."""
+    rows are summed over ``sorted_ids`` after the permutation ``perm``
+    (None for the senders, which are already sorted; ``recv_perm`` for
+    the receivers); ``ids`` are the edges' own node ids, by which the
+    backward gathers. It gathers the data columns only, as the two-sum
+    form's did: PyTorch gathers rows of a multiple of 16 bytes (here
+    K + 1 = 4 columns) on a CUDA path far slower than 12-byte ones."""
 
     @staticmethod
-    def forward(ctx, data, mask, senders, num_segments, offsets):
+    def forward(ctx, data, mask, ids, perm, sorted_ids, num_segments,
+                offsets):
         k = data.shape[1]
-        out = _segment_sum(torch.cat([data * mask[:, None], mask[:, None]],
-                                     dim=1), senders, num_segments, offsets)
+        packed = torch.cat([data * mask[:, None], mask[:, None]], dim=1)
+        if perm is not None:
+            packed = packed.index_select(0, perm)
+        out = _segment_sum(packed, sorted_ids, num_segments, offsets)
         denom = torch.maximum(out[:, k:], out.new_tensor(1.0))
-        ctx.save_for_backward(mask, senders, denom)
+        ctx.save_for_backward(mask, ids, denom)
         ctx.num_segments = num_segments
         return out[:, :k] / denom
 
     @staticmethod
     def backward(ctx, g):
-        mask, senders, denom = ctx.saved_tensors
-        d = _gather_rows(g / denom, senders, ctx.num_segments)
-        return d * mask[:, None], None, None, None, None
+        mask, ids, denom = ctx.saved_tensors
+        d = _gather_rows(g / denom, ids, ctx.num_segments)
+        return d * mask[:, None], None, None, None, None, None, None
+
+
+class _SegmentSumToDst(torch.autograd.Function):
+    """Per-receiver sums of edge rows: K1 over ``receivers_sorted`` after
+    the permutation ``recv_perm``; the backward gathers by the receivers
+    (the reference's ``sum_to_dst``, whose sum transposes to the gather)."""
+
+    @staticmethod
+    def forward(ctx, data, receivers, perm, sorted_ids, num_segments,
+                offsets):
+        ctx.save_for_backward(receivers)
+        ctx.num_segments = num_segments
+        return _segment_sum(data.index_select(0, perm), sorted_ids,
+                            num_segments, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        (receivers,) = ctx.saved_tensors
+        return (_gather_rows(g, receivers, ctx.num_segments), None, None,
+                None, None, None)
 
 
 class EdgeAggregator:
@@ -196,6 +223,15 @@ class EdgeAggregator:
                                                            num_nodes)
         self.dst_offsets = None   # receivers_sorted's, found when needed
 
+    def receiver_offsets(self) -> torch.Tensor:
+        """``dst_offsets``, the row offsets of ``receivers_sorted``: found
+        at the first use (a gather's backward or a sum to the receivers)
+        and kept."""
+        if self.dst_offsets is None:
+            self.dst_offsets = segment_kernels.segment_offsets(
+                self.receivers_sorted, self.num_nodes)
+        return self.dst_offsets
+
     # -- gathers ------------------------------------------------------- #
     def gather_src(self, h):
         return gather_by_sorted_ids(h, self.senders, self.num_nodes,
@@ -204,11 +240,7 @@ class EdgeAggregator:
     def gather_dst(self, h):
         offsets = None
         if torch.is_grad_enabled() and h.requires_grad:
-            # The backward sums over receivers_sorted.
-            if self.dst_offsets is None:
-                self.dst_offsets = segment_kernels.segment_offsets(
-                    self.receivers_sorted, self.num_nodes)
-            offsets = self.dst_offsets
+            offsets = self.receiver_offsets()   # the backward sums here
         return _GatherUnsorted.apply(h, self.receivers, self.recv_perm,
                                      self.receivers_sorted, self.num_nodes,
                                      offsets)
@@ -272,7 +304,7 @@ class EdgeAggregator:
         counts = torch.maximum(out[:, k + 3:k + 4], out.new_tensor(1.0))
         return out[:, :k], out[:, k:k + 3] / counts
 
-    def mean_to_src(self, data, mask=None):
+    def _mean(self, data, mask, ids, perm, sorted_ids, offsets):
         """segment_mean(data) with the count clamped >= 1, in one kernel
         launch (``_SegmentMean``)."""
         mask = self._mask(mask)
@@ -280,27 +312,56 @@ class EdgeAggregator:
         cols = data[:, None] if squeeze else data
         mask = (cols.new_ones(cols.shape[0]) if mask is None
                 else mask.to(cols.dtype))
-        mean = _SegmentMean.apply(cols, mask, self.senders, self.num_nodes,
-                                  self.src_offsets)
+        mean = _SegmentMean.apply(cols, mask, ids, perm, sorted_ids,
+                                  self.num_nodes, offsets)
         return mean[:, 0] if squeeze else mean
 
+    def mean_to_src(self, data, mask=None):
+        """Per-sender mean of the masked edge rows (one K1 launch)."""
+        return self._mean(data, mask, self.senders, None, self.senders,
+                          self.src_offsets)
+
     def softmax_src(self, logits, mask=None):
-        """Softmax per destination over its edges; masked edges get 0."""
+        """Softmax per destination over its edges; masked edges get 0.
+
+        ``logits`` is [E], [E, 1] or [E, H]: each of the H columns is its
+        own softmax (the reference takes one ``softmax_src`` per column),
+        and all H share one max and one K1 launch of width H for their
+        denominators.
+        """
         mask = self._mask(mask)
-        squeeze = logits.dim() == 2 and logits.shape[-1] == 1
-        flat = logits[:, 0] if squeeze else logits
-        guarded = (torch.where(mask > 0, flat, flat.new_tensor(-1e30))
+        flat = logits if logits.dim() == 2 else logits[:, None]
+        col_mask = None if mask is None else mask.to(flat.dtype)[:, None]
+        guarded = (torch.where(col_mask > 0, flat, flat.new_tensor(-1e30))
                    if mask is not None else flat)
         seg_max = windowed_segment_max(guarded, self.senders, self.num_nodes)
         seg_max = torch.where(seg_max > -1e29, seg_max, seg_max.new_zeros(()))
         shift = seg_max[self.senders.clamp(max=self.num_nodes - 1)]
         expd = torch.exp(flat - shift)
         if mask is not None:
-            expd = expd * mask.to(expd.dtype)
+            expd = expd * col_mask
         denom = windowed_segment_sum(expd, self.senders, self.num_nodes,
                                      self.src_offsets)
         denom_e = gather_by_sorted_ids(
             torch.maximum(denom, denom.new_tensor(1e-16)), self.senders,
             self.num_nodes, self.src_offsets)
         out = expd / torch.where(denom_e == 0, denom_e.new_ones(()), denom_e)
-        return out[:, None] if squeeze else out
+        return out if logits.dim() == 2 else out[:, 0]
+
+    # -- aggregations to the DESTINATION index (pyg/lucid convention) -- #
+    def sum_to_dst(self, data, mask=None):
+        """Per-receiver sums of the masked edge rows: one K1 over
+        ``receivers_sorted``."""
+        squeeze = data.dim() == 1
+        data = self._masked(data, mask)
+        out = _SegmentSumToDst.apply(
+            data[:, None] if squeeze else data, self.receivers,
+            self.recv_perm, self.receivers_sorted, self.num_nodes,
+            self.receiver_offsets())
+        return out[:, 0] if squeeze else out
+
+    def mean_to_dst(self, data, mask=None):
+        """Per-receiver mean of the masked edge rows: one K1 launch over
+        ``receivers_sorted``."""
+        return self._mean(data, mask, self.receivers, self.recv_perm,
+                          self.receivers_sorted, self.receiver_offsets())

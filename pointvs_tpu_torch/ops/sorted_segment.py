@@ -83,11 +83,14 @@ def gather_by_sorted_ids(node_values: torch.Tensor, sorted_ids: torch.Tensor,
 
 def windowed_segment_max(values: torch.Tensor, sorted_ids: torch.Tensor,
                          num_segments: int) -> torch.Tensor:
-    """Per-segment max of a [E] vector; empty segments give -1e30. No
-    gradient (the reference stops it: the max only shifts a softmax)."""
-    out = values.new_full((num_segments + 1,), -1e30)
-    out.scatter_reduce_(0, sorted_ids.long(), values.detach(), 'amax',
-                        include_self=True)
+    """Per-segment max of [E] or [E, H] values, column by column; empty
+    segments give -1e30. No gradient (the reference stops it: the max only
+    shifts a softmax)."""
+    ids = sorted_ids.long()
+    if values.dim() == 2:
+        ids = ids[:, None].expand_as(values)
+    out = values.new_full((num_segments + 1,) + values.shape[1:], -1e30)
+    out.scatter_reduce_(0, ids, values.detach(), 'amax', include_self=True)
     return out[:num_segments]
 
 

@@ -45,7 +45,8 @@ def pred_metrics(logits, batch, model_task: str) -> torch.Tensor:
 def make_train_step(model, optimiser: torch.optim.Optimizer,
                     model_task: str, regression_loss: str = 'mse',
                     with_metrics: bool = False,
-                    use_fused: bool = False) -> Callable:
+                    use_fused: bool = False,
+                    multitask: bool = False) -> Callable:
     """Returns ``step(batch, lr, dropout_seed=None)``: one optimiser step
     on a batch of tensors on the model's device, with the model's edge
     dropout drawn from ``dropout_seed`` (a uint32; the reference's step
@@ -55,13 +56,16 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 
     ``use_fused`` runs the forward through ``fused_train.fused_apply``
     (kernels K3 forward, K4 backward), which computes the same function as
-    the module forward for the configurations it supports.
+    the module forward for the configurations it supports. A
+    ``multitask`` model is given ``task=model_task``, which picks its head.
     """
+    apply_kwargs = {'task': model_task} if multitask else {}
 
     def forward(batch, dropout_seed):
         if use_fused:   # fused configurations have no dropout
-            return fused_apply(model, batch)
-        return model(batch, train=True, dropout_seed=dropout_seed)
+            return fused_apply(model, batch, **apply_kwargs)
+        return model(batch, train=True, dropout_seed=dropout_seed,
+                     **apply_kwargs)
 
     def step(batch, lr: float, dropout_seed=None) -> torch.Tensor:
         model.train()
@@ -83,16 +87,19 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 
 
 def make_eval_step(model, model_task: Optional[str] = None,
-                   use_fused: bool = False) -> Callable:
+                   use_fused: bool = False,
+                   multitask: bool = False) -> Callable:
     """Returns ``step(batch) -> logits``; it never drops edges.
 
     The fused engine (``inference_engine.fused_forward``, kernel K3) is
     taken under the reference's gate: ``use_fused``, at least 6 layers and
     a configuration ``supports_fusion`` accepts; and, in place of the
     reference's TPU-backend test, only for a batch on a CUDA device.
-    ``step.fused`` records the model half of the gate.
+    ``step.fused`` records the model half of the gate. A ``multitask``
+    model is given ``task=model_task`` (its head) on both paths.
     """
-    del model_task   # per-task heads (multitask) are not in the port yet
+    apply_kwargs = ({'task': model_task} if multitask and model_task
+                    else {})
     fuse = (use_fused and getattr(model, 'num_layers', 0) >= 6
             and supports_fusion(model))
 
@@ -100,8 +107,8 @@ def make_eval_step(model, model_task: Optional[str] = None,
     def step(batch) -> torch.Tensor:
         model.eval()
         if fuse and batch.node_feats.device.type == 'cuda':
-            return fused_forward(model, batch)
-        return model(batch)
+            return fused_forward(model, batch, **apply_kwargs)
+        return model(batch, **apply_kwargs)
 
     step.fused = fuse
     return step

@@ -4,7 +4,9 @@
 Rebuilds the loaders from the run's ``cmd_args.yaml`` (the reference's
 defaults for keys an older run did not write), restores the weights, the
 optimiser state and the epoch counters, and continues the pose and then
-the affinity phase from the saved epochs.
+the affinity phase from the saved epochs. A multitask ``--model_task
+both`` run resumes from its newest checkpoint of either task, whose
+counters name the phase to continue.
 
 Usage: python -m pointvs_tpu_torch.resume_training <run_dir> [--device cpu]
 """

@@ -10,9 +10,13 @@ files in the reference layout (``training/checkpoints.py``). Unless
 ``silent``, the Trainer writes ``model_kwargs.yaml`` and appends the
 reference's records to ``metrics.jsonl`` (``MetricsLogger``).
 
-Each training step takes one uint32 edge-dropout seed, drawn on the host
-from a ``torch.Generator`` seeded with ``seed`` (the counterpart of the
-reference's per-step rng), so a CPU run and a GPU run drop the same edges.
+Each training step takes one uint32 dropout seed, drawn on the host from
+a ``torch.Generator`` seeded with ``seed`` (the counterpart of the
+reference's per-step rng): the EGNN families drop edges by it and the
+lucid family draws its feature dropout masks from it, so a CPU run and a
+GPU run drop the same edges and entries. ``set_task`` switches the task,
+and with it the multitask model's head and the epoch counter that
+``epoch`` reads (``p_epoch`` for pose, ``a_epoch`` for affinity).
 ``profile`` traces steps 3-8 of the first epoch with ``torch.profiler``
 into ``<save_path>/profile``. On a GPU every step is bracketed by CUDA
 events (``step_ms``); ``epoch_seconds`` holds each epoch's wall time.
@@ -88,6 +92,9 @@ class Trainer:
         self.fused_training = fused_training
         self.profile = profile
         self.model_kwargs = dict(model_kwargs)
+        self.model_name = model_name
+        # The multitask model takes the task (its head) in every step.
+        self.multitask = model_name == 'multitask'
         self.model = build_model(model_name, **model_kwargs)
         init_parameters(self.model, torch.Generator().manual_seed(seed))
         self.model.to(device).eval()
@@ -213,7 +220,8 @@ class Trainer:
         step_fn = make_train_step(self.model, self.optimiser,
                                   self.model_task, self.regression_loss,
                                   with_metrics=True,
-                                  use_fused=self.fused_training)
+                                  use_fused=self.fused_training,
+                                  multitask=self.multitask)
         timed = self.device.type == 'cuda'
         steps_per_epoch = len(data_loader)
         total_steps = max(1, (epochs - init_epoch) * steps_per_epoch)
@@ -349,7 +357,8 @@ class Trainer:
         predictions_file = predictions_file.parent / (
             f'{self.model_task_for_fnames}_{predictions_file.name}')
         mkdir(predictions_file.parent)
-        eval_fn = make_eval_step(self.model, self.model_task, use_fused)
+        eval_fn = make_eval_step(self.model, self.model_task, use_fused,
+                                 multitask=self.multitask)
         rows, scores = [], []
         for batch, meta in data_loader:
             logits = eval_fn(to_device(batch, self.device))

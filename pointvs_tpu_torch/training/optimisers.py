@@ -35,9 +35,17 @@ def build_optimiser(params, optimiser: str = 'adam',
 
 
 def clip_and_step(optimiser: torch.optim.Optimizer, lr: float) -> None:
-    """Clip every gradient by value at 1.0, then one step at ``lr``."""
-    params = [p for group in optimiser.param_groups for p in group['params']
-              if p.grad is not None]
+    """Clip every gradient by value at 1.0, then one step at ``lr``.
+
+    A parameter the loss did not reach (the multitask model's other head,
+    a last layer's coordinate MLP) steps on a zero gradient, as every
+    parameter does in the reference's optax chain: the weight decay and
+    the moments still move it. torch's optimisers would skip it.
+    """
+    params = [p for group in optimiser.param_groups for p in group['params']]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     torch.nn.utils.clip_grad_value_(params, 1.0)
     for group in optimiser.param_groups:
         group['lr'] = lr

@@ -516,3 +516,41 @@ def test_aggregation_gradients_on_gpu_match_cpu(case, cuda_device):
     assert after['segment_offsets'] == counts['segment_offsets'] + 2
     for g, w in zip(got, run(torch.device('cpu'))):
         torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['plain', 'empty_rows', 'all_masked_rows'])
+def test_destination_aggregations_on_gpu_match_cpu(case, cuda_device):
+    """The lucid and en_transformer paths under autograd on the card
+    against the plain versions on the CPU: sum_to_dst and mean_to_dst (K1
+    over receivers_sorted; their backward a gather by the receivers) and
+    a 4-head softmax_src (one K1 launch for all heads' denominators)."""
+    ids, feat, logits, trans, mask, n = make_case(case)
+    rng = np.random.RandomState(9)
+    recv = rng.permutation(ids).astype(np.int32)   # unsorted, same padding
+    heads = rng.randn(len(ids), 4).astype(np.float32)
+
+    def run(device):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_(True)
+                  for a in (feat, trans, heads)]
+        f, tr, hd = leaves
+        i, r, m = (torch.from_numpy(a).to(device) for a in (ids, recv, mask))
+        agg = EdgeAggregator(i, r, m, num_nodes=n)
+        outs = [agg.sum_to_dst(f, mask=m), agg.mean_to_dst(tr, mask=m),
+                agg.mean_to_dst(f), agg.softmax_src(hd, mask=m)]
+        weights = np.random.RandomState(10)
+        loss = sum((o * torch.from_numpy(weights.randn(*o.shape).astype(
+            np.float32)).to(device)).sum() for o in outs)
+        loss.backward()
+        return [o.detach().cpu() for o in outs] + [x.grad.cpu()
+                                                   for x in leaves]
+
+    counts = sk.launch_counts()
+    got = run(cuda_device)
+    after = sk.launch_counts()
+    # 3 destination sums and the softmax's denominators forward; the
+    # denominators' gather backward.
+    assert after['segment_sum_sorted'] == counts['segment_sum_sorted'] + 5
+    assert after['segment_offsets'] == counts['segment_offsets'] + 2
+    for g, w in zip(got, run(torch.device('cpu'))):
+        torch.testing.assert_close(g, w, **TOL)

@@ -155,4 +155,4 @@ def test_out_of_slice_flags_raise():
             build_model('egnn', dim_input=DIM_IN, k=K, dim_output=1,
                         **{flag: value})
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_model('lucid', dim_input=DIM_IN, k=K, dim_output=1)
+        build_model('siamese', dim_input=DIM_IN, k=K, dim_output=1)

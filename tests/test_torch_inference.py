@@ -97,13 +97,15 @@ def test_orbax_run_dir_is_refused(tmp_path):
         resolve_run(tmp_path)
 
 
-# Modules of the training slice that the walk below must reach.
+# Modules of the training slice and of the model families that the walk
+# below must reach.
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
     'training.losses', 'training.optimisers', 'main', 'resume_training',
     'config', 'logging', 'data.loader', 'data.blob', 'ops.edge_dropout',
-    'training.metrics_logger')
+    'training.metrics_logger', 'models.multitask', 'models.lucid',
+    'models.en_transformer')
 
 
 def test_port_imports_no_jax():

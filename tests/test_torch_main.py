@@ -190,8 +190,9 @@ REFUSED = {
     'include_strain_info': ['--include_strain_info'],
     'synthpharm': ['--synthpharm'],
     'synth_pharm': ['--synth_pharm'],
-    'model_task_both': ['--model_task', 'both'],
-    'model_lucid': None,
+    # Models whose input is not a GraphBatch (a model name, not a flag).
+    'model_siamese': 'siamese',
+    'model_dense_egnn': 'dense_egnn',
     'scatter_cap': ['--scatter_cap', '64'],
 }
 
@@ -202,10 +203,11 @@ def test_refused_flags_raise_by_name(tmp_path, name):
     argv = ['egnn', str(save), '--train_data_root_pose', str(RESOURCES),
             '--train_types_pose', str(RESOURCES / 'test.types'),
             '--device', 'cpu']
-    if REFUSED[name] is None:
-        argv[0] = 'lucid'
+    extra = REFUSED[name]
+    if isinstance(extra, str):
+        argv[0], extra = extra, []
     with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
-        port_main(argv + (REFUSED[name] or []))
+        port_main(argv + extra)
     assert not save.exists()
 
 
