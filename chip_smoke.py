@@ -100,7 +100,28 @@ Phases:
    drawn from the seed: both checkpoints and predictions files, epoch
    counters, K2 at 6 launches per step and validation forward, the same
    command with ``--device cpu`` within the trajectory gate, step ms by
-   CUDA events.
+   CUDA events;
+10. the pair, dense and strain inputs through ``pointvs_tpu_torch.main``:
+   ``siamese`` and ``egnn --include_strain_info`` (a types file with dE
+   and strain RMSD drawn from the seed) with the README flags, 2 epochs
+   at batch 32, and ``lie_conv`` (the dense family) at 6 layers and batch
+   ``DENSE_BATCH`` on the card; each against the same command with
+   ``--device cpu`` within the trajectory gate and (siamese, strain) its
+   validation scores within 1e-4, the dense one cut to 2 layers and batch
+   8 (``DENSE_CUT``) for the CPU. Launches: siamese K2 6 and K1 at least
+   12 a forward or step, strain K2 6, dense none of K1-K4. Step ms by
+   CUDA events and the peak memory of each card run; then
+   ``resume_training`` continues the siamese run to epoch 3;
+11. the strain model through the ``Trainer``: 5 steps on the module path
+   and on the fused path (K3, K4) on the card, the trajectories within the
+   gate.
+
+Phase 5 also serves ``siamese`` with the README flags (K2 6 and K1 12 a
+batch: the ligand tower's coordinates are frozen, so it aggregates with
+K1 at widths 1 and 32), ``dense_egnn`` at 6 layers (no kernel of ours;
+its peak memory is printed) and the README model with
+``--include_strain_info`` on the strain types file, on the module path
+and through K3.
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -656,6 +677,10 @@ LUCID_6L = dict(num_layers=6, attention=True, norm_coords=True,
 # scores most poses 0, which would hold the GPU to the CPU on zeros.
 MULTITASK_6L = dict(README_6L, final_softplus=True)
 FINAL_ONLY_6L = dict(MULTITASK_6L, edge_attention_final_only=True)
+# The dense family's reference-default flags (its model's own defaults:
+# residual, normalise, tanh, no distance cutoff).
+DENSE_6L = dict(num_layers=6)
+STRAIN_6L = dict(README_6L, include_strain_info=True)
 # name -> (model, flags, task, fused, launches per batch by kernel,
 # offset computations per batch). Every other kernel must not launch.
 SERVING = {
@@ -694,6 +719,21 @@ SERVING = {
     # the coordinate mean, one K1 each a layer.
     'en_transformer_6l': ('en_transformer', dict(num_layers=6, heads=4),
                           None, False, {'segment_sum_sorted': 18}, 1),
+    # siamese: the receptor tower K2 a layer; the ligand tower, whose
+    # coordinates are frozen, K1 twice a layer (the softmax denominators
+    # at width 1, the message sum at 32); each tower finds its offsets.
+    'siamese_readme_6l': ('siamese', README_6L, None, False,
+                          {'softmax_aggregate_sorted': 6,
+                           'segment_sum_sorted': 12}, 2),
+    # dense_egnn: all-pairs tensor algebra, no kernel of ours.
+    'dense_egnn_6l': ('dense_egnn', DENSE_6L, None, False, {}, 0),
+    # The strain input (the types file's dE into the head) on the module
+    # path and through K3.
+    'strain_readme_6l': ('egnn', STRAIN_6L, None, False,
+                         {'softmax_aggregate_sorted': 6}, 1),
+    'strain_readme_6l_fused': ('egnn', STRAIN_6L, None, True,
+                               {'fused_edge_forward': 6,
+                                'segment_sum_sorted': 6}, 1),
 }
 MODEL_KWARGS = dict(dim_input=12, k=32, dim_output=1, residual=True,
                     normalize=True, tanh=True, graphnorm=True,
@@ -718,8 +758,61 @@ def write_run_dir(torch, run: Path, flags: dict, model: str = 'egnn'):
     save_yaml(model_kwargs, run / 'model_kwargs.yaml')
     save_yaml({'model': model, 'batch_size': 32, 'radius': 10,
                'edge_radius': 4.0, 'compact': True,
-               'egnn_attention': flags.get('edge_attention', False)},
+               'egnn_attention': flags.get('edge_attention', False),
+               'include_strain_info': flags.get('include_strain_info',
+                                                False)},
               run / 'cmd_args.yaml')
+
+
+def write_strain_types(np, types: Path, seed: int) -> Path:
+    """The pose set's lines with a strain energy dE (0-30) and a strain
+    RMSD (0-2) drawn from ``seed`` appended, as the types files that
+    ``--include_strain_info`` reads."""
+    rng = np.random.default_rng(seed)
+    lines = [f'{line} {rng.uniform(0, 30):.3f} {rng.uniform(0, 2):.3f}'
+             for line in types.read_text().splitlines()]
+    out = types.parent / 'poses_strain.types'
+    out.write_text('\n'.join(lines) + '\n')
+    return out
+
+
+def batch_sizes(torch, b):
+    """A batch's sizes: (real N, N_pad, real E, E_pad) and edges per real
+    atom (median, p90, p99, max); for a pair each side's, for a dense batch
+    (real atoms, graphs, N_pad)."""
+    if hasattr(b, 'rec'):
+        return {'rec': batch_sizes(torch, b.rec),
+                'lig': batch_sizes(torch, b.lig)}
+    if hasattr(b, 'p'):
+        return (int(b.m.sum()),) + tuple(b.p.shape[:2])
+    n = b.node_feats.shape[0]
+    deg = torch.bincount(b.senders[b.senders < n].long(), minlength=n)
+    deg = deg[b.node_mask > 0].float()
+    return ((int(b.node_mask.sum()), n, int(b.edge_mask.sum()),
+             b.senders.shape[0]),
+            tuple(torch.quantile(deg, torch.tensor(
+                [0.5, 0.9, 0.99, 1.0], device=deg.device)).tolist()))
+
+
+def dense_logits_check(torch, np, gpu, cpu, args):
+    """The dense family's logits on the first pose batch, GPU against CPU
+    within rtol 1e-4: at random weights over ~430 atoms, all pairs and no
+    cutoff, its logits reach ~1e6 and every score saturates, so the scores
+    alone would hold nothing."""
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.data.buckets import to_device
+    _, loader = inference.get_model_and_test_dl(
+        *args[:3], torch.device('cpu'), batch_size=32)
+    batch = next(iter(loader))[0]
+    with torch.no_grad():
+        want = cpu.model(to_device(batch, torch.device('cpu'))).numpy()
+        got = gpu.model(to_device(batch, gpu.device)).cpu().numpy()
+    real = batch.graph_mask > 0
+    rel = float((np.abs(got - want) / np.abs(want))[real].max())
+    check(np.isfinite(got).all() and rel <= 1e-4,
+          f'dense_egnn: GPU and CPU logits differ by {rel:.2e} (relative)')
+    return (f' logits |max| {np.abs(want[real]).max():.4g}, max relative '
+            f'|gpu-cpu| {rel:.2e}')
 
 
 def kernel_profile(torch, fn):
@@ -772,14 +865,7 @@ def forward_profile(torch, trainer, loader, forward):
     """
     from pointvs_tpu_torch.data.buckets import to_device
     batches = [to_device(b, trainer.device) for b, _ in loader]
-    sizes = [(int(b.node_mask.sum()), b.node_feats.shape[0],
-              int(b.edge_mask.sum()), b.senders.shape[0]) for b in batches]
-    for b in batches:   # edges per real atom: median, p90, p99, max
-        n = b.node_feats.shape[0]
-        deg = torch.bincount(b.senders[b.senders < n].long(), minlength=n)
-        deg = deg[b.node_mask > 0].float()
-        sizes.append(tuple(torch.quantile(deg, torch.tensor(
-            [0.5, 0.9, 0.99, 1.0], device=deg.device)).tolist()))
+    sizes = [batch_sizes(torch, b) for b in batches]
     times = []
     with torch.no_grad():
         for _ in range(5):
@@ -801,17 +887,21 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
     from pointvs_tpu_torch.ops import segment_kernels as sk
     launches, module_scores = {}, {}
     batches = -(-n_poses // 32)
+    strain_types = write_strain_types(np, types, SEED + 3)
     for name, (model, flags, task, fused, per_batch, offsets) in \
             SERVING.items():
         run = root / name
         write_run_dir(torch, run, flags, model)
-        args = [str(run), str(types), str(root / 'data'), '--batch_size',
+        served = (strain_types if flags.get('include_strain_info')
+                  else types)
+        args = [str(run), str(served), str(root / 'data'), '--batch_size',
                 '32'] + (['--model_task', task] if task else [])
         if fused:
             trainer, loader = inference.get_model_and_test_dl(
                 *args[:3], torch.device('cuda'), model_task=task,
                 batch_size=32)
             loader = list(loader)   # featurise before the counted run
+        torch.cuda.reset_peak_memory_stats()
         sk.reset_launch_counts()
         start = time.perf_counter()
         if fused:
@@ -822,6 +912,7 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = sk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for kernel, count in counts.items():
             expect = per_batch.get(kernel, 0) * batches
             if kernel == 'segment_offsets':
@@ -834,11 +925,15 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         check(len(rows) == n_poses and len(gpu) == n_poses
               and np.isfinite(gpu).all(),
               f'{name}: expected {n_poses} finite rows, got {len(rows)}')
-        cpu = inference.main(args + ['--output_fname', 'cpu.txt',
-                                     '--device', 'cpu']).val_scores
+        cpu_trainer = inference.main(args + ['--output_fname', 'cpu.txt',
+                                             '--device', 'cpu'])
+        cpu = cpu_trainer.val_scores
         diff = float(np.abs(gpu - cpu).max())
         check(diff <= 1e-4, f'{name}: GPU and CPU scores differ by {diff}')
         extra = ''
+        if model == 'dense_egnn':
+            extra = dense_logits_check(torch, np, trainer, cpu_trainer,
+                                       args)
         module_name = name[:-len('_fused')] if fused else None
         if module_name in module_scores and SERVING[module_name][2] == task:
             module = module_scores[module_name]
@@ -856,13 +951,18 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         fwd, sizes, profiled = forward_profile(torch, trainer, loader,
                                                forward)
         launches[name] = counts
+        if model == 'dense_egnn':
+            b, n = sizes[0][1:]
+            extra += (f' peak_memory={peak:.3f} GiB (max_memory_allocated '
+                      f'over the GPU run; one [{b}, {n}, {n}, 32] f32 pair '
+                      f'tensor is {4 * b * n * n * 32 / 2 ** 30:.3f} GiB)')
         print(f'serving: {name} ({model}{", " + task if task else ""}) '
               f'poses={n_poses} wall={wall:.3f} s '
               f'poses_per_s={n_poses / wall:.1f} '
               f'forward_ms_per_batch={fwd:.3f} launches={counts} '
               f'max|gpu-cpu|={diff:.2e}{extra} batch sizes (real N, N_pad, '
               f'real E, E_pad) and edges per real atom (median, p90, p99, '
-              f'max)={sizes}')
+              f'max); dense: (real atoms, graphs, N_pad)={sizes}')
         print_profile(f'{name} one forward', profiled,
                       [('K3', 'fused_edge_forward')] + SEGMENT_SHARES
                       if fused else SEGMENT_SHARES)
@@ -1378,6 +1478,172 @@ def phase_multitask_cli(torch, np, root: Path, types: Path, card: str):
     return counts
 
 
+# ----------------------------------------------------------------- 10
+# The pair, dense and strain inputs through the training CLI: siamese and
+# the strain input at full width and depth (README flags), the dense
+# family at full width and depth on the card, and cut for its CPU
+# cross-check.
+INPUT_FLAGS = ['-k', '32', '--compact', '--radius', '10', '--edge_radius',
+               '4', '--seed', str(SEED), '--end_flag']
+README_FLAGS = ['--layers', '6', '--egnn_attention', '--softmax_attention',
+                '--egnn_residual', '--egnn_normalise', '--egnn_tanh',
+                '--graphnorm', '-b', '32', '-ep', '2']
+DENSE_FLAGS = ['--egnn_residual', '--egnn_normalise', '--egnn_tanh']
+DENSE_BATCH = 32             # the full run's batch (cut if it cannot fit)
+DENSE_CUT = ['--layers', '2', '-b', '8', '-ep', '1']   # CPU cross-check
+INPUT_RUNS = {
+    # name -> (model, flags, strain types?, devices, validation scores
+    # held GPU against CPU within 1e-4?). The dense family's trained
+    # logits reach the hundreds and more (its random-weight losses are
+    # 1e2-1e7), where f32 rounding alone moves a score by ~1e-4: its
+    # trajectory is held, its scores' difference printed.
+    'siamese': ('siamese', README_FLAGS, False, ('cuda', 'cpu'), True),
+    'strain': ('egnn', README_FLAGS + ['--include_strain_info'], True,
+               ('cuda', 'cpu'), True),
+    'lie_conv_full': ('lie_conv', DENSE_FLAGS + [
+        '--layers', '6', '-b', str(DENSE_BATCH), '-ep', '1'], False,
+        ('cuda',), False),
+    'lie_conv_cut': ('lie_conv', DENSE_FLAGS + DENSE_CUT, False,
+                     ('cuda', 'cpu'), False),
+}
+
+
+def phase_input_cli(torch, np, root: Path, types: Path, n_poses: int,
+                    card: str):
+    """``pointvs_tpu_torch.main`` for siamese, lie_conv and egnn
+    --include_strain_info on the pose set (in process, for the launch
+    counters), each with validation on the same set; GPU against CPU
+    within the trajectory gate and the validation scores within 1e-4;
+    then ``resume_training`` continues the siamese run to epoch 3."""
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.resume_training import main as resume_main
+    strain_types = types.parent / 'poses_strain.types'
+    data = str(types.parent)
+    out = {}
+    for name, (model, flags, strain, devices, gate_scores) in \
+            INPUT_RUNS.items():
+        served = str(strain_types if strain else types)
+        runs = {}
+        for device in devices:
+            run = root / f'input_{name}_{device}'
+            argv = [model, str(run), '--train_data_root_pose', data,
+                    '--train_types_pose', served, '--test_data_root_pose',
+                    data, '--test_types_pose', served] + INPUT_FLAGS \
+                + flags + ['--device', device]
+            if device == 'cuda':
+                torch.cuda.reset_peak_memory_stats()
+                sk.reset_launch_counts()
+            start = time.perf_counter()
+            runs[device] = train_main(argv)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                counts = sk.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check((run / '_FINISHED').exists()
+                  and (run / 'pose_predictions.txt').exists(),
+                  f'{name} on {device}: run directory incomplete')
+        gpu = runs['cuda']
+        losses = np.asarray(gpu.train_losses)
+        steps = len(losses)
+        val = -(-n_poses // int(flags[flags.index('-b') + 1]))
+        check(steps > 0 and np.isfinite(losses).all()
+              and len(gpu.val_scores) == n_poses
+              and np.isfinite(gpu.val_scores).all(),
+              f'{name}: losses {losses}, {len(gpu.val_scores)} scores')
+        forwards = steps + val
+        expect = {
+            'siamese': counts['softmax_aggregate_sorted'] == 6 * forwards
+            and counts['segment_sum_sorted'] >= 12 * forwards,
+            'strain': counts['softmax_aggregate_sorted'] == 6 * forwards
+            and counts['segment_sum_sorted'] >= 6 * steps,
+        }.get(name, not any(counts.values()))
+        check(expect and counts['fused_edge_forward'] == 0
+              and counts['fused_edge_backward'] == 0,
+              f'{name}: launches {counts} for {steps} steps and {val} '
+              f'validation batches')
+        diff = ''
+        if 'cpu' in runs:
+            cpu = runs['cpu']
+            d = float(np.abs(losses - np.asarray(cpu.train_losses)).max())
+            s = float(np.abs(gpu.val_scores - cpu.val_scores).max())
+            check(np.allclose(losses, cpu.train_losses, **TRAJ_TOL),
+                  f'{name}: GPU and CPU trajectories differ by {d}')
+            check(s <= 1e-4 or not gate_scores,
+                  f'{name}: GPU and CPU scores differ by {s}')
+            diff = f'; max|gpu - cpu| loss {d:.3e}, scores {s:.2e}'
+        ms = np.asarray(gpu.step_ms())
+        out[name] = counts
+        print(f'inputs CLI: {card}: {name} ({model} {" ".join(flags)}): '
+              f'{steps} steps, {val} validation batches, wall {wall:.3f} s; '
+              f'launches {counts}; losses {losses.tolist()}{diff}; step_ms '
+              f'{ms.round(3).tolist()} (CUDA events) median '
+              f'{np.median(ms):.3f}; peak memory {peak:.3f} GiB '
+              f'(max_memory_allocated over the run)')
+
+    run = root / 'input_siamese_cuda'
+    cmd_args = (run / 'cmd_args.yaml').read_text()
+    check('epochs_pose: 2' in cmd_args, 'cmd_args.yaml lacks epochs_pose')
+    (run / 'cmd_args.yaml').write_text(
+        cmd_args.replace('epochs_pose: 2', 'epochs_pose: 3'))
+    resumed = resume_main([str(run)])
+    check(resumed.p_epoch == 3
+          and (run / 'checkpoints' / 'pose_ckpt_epoch_3.pt').exists()
+          and np.isfinite(resumed.train_losses).all(),
+          f'resume_training: p_epoch {resumed.p_epoch}')
+    print(f'inputs CLI: resume_training continued the siamese run to epoch '
+          f'{resumed.p_epoch}: losses {resumed.train_losses}')
+    return out
+
+
+def phase_strain_fused(torch, np, root: Path):
+    """5 ``Trainer`` steps of the README strain model on the module path
+    (K1/K2) and the fused path (K3 forward, K4 backward) on the card, on
+    the strain pose batches: the two trajectories within the gate."""
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.training.engine import Trainer
+    _, loader = inference.get_model_and_test_dl(
+        str(root / 'strain_readme_6l'),
+        str(root / 'data' / 'poses_strain.types'), str(root / 'data'),
+        torch.device('cpu'), batch_size=32)
+    host = list(loader)
+    check(all(np.abs(b.strain[:, 0]).max() > 0 for b, _ in host),
+          'the strain batches carry no dE')
+    steps = [host[i % len(host)] for i in range(TRAIN_STEPS)]
+    losses, counts, ms = {}, {}, {}
+    for fused in (False, True):
+        name = 'fused' if fused else 'module'
+        trainer = Trainer('egnn', root / f'strain_{name}',
+                          torch.device('cuda'), learning_rate=TRAIN_LR,
+                          weight_decay=1e-4, seed=SEED, fused_training=fused,
+                          **dict(MODEL_KWARGS, **STRAIN_6L))
+        sk.reset_launch_counts()
+        trainer.train_model(steps, epochs=1)
+        counts[name] = sk.launch_counts()
+        losses[name] = np.asarray(trainer.train_losses)
+        ms[name] = np.asarray(trainer.step_ms())
+    expect = 6 * TRAIN_STEPS
+    fused = counts['fused']
+    check(fused['fused_edge_forward'] == expect
+          and fused['fused_edge_backward'] == expect
+          and fused['softmax_aggregate_sorted'] == 0
+          and counts['module']['softmax_aggregate_sorted'] == expect
+          and counts['module']['fused_edge_forward'] == 0,
+          f'strain Trainer launches {counts}: expected K3 = K4 = {expect} '
+          f'fused, K2 = {expect} module')
+    diff = float(np.abs(losses['fused'] - losses['module']).max())
+    check(np.isfinite(losses['fused']).all() and np.allclose(
+        losses['fused'], losses['module'], **TRAJ_TOL),
+        f'strain: fused and module trajectories differ by {diff}')
+    print(f'strain Trainer: {TRAIN_STEPS} steps, launches {counts}; '
+          f'max|fused - module| loss {diff:.3e}; step_ms module '
+          f'{ms["module"].round(3).tolist()} fused '
+          f'{ms["fused"].round(3).tolist()} (CUDA events)')
+    return fused
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1403,6 +1669,9 @@ def main() -> int:
             family_launches = phase_family_training(torch, np, root, types,
                                                     card)
             mt_launches = phase_multitask_cli(torch, np, root, types, card)
+            input_launches = phase_input_cli(torch, np, root, types,
+                                             n_poses, card)
+            strain_launches = phase_strain_fused(torch, np, root)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1439,7 +1708,9 @@ def main() -> int:
     print(f'launches on the main paths: serving {launches}; training '
           f'(module path K1/K2, fused path K3/K4) {train_launches}; '
           f'training CLI {cli_launches}; lucid / en_transformer training '
-          f'{family_launches}; multitask CLI {mt_launches}')
+          f'{family_launches}; multitask CLI {mt_launches}; siamese, '
+          f'strain and dense CLIs {input_launches}; strain Trainer on the '
+          f'fused path {strain_launches}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

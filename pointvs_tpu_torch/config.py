@@ -157,8 +157,9 @@ _FLAGS = (
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('model', type=str,
-                        help='Point cloud network (the port has egnn, multitask, '
-                             'lucid, en_transformer and lie_transformer)')
+                        help='Point cloud network: egnn, multitask, lucid, '
+                             'en_transformer, lie_transformer, siamese, '
+                             'dense_egnn or lie_conv')
     parser.add_argument('save_path', type=str,
                         help='Directory for experiment outputs')
     for name, aliases, kwargs in _FLAGS:

@@ -10,7 +10,14 @@ Conventions (relied on by the ops and the model):
   require; ``recv_perm`` sorts ``receivers``;
 - ``inv_recv_perm`` (the inverse of ``recv_perm``) is present only when the
   edge list is verified symmetric (``receivers[recv_perm] == senders``);
-- graph slots beyond the samples have ``graph_mask == 0``.
+- graph slots beyond the samples have ``graph_mask == 0``;
+- ``strain`` holds each slot's (dE, strain RMSD), zeros where a sample
+  has none and in empty slots.
+
+``SiamesePair`` (a receptor-only and a ligand-only ``GraphBatch`` of the
+same complexes, slot-aligned; labels on the receptor side) and
+``DenseBatch`` (zero-padded per-graph point clouds) are the two other
+model inputs; ``to_device`` moves any of the three.
 
 Sizes are rounded up to a geometric grid of buckets. The reference also
 grows the edge padding until a TPU window-load capacity is met; the CUDA
@@ -20,7 +27,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,8 +46,42 @@ class GraphBatch(NamedTuple):
     edge_mask: np.ndarray    # [E]    float32
     y: np.ndarray            # [B] or [B, 3] float32
     graph_mask: np.ndarray   # [B]    float32
+    strain: np.ndarray       # [B, 2] float32 (dE, strain RMSD)
     recv_perm: np.ndarray    # [E]    int32
     inv_recv_perm: Optional[np.ndarray] = None   # [E] int32, symmetric only
+
+
+class SiamesePair(NamedTuple):
+    """The two towers' batches of the same complexes, slot by slot: the
+    receptor's atoms (``rec``) and the ligand's (``lig``). Labels and the
+    graph mask are the receptor side's."""
+    rec: GraphBatch
+    lig: GraphBatch
+
+    @property
+    def y(self):
+        return self.rec.y
+
+    @property
+    def graph_mask(self):
+        return self.rec.graph_mask
+
+    @property
+    def num_graphs(self) -> int:
+        return self.rec.graph_mask.shape[0]
+
+
+class DenseBatch(NamedTuple):
+    """Zero-padded point clouds, one row per graph slot."""
+    p: np.ndarray            # [B, N, 3] float32 coordinates
+    v: np.ndarray            # [B, N, F] float32 features
+    m: np.ndarray            # [B, N]    float32 (1 = real atom)
+    y: np.ndarray            # [B]       float32
+    graph_mask: np.ndarray   # [B]       float32
+
+    @property
+    def num_graphs(self) -> int:
+        return self.graph_mask.shape[0]
 
 
 @dataclass
@@ -54,6 +95,8 @@ class GraphSample:
     y: np.ndarray             # scalar or [3]
     lig_fname: str = ''
     rec_fname: str = ''
+    dE: float = 0.0
+    rmsd: float = 0.0
 
     @property
     def num_nodes(self) -> int:
@@ -128,6 +171,7 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
     y0 = np.asarray(samples[0].y, np.float32)
     y = np.zeros((num_graphs,) + y0.shape, np.float32)
     graph_mask = np.zeros((num_graphs,), np.float32)
+    strain = np.zeros((num_graphs, 2), np.float32)
 
     n_off = e_off = 0
     for gid, s in enumerate(samples):
@@ -143,6 +187,7 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
         edge_mask[e_off:e_off + e] = 1.0
         y[gid] = np.asarray(s.y, np.float32)
         graph_mask[gid] = 1.0
+        strain[gid] = (s.dE or 0.0, s.rmsd or 0.0)
         n_off += n
         e_off += e
 
@@ -157,12 +202,20 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
         inv_recv_perm[recv_perm] = np.arange(e_pad, dtype=np.int32)
     return GraphBatch(node_feats, coords, node_mask, graph_id, senders,
                       receivers, edge_attr, edge_mask, y, graph_mask,
-                      recv_perm, inv_recv_perm)
+                      strain, recv_perm, inv_recv_perm)
 
 
-def to_device(batch: GraphBatch, device: torch.device) -> GraphBatch:
-    """Host GraphBatch -> tensors on ``device``; to a GPU through pinned
-    memory with non-blocking copies."""
+AnyBatch = Union[GraphBatch, SiamesePair, DenseBatch]
+
+
+def to_device(batch: AnyBatch, device: torch.device) -> AnyBatch:
+    """Host batch -> tensors on ``device`` (a ``SiamesePair`` as its two
+    ``GraphBatch``es); to a GPU through pinned memory with non-blocking
+    copies."""
+    if isinstance(batch, SiamesePair):
+        return SiamesePair(to_device(batch.rec, device),
+                           to_device(batch.lig, device))
+
     def move(a):
         if a is None:
             return None
@@ -170,4 +223,4 @@ def to_device(batch: GraphBatch, device: torch.device) -> GraphBatch:
         if device.type == 'cuda':
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
-    return GraphBatch(*[move(a) for a in batch])
+    return type(batch)(*[move(a) for a in batch])

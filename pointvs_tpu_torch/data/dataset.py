@@ -18,7 +18,11 @@ Counterpart of ``pointvs_tpu/data/dataset.py`` (``PointCloudDataset``):
   (sender, receiver), stably;
 - an in-memory cache of boxed graphs and their features (4 GiB budget) and
   an on-disk cache (``cache_dir``, ``data/blob.py`` files). Augmented items
-  bypass both.
+  bypass both;
+- ``bp``: keep one entity's atoms only (0 the ligand, 1 the receptor)
+  before the edges are built, as the siamese towers' datasets do;
+- ``include_strain_info``: each item carries its types line's dE and
+  strain RMSD (zeros where the line has none); not with augmented actives.
 
 The dataset's own ``RandomState(seed)`` is drawn in the reference's order
 inside ``__getitem__``: the label-noise draw (every classification item),
@@ -96,11 +100,16 @@ class PointCloudDataset:
                  estimate_bonds: bool = False, prune: bool = False,
                  p_remove_entity: float = 0,
                  extended_atom_types: bool = False, p_noise: float = -1,
+                 bp: Optional[int] = None,
+                 include_strain_info: bool = False,
                  cache_dir=None, seed: int = 0):
         if (max_active_rms_distance is None) != (
                 min_inactive_rms_distance is None):
             raise ValueError('max_active_rms_distance and '
                              'min_inactive_rms_distance go together')
+        if include_strain_info and augmented_active_count:
+            raise ValueError('include_strain_info cannot be combined with '
+                             'augmented actives')
         self.base_path = expand_path(base_path)
         if not self.base_path.exists():
             raise FileNotFoundError(f'Dataset {self.base_path} does not '
@@ -116,6 +125,9 @@ class PointCloudDataset:
         self.prune = prune
         self.p_remove_entity = p_remove_entity
         self.p_noise = p_noise
+        self.bp = bp
+        self.include_strain_info = include_strain_info
+        self.dEs, self.rmsds = [], []
         self.extended_atom_types = extended_atom_types
         self.augmented_active_min_angle = augmented_active_min_angle
         self.rng = np.random.RandomState(seed)
@@ -175,10 +187,12 @@ class PointCloudDataset:
                                  else max_inactive_rmsd)
             min_inactive_rmsd = (0 if min_inactive_rmsd is None
                                  else min_inactive_rmsd)
-        entries = parse_classification_types(types_fname)
+        entries = parse_classification_types(
+            types_fname, include_strain_info=self.include_strain_info)
         labels, recs, ligs, aug_recs, aug_ligs = [], [], [], [], []
-        for label, rmsd, rec, lig in zip(entries.labels, entries.rmsds,
-                                         entries.receptors, entries.ligands):
+        for label, rmsd, rec, lig, d_e, strain_rmsd in zip(
+                entries.labels, entries.rmsds, entries.receptors,
+                entries.ligands, entries.dEs, entries.strain_rmsds):
             if label_by_rmsd:
                 if rmsd is None or rmsd < 0:
                     continue
@@ -196,6 +210,8 @@ class PointCloudDataset:
             labels.append(label)
             recs.append(rec)
             ligs.append(lig)
+            self.dEs.append(d_e)
+            self.rmsds.append(strain_rmsd)
         self.pre_aug_ds_len = len(ligs)
         self.receptor_fnames = recs + aug_recs
         self.ligand_fnames = ligs + aug_ligs
@@ -305,9 +321,12 @@ class PointCloudDataset:
 
     def _build_graph(self, lig_path, rec_path, aug_angle: float = 0,
                      rng=None):
-        """(struct, rows, cols, edge_attr) of one complex."""
-        return self._edges_for(self._build_struct(lig_path, rec_path,
-                                                  aug_angle, rng))
+        """(struct, rows, cols, edge_attr) of one complex (of its ``bp``
+        entity alone when that is set)."""
+        struct = self._build_struct(lig_path, rec_path, aug_angle, rng)
+        if self.bp is not None:
+            struct = subset(struct, struct['bp'] == self.bp)
+        return self._edges_for(struct)
 
     def _edges_for(self, struct):
         edge_radius = self.edge_radius if self.edge_radius > 0 else 4
@@ -342,7 +361,7 @@ class PointCloudDataset:
                   self._file_fp(rec_path), self.radius, self.edge_radius,
                   self.estimate_bonds, self.prune, self.polar_hydrogens,
                   self.use_atomic_numbers, self.extended_atom_types,
-                  'torch-lex1')
+                  self.bp, 'torch-lex1')
         digest = hashlib.sha1(repr(params).encode()).hexdigest()[:24]
         return self.cache_dir / f'{digest}.bin'
 
@@ -414,6 +433,11 @@ class PointCloudDataset:
         if self.rot:
             coords = uniform_random_rotation(coords, self.rng).astype(
                 np.float32)
+        d_e = strain_rmsd = 0.0
+        if self.include_strain_info and item < len(self.dEs):
+            d_e = self.dEs[item] or 0.0
+            strain_rmsd = self.rmsds[item] or 0.0
         return GraphSample(node_feats=feats, coords=coords, senders=rows,
                            receivers=cols, edge_attr=attrs, y=label,
-                           lig_fname=str(lig_path), rec_fname=str(rec_path))
+                           lig_fname=str(lig_path), rec_fname=str(rec_path),
+                           dE=float(d_e), rmsd=float(strain_rmsd))

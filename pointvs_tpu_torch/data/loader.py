@@ -1,9 +1,17 @@
 """Batched, prefetching graph loader (counterpart of
-``pointvs_tpu/data/loader.py``, graph layout on one device).
+``pointvs_tpu/data/loader.py`` on one device).
 
-Yields ``(GraphBatch, BatchMeta)`` with ``batch_size`` graph slots per
-batch; a short last batch leaves its spare slots empty
-(``graph_mask == 0``).
+Yields ``(batch, BatchMeta)`` with ``batch_size`` graph slots per batch;
+a short last batch leaves its spare slots empty (``graph_mask == 0``).
+The batch is the model's input layout:
+
+- ``'graph'``: one ``GraphBatch``;
+- ``'pair'``: a ``SiamesePair`` of the receptor-only dataset's
+  ``GraphBatch`` and the ligand-only ``paired_dataset``'s, each padded to
+  its own buckets; both are read at the same indices, the receptor side
+  of the whole batch first;
+- ``'dense'``: a ``DenseBatch``, every graph padded to the bucket of
+  ``DENSE_NODE_BUCKETS`` that holds the batch's largest graph.
 
 - Sampling: in ``mode='train'`` for classification with class weights,
   ``len(dataset)`` draws with replacement by weight; otherwise the items in
@@ -35,10 +43,19 @@ import numpy as np
 from pointvs_tpu_torch.data.buckets import (
     DEFAULT_EDGE_BUCKETS,
     DEFAULT_NODE_BUCKETS,
-    GraphBatch,
+    AnyBatch,
+    SiamesePair,
+    bucket_sizes,
     pad_graphs_to_batch,
+    pick_bucket,
 )
 from pointvs_tpu_torch.data.dataset import PointCloudDataset
+from pointvs_tpu_torch.models.vanilla import dense_collate
+
+# Nodes per graph (not per batch) for the dense layout, on a finer grid:
+# the dense model's work grows with B * N^2.
+DENSE_NODE_BUCKETS = bucket_sizes(64, 8192, ratio=1.3, multiple=64)
+LAYOUTS = ('graph', 'pair', 'dense')
 
 
 class BatchMeta:
@@ -55,13 +72,21 @@ class BatchMeta:
 
 
 class GraphDataLoader:
-    """Iterable over (GraphBatch, BatchMeta) pairs."""
+    """Iterable over (batch, BatchMeta) pairs."""
 
     def __init__(self, dataset: PointCloudDataset, batch_size: int = 32,
                  mode: str = 'train', drop_last: bool = False,
                  prefetch: int = 2, seed: int = 0,
                  node_buckets=DEFAULT_NODE_BUCKETS,
-                 edge_buckets=DEFAULT_EDGE_BUCKETS):
+                 edge_buckets=DEFAULT_EDGE_BUCKETS, layout: str = 'graph',
+                 paired_dataset: PointCloudDataset = None):
+        if layout not in LAYOUTS:
+            raise ValueError(f'unknown layout {layout!r}')
+        if (layout == 'pair') != (paired_dataset is not None):
+            raise ValueError("layout='pair' takes the ligand-side dataset "
+                             'as paired_dataset, and only it does')
+        self.layout = layout
+        self.paired_dataset = paired_dataset
         self.dataset = dataset
         self.batch_size = batch_size
         self.mode = mode
@@ -99,21 +124,34 @@ class GraphDataLoader:
             self.rng.shuffle(idx)
         return idx
 
-    def _produce(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+    def _pad(self, samples):
+        return pad_graphs_to_batch(samples, num_graphs=self.batch_size,
+                                   node_buckets=self.node_buckets,
+                                   edge_buckets=self.edge_buckets)
+
+    def _collate(self, chunk, samples) -> AnyBatch:
+        if self.layout == 'dense':
+            max_len = pick_bucket(max(s.num_nodes for s in samples),
+                                  DENSE_NODE_BUCKETS)
+            return dense_collate(samples, max_len, self.batch_size)
+        if self.layout == 'pair':
+            lig = [self.paired_dataset[int(i)] for i in chunk]
+            return SiamesePair(self._pad(samples), self._pad(lig))
+        return self._pad(samples)
+
+    def _produce(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         indices = self._epoch_indices()
         for start in range(0, len(indices), self.batch_size):
             chunk = indices[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 return
             samples = [self.dataset[int(i)] for i in chunk]
-            batch = pad_graphs_to_batch(samples, num_graphs=self.batch_size,
-                                        node_buckets=self.node_buckets,
-                                        edge_buckets=self.edge_buckets)
+            batch = self._collate(chunk, samples)
             yield batch, BatchMeta([s.lig_fname for s in samples],
                                    [s.rec_fname for s in samples],
                                    batch.y, batch.graph_mask)
 
-    def _prefetched(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+    def _prefetched(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         done = object()
         errors = []
@@ -149,8 +187,10 @@ class GraphDataLoader:
                 except queue.Empty:
                     pass
 
-    def __iter__(self) -> Iterator[Tuple[GraphBatch, BatchMeta]]:
+    def __iter__(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         if self.mode == 'train':
+            # The ligand side of a pair keeps epoch 0, as in the
+            # reference, whose loader sets the receptor dataset's alone.
             self.dataset.set_epoch(self._epochs_started)
             self._epochs_started += 1
         if self._batch_cache is not None:
@@ -181,29 +221,43 @@ def get_data_loader(
         extended_atom_types: bool = False, prefetch: int = 2,
         seed: int = 0, cache_dir=None,
         node_buckets=DEFAULT_NODE_BUCKETS,
-        edge_buckets=DEFAULT_EDGE_BUCKETS) -> GraphDataLoader:
+        edge_buckets=DEFAULT_EDGE_BUCKETS, bp=None,
+        include_strain_info: bool = False,
+        layout: str = 'graph') -> GraphDataLoader:
     """Dataset + loader with the reference's keywords. Unlike the
     reference, ``rot`` defaults to False (the scoring loader's setting) and
-    ``mode`` to ``'val'``; parquet structures only."""
+    ``mode`` to ``'val'``; parquet structures only. ``layout='pair'``
+    builds two datasets of the same types file and seed, the receptor's
+    atoms (bp 1) and the ligand's (bp 0)."""
     if fname_suffix != 'parquet':
         raise NotImplementedError(
             f'fname_suffix={fname_suffix!r}: the port reads parquet '
             f'structures only (see ROADMAP.md, Queue 1)')
-    dataset = PointCloudDataset(
-        data_root, types_fname, radius=radius,
-        polar_hydrogens=polar_hydrogens,
-        use_atomic_numbers=use_atomic_numbers, compact=compact, rot=rot,
-        augmented_active_count=augmented_actives,
-        augmented_active_min_angle=min_aug_angle,
-        max_active_rms_distance=max_active_rms_distance,
-        min_inactive_rms_distance=min_inactive_rms_distance,
-        max_inactive_rms_distance=max_inactive_rms_distance,
-        model_task=model_task, edge_radius=edge_radius,
-        estimate_bonds=estimate_bonds, prune=prune,
-        p_remove_entity=p_remove_entity,
-        extended_atom_types=extended_atom_types, p_noise=p_noise,
-        cache_dir=cache_dir, seed=seed)
+
+    def make_dataset(bp_filter):
+        return PointCloudDataset(
+            data_root, types_fname, radius=radius,
+            polar_hydrogens=polar_hydrogens,
+            use_atomic_numbers=use_atomic_numbers, compact=compact, rot=rot,
+            augmented_active_count=augmented_actives,
+            augmented_active_min_angle=min_aug_angle,
+            max_active_rms_distance=max_active_rms_distance,
+            min_inactive_rms_distance=min_inactive_rms_distance,
+            max_inactive_rms_distance=max_inactive_rms_distance,
+            model_task=model_task, edge_radius=edge_radius,
+            estimate_bonds=estimate_bonds, prune=prune,
+            p_remove_entity=p_remove_entity,
+            extended_atom_types=extended_atom_types, p_noise=p_noise,
+            bp=bp_filter, include_strain_info=include_strain_info,
+            cache_dir=cache_dir, seed=seed)
+
+    paired = None
+    if layout == 'pair':
+        dataset, paired = make_dataset(1), make_dataset(0)
+    else:
+        dataset = make_dataset(bp)
     return GraphDataLoader(dataset, batch_size=batch_size, mode=mode,
                            prefetch=prefetch, seed=seed,
                            node_buckets=node_buckets,
-                           edge_buckets=edge_buckets)
+                           edge_buckets=edge_buckets, layout=layout,
+                           paired_dataset=paired)

@@ -5,6 +5,9 @@
   the first two fields that do not parse as floats are the receptor and
   ligand paths, the float before the receptor is the RMSD, field 0 is the
   label when integral. Two-field lines are ``<receptor> <ligand>``.
+  With ``include_strain_info`` the last two fields, where they parse as
+  floats, are the strain energy dE (capped at 200 by ``min``, as the
+  reference's evident intent) and the strain RMSD.
 - regression: ``<pki> <pkd> <ic50> <receptor> <ligand>`` or just
   ``<receptor> <ligand>``; -1 marks a missing target.
 """
@@ -25,6 +28,8 @@ class ClassificationEntries:
     rmsds: List[Optional[float]] = field(default_factory=list)
     receptors: List[str] = field(default_factory=list)
     ligands: List[str] = field(default_factory=list)
+    dEs: List[Optional[float]] = field(default_factory=list)
+    strain_rmsds: List[Optional[float]] = field(default_factory=list)
 
 
 @dataclass
@@ -44,7 +49,9 @@ def _is_float(chunk: str) -> bool:
         return False
 
 
-def parse_classification_types(types_fname) -> ClassificationEntries:
+def parse_classification_types(types_fname,
+                               include_strain_info: bool = False
+                               ) -> ClassificationEntries:
     out = ClassificationEntries()
     with open(expand_path(types_fname), 'r', encoding='utf-8') as f:
         for line in f:
@@ -52,6 +59,7 @@ def parse_classification_types(types_fname) -> ClassificationEntries:
             if not chunks:
                 continue
             label = rmsd = recpath = ligpath = None
+            d_e = strain_rmsd = None
             if len(chunks) == 2:
                 recpath, ligpath = chunks
             else:
@@ -67,12 +75,20 @@ def parse_classification_types(types_fname) -> ClassificationEntries:
                         rmsd = float(chunks[idx - 1])
                     elif ligpath is None:
                         ligpath = chunk
+                if include_strain_info and len(chunks) >= 2:
+                    if _is_float(chunks[-2]):
+                        d_e = float(chunks[-2])
+                    if _is_float(chunks[-1]):
+                        strain_rmsd = float(chunks[-1])
             if recpath is None or ligpath is None:
                 continue
             out.labels.append(label)
             out.rmsds.append(rmsd)
             out.receptors.append(recpath)
             out.ligands.append(ligpath)
+            strained = include_strain_info and d_e is not None
+            out.dEs.append(min(d_e, 200.0) if strained else None)
+            out.strain_rmsds.append(strain_rmsd if strained else None)
     return out
 
 

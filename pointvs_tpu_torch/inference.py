@@ -3,8 +3,12 @@
 
 Rebuilds the model from a run directory (``.pt`` checkpoint plus
 ``model_kwargs.yaml`` / ``cmd_args.yaml`` sidecars), rebuilds the data
-pipeline from the saved flags, scores every pose and writes
-``<task>_<output_fname>`` into the run directory. ``--model_task`` picks
+pipeline from the saved flags (the layout the model's input kind names:
+graph, receptor/ligand pair or dense), scores every pose and writes
+``<task>_<output_fname>`` into the run directory. A run trained with
+``--include_strain_info`` is scored with the types file's dE, as its own
+validation was; the reference's serving CLI leaves the flag out and
+scores such a model with dE = 0 (ROADMAP.md, Queue 3). ``--model_task`` picks
 the task (``both`` serves as ``classification``); for a multitask run
 directory it also picks the head and the newest checkpoint of that task. Runs on the GPU unless
 ``--device cpu`` is given. ``--num_devices`` is the reference's flag: None
@@ -49,7 +53,8 @@ def get_model_and_test_dl(model_path, test_types, data_root, device,
         estimate_bonds=cmd_args.get('estimate_bonds', False),
         prune=cmd_args.get('prune', False),
         extended_atom_types=cmd_args.get('extended_atom_types', False),
-        model_task=model_task, mode='val')
+        include_strain_info=cmd_args.get('include_strain_info', False),
+        layout=trainer.input_kind, model_task=model_task, mode='val')
     return trainer, loader
 
 

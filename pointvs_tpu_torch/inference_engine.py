@@ -10,9 +10,9 @@ in K3, and its node attention is read by the layer's own ``node_update``;
 the head is the model's ``head(pooled, task)``. It reads the port's
 ``nn.Module`` parameters (the reference state_dict schema) directly: the
 edge MLP, coordinate MLP and attention weights go into the kernel; the
-node side (node MLP, GraphNorm, node attention, residual, pooling, head)
-is the model's own modules, which the reference also leaves outside its
-kernel.
+node side (node MLP, GraphNorm, node attention, residual, pooling with
+the strain input, head) is the model's own modules, which the reference
+also leaves outside its kernel.
 
 Per layer: gathers through ``EdgeAggregator`` (their backward is K1), the
 radial with the detached norm, the edge pass, the coordinate mean, the
@@ -37,7 +37,6 @@ from pointvs_tpu_torch.models.multitask import MultitaskSatorrasEGNN
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward, \
     fused_edge_pass
-from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 
 def supports_fusion(model) -> bool:
@@ -127,9 +126,7 @@ def fused_network(model, batch: GraphBatch, differentiable: bool,
                                             mask=edge_mask)
         h = layer.node_update(h, agg_feats, batch.node_mask, batch.graph_id,
                               num_graphs)
-    pooled = masked_graph_mean_pool(h, batch.graph_id, num_graphs,
-                                    batch.node_mask)
-    return model.head(pooled, task)
+    return model.head(model.pool(h, batch), task)
 
 
 @torch.no_grad()

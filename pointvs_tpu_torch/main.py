@@ -6,9 +6,14 @@ Usage:
         [--test_data_root_pose <root> --test_types_pose <types>] \\
         -ep 1 --layers 3 [--device cpu] [... every flag of the reference]
 
-Models: ``egnn``, ``multitask``, ``lucid`` and ``en_transformer`` (alias
-``lie_transformer``). ``--model_task both`` (multitask only) trains the
-pose phase and then the affinity phase, each followed by its validation.
+Models: ``egnn``, ``multitask``, ``lucid``, ``en_transformer`` (alias
+``lie_transformer``), ``siamese`` (receptor and ligand towers over
+entity-filtered batch pairs) and ``dense_egnn`` (alias ``lie_conv``, over
+zero-padded point clouds); the model's input kind picks the loaders'
+layout. ``--include_strain_info`` reads the types files' dE and strain
+RMSD columns, and the EGNN head takes dE. ``--model_task both``
+(multitask only) trains the pose phase and then the affinity phase, each
+followed by its validation.
 
 Writes the reference's run directory: ``cmd_args.yaml`` (with
 ``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
@@ -49,13 +54,8 @@ def refuse_unported(args) -> None:
          'the device-resident dataset'),
         (args.bf16, '--bf16', 'the bfloat16 feature path'),
         (args.double, '--double', 'float64 training'),
-        (args.include_strain_info, '--include_strain_info',
-         'strain-energy inputs'),
         (args.synthpharm or args.synth_pharm, '--synthpharm',
          'SynthPharmDataset'),
-        (args.model not in MODEL_REGISTRY, f'model {args.model!r}',
-         f'the {model_input_kind(args.model)!r} input layout (the port has '
-         f'{sorted(MODEL_REGISTRY)})'),
         (args.scatter_cap is not None, '--scatter_cap',
          "the TPU kernels' window capacity (the port's segment kernel "
          'has none)'),
@@ -78,6 +78,8 @@ def build_loaders(args):
         fname_suffix=args.input_suffix, edge_radius=args.edge_radius,
         estimate_bonds=args.estimate_bonds, prune=args.prune,
         extended_atom_types=args.extended_atom_types,
+        include_strain_info=args.include_strain_info,
+        layout=model_input_kind(args.model),
         prefetch=args.prefetch, seed=args.seed, cache_dir=args.cache_dir)
     if args.node_bucket:
         dl_kwargs['node_buckets'] = (args.node_bucket,)
@@ -145,6 +147,9 @@ def main(argv=None):
             if hasattr(args, key):
                 setattr(args, key, value)
     refuse_unported(args)
+    if args.model not in MODEL_REGISTRY:
+        raise SystemExit(f'model must be one of {sorted(MODEL_REGISTRY)}, '
+                         f'got {args.model!r}')
     if args.model_task == 'both' and args.model != 'multitask':
         raise RuntimeError(
             'Sequential pose -> affinity training is only compatible with '

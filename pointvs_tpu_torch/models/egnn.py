@@ -14,6 +14,10 @@ into the JAX package unchanged: ``layers.0.m`` embeds the input;
 the GraphNorm), ``coord_mlp.{0,2}``, ``att_mlp.0``, ``node_att_mlp.0`` and
 ``{edge,node}_gate_parameter``; ``feats_linear_layers`` is the head.
 
+``include_strain_info`` appends each graph's strain energy dE (column 0
+of ``batch.strain``) to the pooled embedding, so the head takes k + 1
+inputs (``pool``, which the fused paths share).
+
 Training options: ``dropout`` drops undirected edges (``ops/edge_dropout``,
 from an explicit per-step seed) when the forward is called with
 ``train=True``; ``remat`` recomputes each layer in the backward
@@ -221,8 +225,6 @@ class SartorrasEGNN(nn.Module):
         del scan_layers, model_task
         unsupported = {
             'bf16': (bf16, 'mixed precision'),
-            'include_strain_info': (include_strain_info,
-                                    'strain-energy inputs'),
             'edge_shard_axis': (edge_shard_axis is not None, 'scale-out'),
         }
         for flag, (on, item) in unsupported.items():
@@ -230,6 +232,7 @@ class SartorrasEGNN(nn.Module):
                 raise NotImplementedError(
                     f'{flag} is not in the port yet ({item}; {_ROADMAP})')
         self.num_layers = num_layers
+        self.include_strain_info = include_strain_info
         self.dropout = dropout
         self.remat = remat
         self.permutation_invariance = permutation_invariance
@@ -256,7 +259,11 @@ class SartorrasEGNN(nn.Module):
             dims, acts = (dim_output,), ('identity',)
         if final_softplus:
             acts = acts[:-1] + ('softplus',)
-        self.feats_linear_layers = mlp(k, dims, acts)
+        self.feats_linear_layers = mlp(self.head_inputs(k), dims, acts)
+
+    def head_inputs(self, k: int) -> int:
+        """Width of the pooled features the head reads."""
+        return k + (1 if self.include_strain_info else 0)
 
     def embed(self, batch: GraphBatch, train: bool = False,
               dropout_seed=None) -> torch.Tensor:
@@ -288,6 +295,16 @@ class SartorrasEGNN(nn.Module):
                 else layer(*args))
         return h
 
+    def pool(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        """Masked mean of each graph's node embeddings, with the graph's
+        dE appended under ``include_strain_info``."""
+        pooled = masked_graph_mean_pool(h, batch.graph_id,
+                                        batch.graph_mask.shape[0],
+                                        batch.node_mask)
+        if self.include_strain_info:
+            pooled = torch.cat([pooled, batch.strain[:, :1]], dim=1)
+        return pooled
+
     def head(self, pooled: torch.Tensor, task=None) -> torch.Tensor:
         """The output head on the pooled embeddings (one head here; the
         multitask model picks one by ``task``)."""
@@ -296,8 +313,5 @@ class SartorrasEGNN(nn.Module):
 
     def forward(self, batch: GraphBatch, train: bool = False,
                 dropout_seed=None) -> torch.Tensor:
-        h = self.embed(batch, train, dropout_seed)
-        pooled = masked_graph_mean_pool(h, batch.graph_id,
-                                        batch.graph_mask.shape[0],
-                                        batch.node_mask)
-        return self.head(pooled)
+        return self.head(self.pool(self.embed(batch, train, dropout_seed),
+                                   batch))

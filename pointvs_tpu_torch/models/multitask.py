@@ -9,7 +9,8 @@ so a checkpoint trained on one task continues on the other. The
 first-only and final-only switches give edge or node attention to the
 first or the last layer alone (``_apply_switch``); a layer without
 attention takes the plain aggregation (K1), one with it the attention
-kernel (K2), as in ``models/egnn.py``.
+kernel (K2), as in ``models/egnn.py``. ``include_strain_info`` widens
+both heads by the appended dE, as in the trunk's ``pool``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ import torch
 from pointvs_tpu_torch.data.buckets import GraphBatch
 from pointvs_tpu_torch.models.egnn import EGNNLayer, SartorrasEGNN
 from pointvs_tpu_torch.models.layers import mlp
-from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 
 def _apply_switch(enabled: bool, first_only: bool, final_only: bool,
@@ -67,9 +67,10 @@ class MultitaskSatorrasEGNN(SartorrasEGNN):
                 self.layers[i + 1] = EGNNLayer(
                     k, **dict(base, edge_attention=edge,
                               node_attention=node))
-        self.feats_linear_layers_pose = mlp(k, (1,), ('identity',))
+        width = self.head_inputs(k)
+        self.feats_linear_layers_pose = mlp(width, (1,), ('identity',))
         self.feats_linear_layers_affinity = mlp(
-            k, (dim_output,), ('softplus' if final_softplus else 'relu',))
+            width, (dim_output,), ('softplus' if final_softplus else 'relu',))
 
     def head(self, pooled: torch.Tensor, task=None) -> torch.Tensor:
         if 'classification' in (task or 'classification'):
@@ -79,8 +80,5 @@ class MultitaskSatorrasEGNN(SartorrasEGNN):
     def forward(self, batch: GraphBatch, train: bool = False,
                 dropout_seed=None,
                 task: str = 'classification') -> torch.Tensor:
-        h = self.embed(batch, train, dropout_seed)
-        pooled = masked_graph_mean_pool(h, batch.graph_id,
-                                        batch.graph_mask.shape[0],
-                                        batch.node_mask)
-        return self.head(pooled, task)
+        return self.head(self.pool(self.embed(batch, train, dropout_seed),
+                                   batch), task)

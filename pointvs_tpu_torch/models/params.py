@@ -8,9 +8,13 @@ inverse of the JAX package's ``_satorras_flat`` and ``_lucid_flat``: it
 carries a JAX parameter tree (numpy arrays; the unrolled ``*_layer_{i}``
 or the scan-stacked ``*_scan`` layout) of ``SartorrasEGNN``,
 ``MultitaskSatorrasEGNN`` (heads ``feats_linear_layers_pose`` /
-``_affinity``) or ``LucidEGNN`` into the reference schema, and one of
-``EnTransformer``, which has no reference schema, into the port's keys
-(the JAX module names: ``tf_layer_{i}.q_proj``, ...).
+``_affinity``) or ``LucidEGNN`` into the reference schema, and one of the
+families without a reference schema into the port's own keys:
+``EnTransformer`` (the JAX module names: ``tf_layer_{i}.q_proj``, ...),
+``SiameseEGNN`` (``rec_tower.`` / ``lig_tower.`` before each tower's
+egnn keys, ``head.{0,2,4}``) and ``DenseEGNN`` (``input_embed``,
+``dense_layers.{i}.{edge,node,coord}_mlp.{0,2}``, ``head``). The family is
+read from the tree's top-level names; a name no family has raises.
 """
 from __future__ import annotations
 
@@ -127,10 +131,14 @@ def _layer_key(rel: Tuple[str, ...], dense, raw) -> str:
 
 
 def _family(inner) -> str:
+    if {'rec_tower', 'lig_tower'} & set(inner):
+        return 'siamese'
+    if any(key.startswith('dense_layer_') for key in inner):
+        return 'dense'
     for name, (prefix, scan, *_rest) in _FAMILIES.items():
         if any(key == scan or key.startswith(prefix) for key in inner):
             return name
-    return 'egnn'
+    return 'egnn'   # a tree of no layers: the input embedding and head
 
 
 def _top_key(family: str, path) -> str:
@@ -143,27 +151,76 @@ def _top_key(family: str, path) -> str:
     if head == 'head':
         if family == 'lucid':     # one flax Dense
             return f'feats_linear_layers.0.{_leaf_name(path)}'
-        m = int(path[1].rsplit('_', 1)[1])
         module = 'head' if family == 'en_transformer' \
             else 'feats_linear_layers'
-        return f'{module}.{2 * m}.{_leaf_name(path)}'
+        return f'{module}.{_linear_index(path[1])}.{_leaf_name(path)}'
     if path[:-1] in _TOP:
         return f'{_TOP[path[:-1]]}.{_leaf_name(path)}'
     raise KeyError(f'unexpected parameter {"/".join(path)}')
 
 
+def _put(sd, key, path, value):
+    # flax Dense kernels are [in, out]; torch Linear weights [out, in].
+    sd[key] = value.T if path[-1] == 'kernel' else value
+
+
+def _linear_index(scope: str) -> int:
+    """Sequential index of ``TorchLinear_{m}`` in the port's MLPs, whose
+    activations sit between the Linears."""
+    return 2 * int(scope.rsplit('_', 1)[1])
+
+
+def _siamese_tree(inner) -> Dict[str, np.ndarray]:
+    extra = set(inner) - {'rec_tower', 'lig_tower', 'head'}
+    if extra:
+        raise KeyError(f'unexpected siamese parameters {sorted(extra)}')
+    sd = {}
+    for tower in ('rec_tower', 'lig_tower'):
+        sd.update({f'{tower}.{key}': value
+                   for key, value in _graph_tree(inner[tower]).items()})
+    for path, value in _flat(inner['head']):
+        _put(sd, f'head.{_linear_index(path[0])}.{_leaf_name(path)}', path,
+             value)
+    return sd
+
+
+def _dense_tree(inner) -> Dict[str, np.ndarray]:
+    sd = {}
+    for path, value in _flat(inner):
+        head = path[0]
+        if head in ('input_embed', 'head') and path[1:-1] == ('Dense_0',):
+            key = head
+        elif (head.startswith('dense_layer_') and len(path) == 5
+              and path[1] in ('edge_mlp', 'node_mlp', 'coord_mlp')
+              and path[3] == 'Dense_0'):
+            key = (f'dense_layers.{int(head[len("dense_layer_"):])}.'
+                   f'{path[1]}.{_linear_index(path[2])}')
+        else:
+            raise KeyError(f'unexpected parameter {"/".join(path)}')
+        _put(sd, f'{key}.{_leaf_name(path)}', path, value)
+    return sd
+
+
 def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
-    """JAX params of a graph-input family (``{'params': ...}`` or the
-    inner tree, as numpy or jax arrays) -> the port's state_dict (the
-    reference schema where there is one)."""
+    """JAX params of any family (``{'params': ...}`` or the inner tree, as
+    numpy or jax arrays) -> the port's state_dict (the reference schema
+    where there is one)."""
     inner = params['params'] if 'params' in params else params
+    family = _family(inner)
+    tree = {'siamese': _siamese_tree, 'dense': _dense_tree}.get(
+        family, _graph_tree)
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in tree(inner).items()}
+
+
+def _graph_tree(inner) -> Dict[str, np.ndarray]:
+    """A graph-input family's tree -> port keys and numpy arrays."""
     family = _family(inner)
     prefix, scan, layer_fmt, first, dense, raw = _FAMILIES[family]
     sd: Dict[str, np.ndarray] = {}
 
     def put(key, path, value):
-        # flax Dense kernels are [in, out]; torch Linear weights [out, in].
-        sd[key] = value.T if path[-1] == 'kernel' else value
+        _put(sd, key, path, value)
 
     for path, value in _flat(inner):
         head = path[0]
@@ -177,8 +234,7 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
                 put(f'{layer_fmt.format(i + first)}.{key}', path, value[i])
         else:
             put(_top_key(family, path), path, value)
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+    return sd
 
 
 def load_reference_checkpoint(path) -> Tuple[Dict, Dict]:

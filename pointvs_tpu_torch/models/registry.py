@@ -1,10 +1,11 @@
 """Model registry and kwarg filtering (counterpart of
 ``pointvs_tpu/models/registry.py``).
 
-The port has the families whose input is a ``GraphBatch``. ``siamese``
-(a receptor/ligand pair) and ``lie_conv`` / ``dense_egnn`` (a dense
-batch) need collations the port does not have yet, and ``build_model``
-refuses them by name.
+Every family of the reference: those whose input is a ``GraphBatch``
+(``egnn``, ``lucid``, ``multitask``, ``en_transformer`` /
+``lie_transformer``), ``siamese`` (a ``SiamesePair`` of receptor and
+ligand batches) and ``lie_conv`` / ``dense_egnn`` (a ``DenseBatch``).
+``model_input_kind`` names the input, which picks the loader's layout.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from pointvs_tpu_torch.models.egnn import SartorrasEGNN
 from pointvs_tpu_torch.models.en_transformer import EnTransformer
 from pointvs_tpu_torch.models.lucid import LucidEGNN
 from pointvs_tpu_torch.models.multitask import MultitaskSatorrasEGNN
+from pointvs_tpu_torch.models.siamese import SiameseEGNN
+from pointvs_tpu_torch.models.vanilla import DenseEGNN
 
 MODEL_REGISTRY = {
     'egnn': SartorrasEGNN,
@@ -23,6 +26,10 @@ MODEL_REGISTRY = {
     'en_transformer': EnTransformer,
     # The reference's lie_transformer niche, served by the same design.
     'lie_transformer': EnTransformer,
+    'siamese': SiameseEGNN,
+    # The reference's LieConv niche, served by the dense all-pairs EGNN.
+    'lie_conv': DenseEGNN,
+    'dense_egnn': DenseEGNN,
 }
 
 # What the model's forward consumes: 'graph' = GraphBatch, 'pair' = two
@@ -64,8 +71,7 @@ def filter_model_kwargs(model_cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
 def build_model(model_name: str, **model_kwargs):
     if model_name not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f'model {model_name!r} is not in the port yet (it has '
-            f'{sorted(MODEL_REGISTRY)}; the {model_input_kind(model_name)!r} '
-            f'input layout and other families: see ROADMAP.md, Queue 1)')
+            f'model must be one of {sorted(MODEL_REGISTRY)}, got '
+            f'{model_name!r}')
     model_cls = MODEL_REGISTRY[model_name]
     return model_cls(**filter_model_kwargs(model_cls, model_kwargs))

@@ -7,8 +7,11 @@ global weight; the optimiser then clips by value, adds the coupled weight
 decay and steps at the learning rate the caller passes in (computed on the
 host from a schedule, as the reference passes it into its step).
 
-The reference's wire, packed and device-id batch forms and its ('dp',)
-mesh are not in the port yet (ROADMAP.md, Queue 1).
+Both steps take any of the model inputs (``GraphBatch``, ``SiamesePair``,
+``DenseBatch``); the loss and metrics read ``batch.y`` and
+``batch.graph_mask``. The fused path is the EGNN families' only. The
+reference's wire, packed and device-id batch forms and its ('dp',) mesh
+are not in the port yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 ``pointvs_tpu/resume_training.py``).
 
 Rebuilds the loaders from the run's ``cmd_args.yaml`` (the reference's
-defaults for keys an older run did not write), restores the weights, the
+defaults for keys an older run did not write; the layout from the run's
+model), restores the weights, the
 optimiser state and the epoch counters, and continues the pose and then
 the affinity phase from the saved epochs. A multitask ``--model_task
 both`` run resumes from its newest checkpoint of either task, whose
@@ -24,7 +25,7 @@ LOG = get_logger()
 # Flags an older run's cmd_args.yaml may lack, with their defaults.
 _DEFAULTS = (('prefetch', 2), ('seed', 2), ('cache_dir', None),
              ('p_noise', -1), ('p_remove_entity', 0), ('node_bucket', None),
-             ('edge_bucket', None))
+             ('edge_bucket', None), ('include_strain_info', False))
 
 
 def main(argv=None):

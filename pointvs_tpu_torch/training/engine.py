@@ -22,7 +22,10 @@ into ``<save_path>/profile``. On a GPU every step is bracketed by CUDA
 events (``step_ms``); ``epoch_seconds`` holds each epoch's wall time.
 
 ``train_model`` takes any loader that yields ``(batch, meta)`` and has a
-``len()``.
+``len()``; the batch is the model's input kind (``input_kind``: a
+``GraphBatch``, a ``SiamesePair`` or a ``DenseBatch``), whose ``y`` and
+``graph_mask`` the losses and metrics read (a pair's are its receptor
+side's), and ``meta`` names each slot's files.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from pointvs_tpu_torch.analysis.top_n import regression_pearson, top_n
 from pointvs_tpu_torch.data.buckets import to_device
 from pointvs_tpu_torch.models.layers import init_parameters
 from pointvs_tpu_torch.models.params import load_reference_checkpoint
-from pointvs_tpu_torch.models.registry import build_model
+from pointvs_tpu_torch.models.registry import build_model, \
+    model_input_kind
 from pointvs_tpu_torch.parallel.steps import make_eval_step, \
     make_train_step
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
@@ -95,6 +99,8 @@ class Trainer:
         self.model_name = model_name
         # The multitask model takes the task (its head) in every step.
         self.multitask = model_name == 'multitask'
+        # 'graph', 'pair' or 'dense': the batches the model takes.
+        self.input_kind = model_input_kind(model_name)
         self.model = build_model(model_name, **model_kwargs)
         init_parameters(self.model, torch.Generator().manual_seed(seed))
         self.model.to(device).eval()

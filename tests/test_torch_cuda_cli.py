@@ -8,7 +8,8 @@ for 2 epochs at batch 2 on a 12-line types file over the test complexes
 with mixed labels (weighted sampling) and one augmented copy of each
 active; the GPU run's per-step losses must be within the trajectory gate
 (atol 1e-4, rtol 1e-5) of the CPU run's, and its launches must show K2
-in every layer of every step.
+in every layer of every step. The siamese, dense (``lie_conv``) and
+strain-input CLIs run the same way at 2 layers, 4 steps.
 """
 from pathlib import Path
 
@@ -57,3 +58,40 @@ def test_cli_on_the_gpu_matches_the_cpu(tmp_path, cuda_device):
     assert counts['segment_sum_sorted'] >= LAYERS * steps
     np.testing.assert_allclose(gpu.train_losses, cpu.train_losses,
                                atol=1e-4, rtol=1e-5)
+
+
+# The siamese and dense families and the strain input: each CLI run on
+# the card against the same command on the CPU, within the trajectory
+# gate; the scores of the final validation within 1e-4.
+FAMILIES = {
+    'siamese': ('siamese', ['--egnn_attention', '--softmax_attention']),
+    'lie_conv': ('lie_conv', ['--egnn_normalise', '--egnn_residual']),
+    'strain': ('egnn', ['--include_strain_info', '--egnn_attention',
+                        '--softmax_attention']),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(FAMILIES))
+def test_family_cli_on_the_gpu_matches_the_cpu(tmp_path, cuda_device, name):
+    del cuda_device
+    model, flags = FAMILIES[name]
+    pairs = ('rec_0.parquet lig_0.parquet', 'rec.parquet lig.parquet')
+    types = tmp_path / 'train.types'
+    types.write_text(''.join(f'{int(i % 3 == 0)} -1 {0.5 + i:.1f} '
+                             f'{pairs[i % 2]} {1.5 * i:.2f} 0.3\n'
+                             for i in range(8)))
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        argv = [model, str(tmp_path / device), '--train_data_root_pose',
+                str(RESOURCES), '--train_types_pose', str(types),
+                '--test_data_root_pose', str(RESOURCES), '--test_types_pose',
+                str(types), '--layers', '2', '-k', '16', '--compact', '-b',
+                '2', '-ep', '1', '--radius', '4', '--estimate_bonds',
+                '--device', device] + flags
+        runs[device] = train_main(argv)
+    gpu, cpu = runs['cuda'], runs['cpu']
+    assert len(gpu.train_losses) == 4
+    np.testing.assert_allclose(gpu.train_losses, cpu.train_losses,
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(gpu.val_scores, cpu.val_scores, atol=1e-4)

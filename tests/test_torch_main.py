@@ -187,12 +187,8 @@ REFUSED = {
     'device_cache_on': ['--device_cache', 'on'],
     'bf16': ['--bf16'],
     'double': ['--double'],
-    'include_strain_info': ['--include_strain_info'],
     'synthpharm': ['--synthpharm'],
     'synth_pharm': ['--synth_pharm'],
-    # Models whose input is not a GraphBatch (a model name, not a flag).
-    'model_siamese': 'siamese',
-    'model_dense_egnn': 'dense_egnn',
     'scatter_cap': ['--scatter_cap', '64'],
 }
 
@@ -203,11 +199,8 @@ def test_refused_flags_raise_by_name(tmp_path, name):
     argv = ['egnn', str(save), '--train_data_root_pose', str(RESOURCES),
             '--train_types_pose', str(RESOURCES / 'test.types'),
             '--device', 'cpu']
-    extra = REFUSED[name]
-    if isinstance(extra, str):
-        argv[0], extra = extra, []
     with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
-        port_main(argv + extra)
+        port_main(argv + REFUSED[name])
     assert not save.exists()
 
 
