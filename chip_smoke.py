@@ -123,6 +123,31 @@ its peak memory is printed) and the README model with
 ``--include_strain_info`` on the strain types file, on the module path
 and through K3.
 
+Phase 5 also serves the README model and the multitask model with
+``--bf16`` (bf16 feature MLPs, K2 in f32: 6 launches a batch), and the
+bf16 README model through ``make_eval_step(use_fused=True)``, which takes
+the module path as the reference does (no K3); bf16 scores against the
+CPU's within ``BF16_SCORE_GATE``. Then:
+
+12. bf16: 5 ``Trainer`` steps of the README model with ``bf16`` on the
+   card and on the CPU (module path; K2 6 a step in f32, no K3/K4),
+   the trajectories within ``BF16_TRAJ_GATE``; ``main egnn --bf16`` with
+   the README flags at batch 32 for one epoch on the card and the CPU,
+   then ``resume_training`` of the card's run to epoch 2; and a 48-layer
+   k=32 EGNN (module path, batch 32) trained a few steps in bf16 and in
+   f32: step ms by CUDA events and ``max_memory_allocated`` of each, the
+   reference's claim that bf16 halves activation memory at depth measured
+   on this card;
+13. SynthPharm: ``main egnn --synthpharm --compact`` with the README
+   flags, batch 32, one epoch, on a synthetic-pharmacophore copy of the
+   pose set (each ligand atom's ``type`` an atomic number of the nine
+   pharmacophore classes, each pocket atom's a class 0-2, drawn from the
+   seed), on the card and the CPU within the trajectory gate, launches
+   per step printed;
+14. ``--double`` on the card: ``python -m pointvs_tpu_torch.main ...
+   --double`` exits non-zero naming ``--device cpu`` and leaves no run
+   directory.
+
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -152,6 +177,11 @@ K4_SOURCE = 'pointvs_tpu_torch/ops/csrc/fused_egnn_bwd.cu'
 K4_REPLACES = 'pointvs_tpu/ops/pallas/fused_egnn_bwd.py:260'
 TOL = dict(atol=1e-5, rtol=1e-5)
 TRAJ_TOL = dict(atol=1e-4, rtol=1e-5)   # the JAX suite's trajectory gate
+# --bf16 on the card against the CPU: both devices' bf16 GEMMs accumulate
+# in f32 but in different orders, so a product may round to the next bf16
+# value; scores (probabilities) and losses are held within these.
+BF16_SCORE_GATE = 1e-2
+BF16_TRAJ_GATE = 1e-2      # relative, per loss
 
 
 class PhaseError(RuntimeError):
@@ -681,6 +711,7 @@ FINAL_ONLY_6L = dict(MULTITASK_6L, edge_attention_final_only=True)
 # residual, normalise, tanh, no distance cutoff).
 DENSE_6L = dict(num_layers=6)
 STRAIN_6L = dict(README_6L, include_strain_info=True)
+README_6L_BF16 = dict(README_6L, bf16=True)
 # name -> (model, flags, task, fused, launches per batch by kernel,
 # offset computations per batch). Every other kernel must not launch.
 SERVING = {
@@ -734,6 +765,17 @@ SERVING = {
     'strain_readme_6l_fused': ('egnn', STRAIN_6L, None, True,
                                {'fused_edge_forward': 6,
                                 'segment_sum_sorted': 6}, 1),
+    # --bf16: the feature MLPs in bf16, K2 in f32. The fused request of a
+    # bf16 model takes the module path (the reference's supports_fusion
+    # rejects bf16): K2, no K3.
+    'readme_softmax_6l_bf16': ('egnn', README_6L_BF16, None, False,
+                               {'softmax_aggregate_sorted': 6}, 1),
+    'readme_softmax_6l_bf16_fused': ('egnn', README_6L_BF16, None, True,
+                                     {'softmax_aggregate_sorted': 6}, 1),
+    'multitask_readme_6l_bf16': ('multitask',
+                                 dict(MULTITASK_6L, bf16=True),
+                                 'classification', False,
+                                 {'softmax_aggregate_sorted': 6}, 1),
 }
 MODEL_KWARGS = dict(dim_input=12, k=32, dim_output=1, residual=True,
                     normalize=True, tanh=True, graphnorm=True,
@@ -885,7 +927,7 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
     from pointvs_tpu_torch import inference
     from pointvs_tpu_torch.inference_engine import fused_forward
     from pointvs_tpu_torch.ops import segment_kernels as sk
-    launches, module_scores = {}, {}
+    launches, module_scores, forward_ms = {}, {}, {}
     batches = -(-n_poses // 32)
     strain_types = write_strain_types(np, types, SEED + 3)
     for name, (model, flags, task, fused, per_batch, offsets) in \
@@ -929,7 +971,8 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
                                              '--device', 'cpu'])
         cpu = cpu_trainer.val_scores
         diff = float(np.abs(gpu - cpu).max())
-        check(diff <= 1e-4, f'{name}: GPU and CPU scores differ by {diff}')
+        gate = BF16_SCORE_GATE if flags.get('bf16') else 1e-4
+        check(diff <= gate, f'{name}: GPU and CPU scores differ by {diff}')
         extra = ''
         if model == 'dense_egnn':
             extra = dense_logits_check(torch, np, trainer, cpu_trainer,
@@ -951,6 +994,7 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         fwd, sizes, profiled = forward_profile(torch, trainer, loader,
                                                forward)
         launches[name] = counts
+        forward_ms[name] = fwd
         if model == 'dense_egnn':
             b, n = sizes[0][1:]
             extra += (f' peak_memory={peak:.3f} GiB (max_memory_allocated '
@@ -966,6 +1010,11 @@ def phase_serving(torch, np, root: Path, types: Path, n_poses: int):
         print_profile(f'{name} one forward', profiled,
                       [('K3', 'fused_edge_forward')] + SEGMENT_SHARES
                       if fused else SEGMENT_SHARES)
+    for name in ('readme_softmax_6l', 'multitask_readme_6l'):
+        print(f'serving: {name}: forward_ms_per_batch f32 '
+              f'{forward_ms[name]:.3f}, bf16 '
+              f'{forward_ms[name + "_bf16"]:.3f} (median by CUDA events, '
+              f'this call)')
     return launches
 
 
@@ -1644,6 +1693,249 @@ def phase_strain_fused(torch, np, root: Path):
     return fused
 
 
+# ---------------------------------------------------------------- 12
+DEEP_LAYERS = 48
+
+
+def _deep_step(torch, np, trainer, batch):
+    """(median step ms of 5 by CUDA events after 2 warm-up steps, peak
+    memory of one step in GiB above what the model, its optimiser state
+    and the batch hold, the last loss)."""
+    from pointvs_tpu_torch.parallel.steps import make_train_step
+    step = make_train_step(trainer.model, trainer.optimiser,
+                           'classification')
+    for _ in range(2):
+        step(batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, loss = [], None
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(batch, TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    return statistics.median(times), peak, float(loss)
+
+
+def phase_bf16(torch, np, root: Path, types: Path, n_poses: int,
+               card: str):
+    """--bf16 training: the README model's Trainer steps on the card
+    against the CPU, the CLI and its resume, and the 48-layer model's
+    step time and memory in bf16 against f32."""
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.resume_training import main as resume_main
+    from pointvs_tpu_torch.training.engine import Trainer
+    _, loader = inference.get_model_and_test_dl(
+        str(root / 'readme_softmax_6l'), str(types), str(root / 'data'),
+        torch.device('cpu'), batch_size=32)
+    host = list(loader)
+    steps = [host[i % len(host)] for i in range(TRAIN_STEPS)]
+    kwargs = dict(MODEL_KWARGS, **README_6L_BF16)
+    losses, counts = {}, {}
+    for device in ('cuda', 'cpu'):
+        trainer = Trainer('egnn', root / f'bf16_train_{device}',
+                          torch.device(device), learning_rate=TRAIN_LR,
+                          weight_decay=1e-4, seed=SEED, **kwargs)
+        sk.reset_launch_counts()
+        trainer.train_model(steps, epochs=1)
+        counts[device] = sk.launch_counts()
+        losses[device] = np.asarray(trainer.train_losses)
+        check(np.isfinite(losses[device]).all() and all(
+            p.dtype == torch.float32 for p in trainer.model.parameters()),
+            f'bf16 Trainer on {device}: losses {losses[device]}')
+        if device == 'cuda':
+            ms = np.asarray(trainer.step_ms())
+    gpu, expect = counts['cuda'], 6 * TRAIN_STEPS
+    check(gpu['softmax_aggregate_sorted'] == expect
+          and gpu['segment_sum_sorted'] >= expect
+          and gpu['fused_edge_forward'] == gpu['fused_edge_backward'] == 0
+          and not any(counts['cpu'].values()),
+          f'bf16 Trainer launches {counts}: expected K2 = {expect}, K1 >= '
+          f'{expect}, no K3/K4, none on the CPU')
+    rel = float((np.abs(losses['cuda'] - losses['cpu'])
+                 / np.abs(losses['cpu'])).max())
+    check(rel <= BF16_TRAJ_GATE,
+          f'bf16 Trainer: GPU and CPU trajectories differ by {rel:.3g} '
+          f'(relative)')
+    print(f'bf16 Trainer: {card}: {TRAIN_STEPS} steps of the README model, '
+          f'launches {gpu}; losses {losses["cuda"].tolist()}; max relative '
+          f'|gpu - cpu| loss {rel:.3e}; step_ms {ms.round(3).tolist()} '
+          f'(CUDA events)')
+
+    data = str(types.parent)
+    flags = [f for f in README_FLAGS if f not in ('-ep', '2')]
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        argv = ['egnn', str(root / f'bf16_cli_{device}'),
+                '--train_data_root_pose', data, '--train_types_pose',
+                str(types), '--test_data_root_pose', data,
+                '--test_types_pose', str(types)] + INPUT_FLAGS + flags + [
+                    '-ep', '1', '--bf16', '--device', device]
+        sk.reset_launch_counts()
+        runs[device] = train_main(argv)
+        if device == 'cuda':
+            cli_counts = sk.launch_counts()
+    gpu_run, cpu_run = runs['cuda'], runs['cpu']
+    n_steps = len(gpu_run.train_losses)
+    forwards = n_steps + -(-n_poses // 32)
+    check(gpu_run.model.bf16 and n_steps > 0
+          and cli_counts['softmax_aggregate_sorted'] == 6 * forwards
+          and cli_counts['fused_edge_forward'] == 0
+          and cli_counts['fused_edge_backward'] == 0,
+          f'main --bf16: launches {cli_counts} for {n_steps} steps and '
+          f'{forwards - n_steps} validation batches')
+    cli_rel = float((np.abs(np.subtract(gpu_run.train_losses,
+                                        cpu_run.train_losses))
+                     / np.abs(cpu_run.train_losses)).max())
+    score_diff = float(np.abs(gpu_run.val_scores - cpu_run.val_scores).max())
+    check(cli_rel <= BF16_TRAJ_GATE and score_diff <= BF16_SCORE_GATE,
+          f'main --bf16: GPU and CPU differ by {cli_rel:.3g} (losses, '
+          f'relative), {score_diff:.3g} (scores)')
+    run = root / 'bf16_cli_cuda'
+    cmd_args = (run / 'cmd_args.yaml').read_text()
+    check('epochs_pose: 1' in cmd_args, 'cmd_args.yaml lacks epochs_pose')
+    (run / 'cmd_args.yaml').write_text(
+        cmd_args.replace('epochs_pose: 1', 'epochs_pose: 2'))
+    resumed = resume_main([str(run)])
+    check(resumed.p_epoch == 2 and resumed.model.bf16
+          and np.isfinite(resumed.train_losses).all(),
+          f'resume of the bf16 run: p_epoch {resumed.p_epoch}')
+    cli_ms = np.asarray(gpu_run.step_ms())
+    print(f'bf16 CLI: {card}: main egnn --bf16 (README flags, batch 32, 1 '
+          f'epoch): {n_steps} steps, launches {cli_counts}; max relative '
+          f'|gpu - cpu| loss {cli_rel:.3e}, max|gpu - cpu| score '
+          f'{score_diff:.3e}; step_ms {cli_ms.round(3).tolist()}; resumed '
+          f'to p_epoch {resumed.p_epoch}, losses {resumed.train_losses}')
+
+    batch = to_device(host[0][0], torch.device('cuda'))
+    deep = {}
+    for bf16 in (False, True):
+        trainer = Trainer('egnn', root / f'deep_{bf16}', torch.device('cuda'),
+                          learning_rate=TRAIN_LR, weight_decay=1e-4,
+                          seed=SEED, silent=True,
+                          **dict(MODEL_KWARGS, **dict(
+                              README_6L, num_layers=DEEP_LAYERS,
+                              bf16=bf16)))
+        deep[bf16] = _deep_step(torch, np, trainer, batch)
+        del trainer
+        torch.cuda.empty_cache()
+    check(all(np.isfinite(v[2]) for v in deep.values()),
+          f'deep model losses {deep}')
+    (f32_ms, f32_gib, _), (bf_ms, bf_gib, _) = deep[False], deep[True]
+    print(f'bf16 deep: {card}: {DEEP_LAYERS}-layer k=32 README model, '
+          f'module path, batch of 32 poses: step_ms f32 {f32_ms:.3f} bf16 '
+          f'{bf_ms:.3f} (median of 5, CUDA events); activation memory '
+          f'(max_memory_allocated in a step above the model, optimiser '
+          f'state and batch) f32 {f32_gib:.3f} GiB bf16 {bf_gib:.3f} GiB, '
+          f'bf16/f32 {bf_gib / f32_gib:.3f}; losses f32 {deep[False][2]:.6f} '
+          f'bf16 {deep[True][2]:.6f}')
+    return gpu
+
+
+# ---------------------------------------------------------------- 13
+SYNTH_PHARM_ATOMIC_NUMBERS = (6, 7, 8, 9, 15, 16, 17, 35, 53)
+
+
+def write_synthpharm_set(np, data: Path, types: Path) -> Path:
+    """A synthetic-pharmacophore copy of the pose set: every pose's ligand
+    with a ``type`` drawn from the nine atomic numbers, and the pocket
+    (receptor atoms within 10 A of the test ligand, the box the pose set
+    is featurised with) with a ``type`` of 0, 1 or 2, from the seed."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(SEED + 4)
+    out = data.parent / 'synthpharm'
+    out.mkdir()
+
+    def xyz(table):
+        return np.stack([table.column(c).to_numpy() for c in 'xyz'], 1)
+
+    rec = pq.read_table(data / 'rec_0.parquet')
+    lig0 = xyz(pq.read_table(RESOURCES / 'lig_0.parquet'))
+    dist = np.sqrt(((xyz(rec)[:, None] - lig0[None]) ** 2).sum(-1))
+    rec = rec.take(np.where((dist < 10).any(1))[0])
+
+    def write(table, kinds, bp, path):
+        cols = {c: table.column(c) for c in 'xyz'}
+        cols['type'] = pa.array(kinds.astype(np.int64))
+        cols['bp'] = pa.array(np.full(table.num_rows, bp, np.int64))
+        pq.write_table(pa.table(cols), path)
+
+    write(rec, rng.integers(0, 3, rec.num_rows), 1, out / 'rec_0.parquet')
+    for line in types.read_text().splitlines():
+        lig_name = line.split()[-1]
+        lig = pq.read_table(data / lig_name)
+        write(lig, rng.choice(SYNTH_PHARM_ATOMIC_NUMBERS, lig.num_rows), 0,
+              out / lig_name)
+    (out / 'sp.types').write_text(types.read_text())
+    return out / 'sp.types'
+
+
+def phase_synthpharm(torch, np, root: Path, types: Path, card: str):
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    sp_types = write_synthpharm_set(np, types.parent, types)
+    data = str(sp_types.parent)
+    flags = [f for f in README_FLAGS if f not in ('-ep', '2')]
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        argv = ['egnn', str(root / f'sp_{device}'), '--train_data_root_pose',
+                data, '--train_types_pose', str(sp_types),
+                '--test_data_root_pose', data, '--test_types_pose',
+                str(sp_types), '--synthpharm'] + INPUT_FLAGS + flags + [
+                    '-ep', '1', '--device', device]
+        sk.reset_launch_counts()
+        runs[device] = train_main(argv)
+        if device == 'cuda':
+            counts = sk.launch_counts()
+    gpu, cpu = runs['cuda'], runs['cpu']
+    steps = len(gpu.train_losses)
+    val = -(-len(sp_types.read_text().splitlines()) // 32)
+    check(steps > 0 and np.isfinite(gpu.train_losses).all()
+          and counts['softmax_aggregate_sorted'] == 6 * (steps + val)
+          and counts['fused_edge_forward'] == 0,
+          f'synthpharm: launches {counts} for {steps} steps and {val} '
+          f'validation batches')
+    diff = float(np.abs(np.subtract(gpu.train_losses,
+                                    cpu.train_losses)).max())
+    check(np.allclose(gpu.train_losses, cpu.train_losses, **TRAJ_TOL),
+          f'synthpharm: GPU and CPU trajectories differ by {diff}')
+    ms = np.asarray(gpu.step_ms())
+    print(f'synthpharm CLI: {card}: main egnn --synthpharm --compact (README '
+          f'flags, batch 32, 1 epoch): {steps} steps, {val} validation '
+          f'batches, launches {counts} ('
+          f'{counts["softmax_aggregate_sorted"] / (steps + val):.1f} K2 and '
+          f'{counts["segment_sum_sorted"] / steps:.1f} K1 a batch); losses '
+          f'{gpu.train_losses}; max|gpu - cpu| loss {diff:.3e}; step_ms '
+          f'{ms.round(3).tolist()} (CUDA events)')
+    return counts
+
+
+# ---------------------------------------------------------------- 14
+def phase_double_refused(root: Path, types: Path):
+    run = root / 'double_cuda'
+    data = str(types.parent)
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pointvs_tpu_torch.main', 'egnn', str(run),
+         '--train_data_root_pose', data, '--train_types_pose', str(types),
+         '--layers', '2', '-b', '32', '--double'],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode != 0 and '--device cpu' in proc.stderr
+          and not run.exists(),
+          f'--double on the card: exit {proc.returncode}, run directory '
+          f'{"left" if run.exists() else "absent"}:\n{proc.stderr[-2000:]}')
+    print(f'double: main --double on the card exited {proc.returncode}: '
+          f'{proc.stderr.strip().splitlines()[-1]}')
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1672,6 +1964,10 @@ def main() -> int:
             input_launches = phase_input_cli(torch, np, root, types,
                                              n_poses, card)
             strain_launches = phase_strain_fused(torch, np, root)
+            bf16_launches = phase_bf16(torch, np, root, types, n_poses,
+                                       card)
+            sp_launches = phase_synthpharm(torch, np, root, types, card)
+            phase_double_refused(root, types)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1710,7 +2006,8 @@ def main() -> int:
           f'training CLI {cli_launches}; lucid / en_transformer training '
           f'{family_launches}; multitask CLI {mt_launches}; siamese, '
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
-          f'fused path {strain_launches}')
+          f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
+          f'synthpharm CLI {sp_launches}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

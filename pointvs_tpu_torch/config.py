@@ -127,8 +127,11 @@ _FLAGS = (
         action='store_true',
         help='Recorded in model_kwargs.yaml for the JAX package; the '
              'port\'s parameters are per layer either way')),
-    ('--bf16', (), dict(action='store_true',
-                        help='bfloat16 feature path (not in the port)')),
+    ('--bf16', (), dict(
+        action='store_true',
+        help='bfloat16 feature MLPs from f32 parameters; coordinates, the '
+             'aggregations (K1/K2, in f32), the head and the loss stay f32. '
+             'EGNN family only (ignored by other models)')),
     ('--remat', (), dict(
         action='store_true',
         help='Recompute each EGNN layer in backward '

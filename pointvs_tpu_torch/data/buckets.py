@@ -208,6 +208,17 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
 AnyBatch = Union[GraphBatch, SiamesePair, DenseBatch]
 
 
+def cast_floats(batch: AnyBatch, dtype: torch.dtype) -> AnyBatch:
+    """The batch with every floating tensor in ``dtype`` (``--double``
+    models take float64 batches; f32 -> f64 is exact)."""
+    if isinstance(batch, SiamesePair):
+        return SiamesePair(cast_floats(batch.rec, dtype),
+                           cast_floats(batch.lig, dtype))
+    return type(batch)(*[
+        a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in batch])
+
+
 def to_device(batch: AnyBatch, device: torch.device) -> AnyBatch:
     """Host batch -> tensors on ``device`` (a ``SiamesePair`` as its two
     ``GraphBatch``es); to a GPU through pinned memory with non-blocking

@@ -24,6 +24,13 @@ Counterpart of ``pointvs_tpu/data/dataset.py`` (``PointCloudDataset``):
 - ``include_strain_info``: each item carries its types line's dE and
   strain RMSD (zeros where the line has none); not with augmented actives.
 
+``SynthPharmDataset`` is the synthetic-pharmacophore dataset
+(``--synthpharm``): 12-class one-hot ``atom_id`` features, 3-class one-hot
+edge attributes, no box and no rotation; ``no_receptor`` and ``bp`` keep
+one entity (by the files' own ``bp``) before the edges are built. Its
+``feature_dim`` is the parent's (12 with ``compact``, 22 without), as in
+the reference, whatever its features' width.
+
 The dataset's own ``RandomState(seed)`` is drawn in the reference's order
 inside ``__getitem__``: the label-noise draw (every classification item),
 then entity dropout (two draws, when enabled), then the rotation (three).
@@ -43,11 +50,13 @@ from pointvs_tpu_torch.data.buckets import GraphSample
 from pointvs_tpu_torch.data.preprocessing import (
     KEYS,
     concat_structs,
+    concat_synthpharm,
     coords_of,
     generate_edges,
     make_bit_vector,
     make_box,
     read_struct,
+    read_synthpharm,
     rotate_struct,
     subset,
     uniform_random_rotation,
@@ -441,3 +450,41 @@ class PointCloudDataset:
                            receivers=cols, edge_attr=attrs, y=label,
                            lig_fname=str(lig_path), rec_fname=str(rec_path),
                            dE=float(d_e), rmsd=float(strain_rmsd))
+
+
+class SynthPharmDataset(PointCloudDataset):
+    """Synthetic pharmacophores (the reference's ``SynthPharmDataset``):
+    each item is the whole complex (no box), its edges unsorted as built
+    (the collator sorts them), its labels and weights the parent's."""
+
+    SYNTH_PHARM_CLASSES = 12
+
+    def __init__(self, *args, no_receptor: bool = False, **kwargs):
+        self.no_receptor = no_receptor
+        super().__init__(*args, **kwargs)
+
+    def __getitem__(self, item: int) -> GraphSample:
+        label = self._label_for(item)
+        lig_path, rec_path = self._paths_for(item)
+        struct = concat_synthpharm(read_synthpharm(rec_path),
+                                   read_synthpharm(lig_path))
+        if self.no_receptor:
+            struct = subset(struct, struct['bp'] == 0)
+        if self.bp is not None:
+            struct = subset(struct, struct['bp'] == self.bp)
+        edge_radius = self.edge_radius if self.edge_radius > 0 else 4
+        intra_radius = 2.0 if self.estimate_bonds else edge_radius
+        struct, rows, cols, attrs = generate_edges(
+            struct, edge_radius, intra_radius, prune=self.prune,
+            synthpharm=True)
+        onehot_edges = np.zeros((len(attrs), 3), np.float32)
+        onehot_edges[np.arange(len(attrs)), attrs] = 1.0
+        atom_ids = struct['atom_id']
+        feats = np.zeros((len(atom_ids), self.SYNTH_PHARM_CLASSES),
+                         np.float32)
+        feats[np.arange(len(atom_ids)), atom_ids] = 1.0
+        return GraphSample(
+            node_feats=feats, coords=coords_of(struct).astype(np.float32),
+            senders=rows.astype(np.int32), receivers=cols.astype(np.int32),
+            edge_attr=onehot_edges, y=label, lig_fname=str(lig_path),
+            rec_fname=str(rec_path))

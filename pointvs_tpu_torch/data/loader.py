@@ -223,19 +223,21 @@ def get_data_loader(
         node_buckets=DEFAULT_NODE_BUCKETS,
         edge_buckets=DEFAULT_EDGE_BUCKETS, bp=None,
         include_strain_info: bool = False,
-        layout: str = 'graph') -> GraphDataLoader:
+        layout: str = 'graph',
+        dataset_class=PointCloudDataset) -> GraphDataLoader:
     """Dataset + loader with the reference's keywords. Unlike the
     reference, ``rot`` defaults to False (the scoring loader's setting) and
     ``mode`` to ``'val'``; parquet structures only. ``layout='pair'``
     builds two datasets of the same types file and seed, the receptor's
-    atoms (bp 1) and the ligand's (bp 0)."""
+    atoms (bp 1) and the ligand's (bp 0). ``dataset_class`` is
+    ``PointCloudDataset`` or ``SynthPharmDataset`` (``--synthpharm``)."""
     if fname_suffix != 'parquet':
         raise NotImplementedError(
             f'fname_suffix={fname_suffix!r}: the port reads parquet '
             f'structures only (see ROADMAP.md, Queue 1)')
 
     def make_dataset(bp_filter):
-        return PointCloudDataset(
+        return dataset_class(
             data_root, types_fname, radius=radius,
             polar_hydrogens=polar_hydrogens,
             use_atomic_numbers=use_atomic_numbers, compact=compact, rot=rot,

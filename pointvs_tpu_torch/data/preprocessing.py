@@ -20,6 +20,12 @@ parquet schema keys ``x, y, z, atomic_number, types, bp`` (bp 0 = ligand,
 - ``uniform_random_rotation`` / ``rotate_struct``: rotations drawn from a
   caller's ``RandomState`` in the reference's draw order, so seeded streams
   give the reference's rotations bit for bit.
+- Synthetic pharmacophores (``SynthPharmDataset``): ``read_synthpharm``
+  reads a file's ``x, y, z, type`` (and ``bp`` where it has one);
+  ``concat_synthpharm`` gives each atom an ``atom_id`` (a ligand atom's
+  atomic number among ``SYNTH_PHARM_ATOMIC_NUMBERS`` -> 3..11, a receptor
+  atom's own ``type``, 0..2); ``generate_edges(synthpharm=True)`` takes the
+  entity from it (``bp`` = ``atom_id <= 2``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from typing import Dict
 import numpy as np
 
 KEYS = ('x', 'y', 'z', 'atomic_number', 'types', 'bp')
+SYNTH_PHARM_KEYS = ('x', 'y', 'z', 'type', 'bp')
+SYNTH_PHARM_ATOMIC_NUMBERS = (6, 7, 8, 9, 15, 16, 17, 35, 53)
 Struct = Dict[str, np.ndarray]
 
 
@@ -40,14 +48,25 @@ def read_struct(path) -> Struct:
     arrays as read-only."""
     path = str(path)
     st = os.stat(path)
-    return _read_struct_cached(path, (st.st_size, st.st_mtime_ns))
+    return _read_struct_cached(path, (st.st_size, st.st_mtime_ns), KEYS)
+
+
+def read_synthpharm(path) -> Struct:
+    """A synthetic-pharmacophore parquet -> its ``x, y, z, type`` columns,
+    and ``bp`` where the file has it; cached as ``read_struct``."""
+    import pyarrow.parquet as pq
+    path = str(path)
+    st = os.stat(path)
+    names = set(pq.ParquetFile(path).schema_arrow.names)
+    keys = tuple(k for k in SYNTH_PHARM_KEYS if k in names)
+    return _read_struct_cached(path, (st.st_size, st.st_mtime_ns), keys)
 
 
 @lru_cache(maxsize=4096)
-def _read_struct_cached(path: str, _fingerprint) -> Struct:
+def _read_struct_cached(path: str, _fingerprint, keys) -> Struct:
     import pyarrow.parquet as pq
-    table = pq.ParquetFile(path).read(columns=list(KEYS), use_threads=False)
-    return {k: table.column(k).to_numpy() for k in KEYS}
+    table = pq.ParquetFile(path).read(columns=list(keys), use_threads=False)
+    return {k: table.column(k).to_numpy() for k in keys}
 
 
 def subset(struct: Struct, mask_or_idx) -> Struct:
@@ -63,6 +82,28 @@ def concat_structs(rec: Struct, lig: Struct, n_features: int,
     rec_types = rec['types'] + (n_features + 8 * int(extended))
     return {k: np.concatenate([lig[k], rec_types if k == 'types' else rec[k]])
             for k in KEYS}
+
+
+def concat_synthpharm(rec: Struct, lig: Struct) -> Struct:
+    """Ligand rows then receptor rows of the columns both files have, with
+    ``atom_id``: 3 + the index of a ligand atom's ``type`` (an atomic
+    number) in ``SYNTH_PHARM_ATOMIC_NUMBERS``, and a receptor atom's
+    ``type``."""
+    lookup = np.full(max(SYNTH_PHARM_ATOMIC_NUMBERS) + 1, -1, np.int64)
+    lookup[list(SYNTH_PHARM_ATOMIC_NUMBERS)] = np.arange(
+        3, 3 + len(SYNTH_PHARM_ATOMIC_NUMBERS))
+    lig_types = np.asarray(lig['type'], np.int64)
+    known = (lig_types >= 0) & (lig_types < len(lookup))
+    lig_ids = np.where(known, lookup[np.where(known, lig_types, 0)], -1)
+    if (lig_ids < 0).any():
+        raise ValueError(
+            f'synthetic-pharmacophore ligand types must be among the atomic '
+            f'numbers {SYNTH_PHARM_ATOMIC_NUMBERS}, got '
+            f'{sorted(set(lig_types[lig_ids < 0].tolist()))}')
+    out = {k: np.concatenate([lig[k], rec[k]]) for k in lig if k in rec}
+    out['atom_id'] = np.concatenate(
+        [lig_ids, np.asarray(rec['type'], np.int64)])
+    return out
 
 
 def random_rotation_matrix(rng) -> np.ndarray:
@@ -138,8 +179,13 @@ def make_box(struct: Struct, radius: float) -> Struct:
 
 
 def generate_edges(struct: Struct, inter_radius: float = 4.0,
-                   intra_radius: float = 2.0, prune: bool = True):
-    """-> (struct, rows, cols, attrs); struct loses pruned atoms."""
+                   intra_radius: float = 2.0, prune: bool = True,
+                   synthpharm: bool = False):
+    """-> (struct, rows, cols, attrs); struct loses pruned atoms. With
+    ``synthpharm`` the entity ``bp`` is ``atom_id <= 2`` (the receptor's
+    ids), in the struct returned too."""
+    if synthpharm:
+        struct = dict(struct, bp=(struct['atom_id'] <= 2).astype(np.int64))
     coords = coords_of(struct).astype(np.float64)
     bp = struct['bp']
     dists = _pairwise_distances(coords, coords)

@@ -8,7 +8,11 @@ graph, receptor/ligand pair or dense), scores every pose and writes
 ``<task>_<output_fname>`` into the run directory. A run trained with
 ``--include_strain_info`` is scored with the types file's dE, as its own
 validation was; the reference's serving CLI leaves the flag out and
-scores such a model with dE = 0 (ROADMAP.md, Queue 3). ``--model_task`` picks
+scores such a model with dE = 0 (ROADMAP.md, Queue 3). A ``--synthpharm``
+run is scored with ``SynthPharmDataset``, as its own validation was (the
+reference's serving CLI reads it as ordinary complexes). A ``--double``
+run is served in float64 with ``--device cpu`` only; on the card the CLI
+exits before any CUDA work. ``--model_task`` picks
 the task (``both`` serves as ``classification``); for a multitask run
 directory it also picks the head and the newest checkpoint of that task. Runs on the GPU unless
 ``--device cpu`` is given. ``--num_devices`` is the reference's flag: None
@@ -24,9 +28,11 @@ from __future__ import annotations
 
 import argparse
 
+from pointvs_tpu_torch.data.dataset import PointCloudDataset, \
+    SynthPharmDataset
 from pointvs_tpu_torch.data.loader import get_data_loader
-from pointvs_tpu_torch.device import resolve_device
-from pointvs_tpu_torch.models.load_model import load_model
+from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
+from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.utils import get_logger
 
 LOG = get_logger()
@@ -54,7 +60,9 @@ def get_model_and_test_dl(model_path, test_types, data_root, device,
         prune=cmd_args.get('prune', False),
         extended_atom_types=cmd_args.get('extended_atom_types', False),
         include_strain_info=cmd_args.get('include_strain_info', False),
-        layout=trainer.input_kind, model_task=model_task, mode='val')
+        layout=trainer.input_kind, model_task=model_task, mode='val',
+        dataset_class=(SynthPharmDataset if cmd_args.get('synthpharm')
+                       else PointCloudDataset))
     return trainer, loader
 
 
@@ -77,6 +85,8 @@ def main(argv=None):
             f'--num_devices {args.num_devices}: data parallelism is not in '
             f'the port yet (see ROADMAP.md, Queue 1, item 5)')
 
+    refuse_double_on_cuda(run_args(args.model_path).get('double', False),
+                          args.device)
     device = resolve_device(args.device)
     trainer, loader = get_model_and_test_dl(
         args.model_path, args.test_types, args.data_root, device,

@@ -40,9 +40,13 @@ from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward, \
 
 
 def supports_fusion(model) -> bool:
-    """The reference's model conditions (bf16 is refused by the port's
-    model itself); the multitask model is a ``SartorrasEGNN``."""
+    """The reference's model conditions, ``not model.bf16`` among them (K3
+    and K4 are f32 kernels); the multitask model is a ``SartorrasEGNN``.
+    A float64 (``--double``) model is not fused either: the reference
+    fuses only on a TPU, which has no float64, and K3/K4 take f32."""
     return (isinstance(model, SartorrasEGNN)
+            and not model.bf16
+            and model.layers[0].m.weight.dtype == torch.float32
             and not model.permutation_invariance
             and model.dropout == 0
             and not (model.edge_residual

@@ -13,7 +13,13 @@ zero-padded point clouds); the model's input kind picks the loaders'
 layout. ``--include_strain_info`` reads the types files' dE and strain
 RMSD columns, and the EGNN head takes dE. ``--model_task both``
 (multitask only) trains the pose phase and then the affinity phase, each
-followed by its validation.
+followed by its validation. ``--bf16`` runs the EGNN families' feature
+MLPs in bfloat16 (other families have no such field and ignore it, as in
+the reference); ``--double`` trains in float64 on the CPU only
+(``--device cpu``; on the card it exits before any CUDA work, as the
+reference's ``main`` refuses any backend but the CPU); ``--synthpharm``
+reads the data with ``SynthPharmDataset``. ``--synth_pharm`` / ``-p`` is
+recorded in ``cmd_args.yaml`` and drives nothing, as in the reference.
 
 Writes the reference's run directory: ``cmd_args.yaml`` (with
 ``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
@@ -33,8 +39,10 @@ import torch
 
 from pointvs_tpu_torch.config import model_kwargs_from_args, parse_args, \
     regression_task_of
+from pointvs_tpu_torch.data.dataset import PointCloudDataset, \
+    SynthPharmDataset
 from pointvs_tpu_torch.data.loader import get_data_loader
-from pointvs_tpu_torch.device import resolve_device
+from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.logging import get_logger
 from pointvs_tpu_torch.models.registry import MODEL_REGISTRY, \
     model_input_kind
@@ -52,10 +60,6 @@ def refuse_unported(args) -> None:
          'edge parallelism'),
         (args.device_cache == 'on', '--device_cache on',
          'the device-resident dataset'),
-        (args.bf16, '--bf16', 'the bfloat16 feature path'),
-        (args.double, '--double', 'float64 training'),
-        (args.synthpharm or args.synth_pharm, '--synthpharm',
-         'SynthPharmDataset'),
         (args.scatter_cap is not None, '--scatter_cap',
          "the TPU kernels' window capacity (the port's segment kernel "
          'has none)'),
@@ -80,6 +84,8 @@ def build_loaders(args):
         extended_atom_types=args.extended_atom_types,
         include_strain_info=args.include_strain_info,
         layout=model_input_kind(args.model),
+        dataset_class=(SynthPharmDataset if args.synthpharm
+                       else PointCloudDataset),
         prefetch=args.prefetch, seed=args.seed, cache_dir=args.cache_dir)
     if args.node_bucket:
         dl_kwargs['node_buckets'] = (args.node_bucket,)
@@ -162,6 +168,7 @@ def main(argv=None):
         if getattr(args, types_arg) and not getattr(args, root_arg):
             raise SystemExit(f'--{types_arg} requires --{root_arg} to be '
                              f'set')
+    refuse_double_on_cuda(args.double, args.device)
     device = resolve_device(args.device)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -195,7 +202,7 @@ def main(argv=None):
         regression_loss=args.regression_loss, seed=args.seed,
         wandb_project=args.wandb_project, wandb_run=args.wandb_run,
         wandb_dir=args.wandb_dir, profile=args.profile,
-        num_devices=args.num_devices, **model_kwargs)
+        num_devices=args.num_devices, double=args.double, **model_kwargs)
     if args.load_weights is not None:
         trainer.load_weights(args.load_weights)
     if args.import_torch_weights:

@@ -18,6 +18,22 @@ the GraphNorm), ``coord_mlp.{0,2}``, ``att_mlp.0``, ``node_att_mlp.0`` and
 of ``batch.strain``) to the pooled embedding, so the head takes k + 1
 inputs (``pool``, which the fused paths share).
 
+``bf16`` is the reference's mixed precision (``--bf16``): the input
+embedding and every layer's MLPs compute in bfloat16 (``layers.Linear``)
+from f32 parameters; coordinates, radial and coordinate terms stay f32.
+The features ride the f32 ``[h | coord]`` gather exactly (a bf16 value is
+an f32 one), so the gather's backward sums the cotangents in f32 through
+K1 and rounds to bf16 once, as the reference's packed mixed gather does.
+Messages, attention logits and coordinate terms are cast to f32 where the
+reference casts them, before K1/K2, and the aggregates back to bf16. The
+ReZero and gated residual gates are cast to bf16 as the reference casts
+them (a [1] f32 tensor would promote the product to f32 here). Pooling
+takes f32 node embeddings, so the head and the logits are f32.
+
+Under ``--double`` the parameters are float64 and the batch arrives in
+float64 (``parallel/steps.py``); ``pool`` still rounds the node
+embeddings to f32 before the head, as the reference's ``pool`` does.
+
 Training options: ``dropout`` drops undirected edges (``ops/edge_dropout``,
 from an explicit per-step seed) when the forward is called with
 ``train=True``; ``remat`` recomputes each layer in the backward
@@ -30,7 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pointvs_tpu_torch.data.buckets import GraphBatch
-from pointvs_tpu_torch.models.layers import activation, mlp
+from pointvs_tpu_torch.models.layers import Linear, activation, mlp
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.edge_dropout import undirected_edge_dropout
 from pointvs_tpu_torch.ops.graphnorm import GraphNorm
@@ -53,7 +69,8 @@ class EGNNLayer(nn.Module):
                  node_attention: bool = False,
                  attention_activation_fn: str = 'sigmoid',
                  gated_residual: bool = False, rezero: bool = False,
-                 softmax_attention: bool = False):
+                 softmax_attention: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if gated_residual and rezero:
             raise ValueError('gated_residual and rezero are incompatible')
@@ -73,21 +90,22 @@ class EGNNLayer(nn.Module):
 
         # [h_s, h_r | h_s + h_r, |dx|^2, 3 edge-class columns]
         edge_in = (1 if permutation_invariance else 2) * k + 1 + 3
-        self.edge_mlp = mlp(edge_in, (k, k), (act, act))
+        self.edge_mlp = mlp(edge_in, (k, k), (act, act), dtype=dtype)
         self.node_mlp = nn.Sequential(
-            nn.Linear(2 * k, k),
+            Linear(2 * k, k, dtype=dtype),
             GraphNorm(k, whole_batch=graphnorm_whole_batch) if graphnorm
             else nn.Identity(),
             activation(act),
-            nn.Linear(k, k))
+            Linear(k, k, dtype=dtype))
         if update_coords:
             self.coord_mlp = mlp(k, (k, 1),
                                  (act, 'tanh' if tanh else 'identity'),
-                                 final_gain=0.001, final_bias=False)
+                                 final_gain=0.001, final_bias=False,
+                                 dtype=dtype)
         if edge_attention:
-            self.att_mlp = nn.Sequential(nn.Linear(k, 1))
+            self.att_mlp = nn.Sequential(Linear(k, 1, dtype=dtype))
         if node_attention:
-            self.node_att_mlp = nn.Sequential(nn.Linear(k, 1))
+            self.node_att_mlp = nn.Sequential(Linear(k, 1, dtype=dtype))
         gate_init = 0.0 if rezero else 0.5
         if rezero or gated_residual:
             if edge_residual:
@@ -99,23 +117,24 @@ class EGNNLayer(nn.Module):
 
     def _gated(self, gate, new, old):
         if self.rezero:
-            return old + gate * new
+            return old + gate.to(new.dtype) * new
         if self.gated_residual:
-            gate = torch.relu(gate)
+            gate = torch.relu(gate).to(new.dtype)
             return gate * new + (1 - gate) * old
         return new + old
 
     def forward(self, h, coord, edge_messages, agg: EdgeAggregator,
                 edge_attr, edge_mask, node_mask, graph_id, num_graphs: int):
-        # h and coord ride one gather per edge endpoint.
+        # h and coord ride one gather per edge endpoint, in coord's dtype
+        # (bf16 h exactly as f32; its cotangents are summed in f32).
         k = h.shape[1]
-        hc = torch.cat([h, coord], dim=1)
+        hc = torch.cat([h.to(coord.dtype), coord], dim=1)
         if agg.inv_recv_perm is not None:
             hc_s, hc_r = agg.gather_pair(hc)
         else:
             hc_s, hc_r = agg.gather_src(hc), agg.gather_dst(hc)
-        h_s, coord_s = hc_s[:, :k], hc_s[:, k:k + 3]
-        h_r, coord_r = hc_r[:, :k], hc_r[:, k:k + 3]
+        h_s, coord_s = hc_s[:, :k].to(h.dtype), hc_s[:, k:k + 3]
+        h_r, coord_r = hc_r[:, :k].to(h.dtype), hc_r[:, k:k + 3]
 
         # --- coord2radial (ref :178-187) ---
         coord_diff = coord_s - coord_r
@@ -124,10 +143,12 @@ class EGNNLayer(nn.Module):
             coord_diff = coord_diff / (torch.sqrt(radial).detach()
                                        + EPSILON)
 
-        # --- edge model (ref :123-132) ---
-        edge_in = ([h_s + h_r, radial] if self.permutation_invariance
-                   else [h_s, h_r, radial])
-        edge_feat = self.edge_mlp(torch.cat(edge_in + [edge_attr], dim=1))
+        # --- edge model (ref :123-132); radial and the edge classes
+        # enter the MLP in h's dtype ---
+        radial_h, attr_h = radial.to(h.dtype), edge_attr.to(h.dtype)
+        edge_in = ([h_s + h_r, radial_h] if self.permutation_invariance
+                   else [h_s, h_r, radial_h])
+        edge_feat = self.edge_mlp(torch.cat(edge_in + [attr_h], dim=1))
 
         # --- edge-message residual (ref :194-202) ---
         if self.edge_residual and edge_messages is not None:
@@ -135,7 +156,8 @@ class EGNNLayer(nn.Module):
                 getattr(self, 'edge_gate_parameter', None), edge_feat,
                 edge_messages)
 
-        # --- coord model (ref :168-176) + node aggregation ---
+        # --- coord model (ref :168-176) + node aggregation; the kernels
+        # sum in coord's dtype (f32 under --bf16) ---
         sigmoid_att = (self.edge_attention and not self.softmax_attention
                        and self.attention_activation_fn == 'sigmoid')
         if self.edge_attention and self.update_coords and (
@@ -145,8 +167,10 @@ class EGNNLayer(nn.Module):
             trans = coord_diff * self.coord_mlp(edge_feat)
             fused = (agg.fused_softmax_aggregate if self.softmax_attention
                      else agg.fused_sigmoid_aggregate)
-            agg_feats, coord_delta = fused(edge_feat, att_logits, trans,
-                                           mask=edge_mask)
+            agg_feats, coord_delta = fused(
+                edge_feat.to(coord.dtype), att_logits.to(coord.dtype),
+                trans, mask=edge_mask)
+            agg_feats = agg_feats.to(h.dtype)
             coord = coord + coord_delta
         else:
             messages = edge_feat
@@ -160,7 +184,8 @@ class EGNNLayer(nn.Module):
             if self.update_coords:
                 trans = coord_diff * self.coord_mlp(edge_feat)
                 agg_feats, coord_delta = agg.fused_sum_mean_to_src(
-                    messages, trans, mask=edge_mask)
+                    messages.to(coord.dtype), trans, mask=edge_mask)
+                agg_feats = agg_feats.to(h.dtype)
                 coord = coord + coord_delta
             else:
                 agg_feats = agg.sum_to_src(messages, mask=edge_mask)
@@ -191,9 +216,10 @@ class EGNNLayer(nn.Module):
 class InputEmbedding(nn.Module):
     """``layers.0``: the reference's PygLinearPass around one Linear."""
 
-    def __init__(self, dim_input: int, k: int):
+    def __init__(self, dim_input: int, k: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.m = nn.Linear(dim_input, k)
+        self.m = Linear(dim_input, k, dtype=dtype)
 
     def forward(self, x):
         return self.m(x)
@@ -223,14 +249,12 @@ class SartorrasEGNN(nn.Module):
         # scan_layers only changes the JAX parameter layout; the port's
         # state_dict is per-layer either way (models/params.py carries both).
         del scan_layers, model_task
-        unsupported = {
-            'bf16': (bf16, 'mixed precision'),
-            'edge_shard_axis': (edge_shard_axis is not None, 'scale-out'),
-        }
-        for flag, (on, item) in unsupported.items():
-            if on:
-                raise NotImplementedError(
-                    f'{flag} is not in the port yet ({item}; {_ROADMAP})')
+        if edge_shard_axis is not None:
+            raise NotImplementedError(
+                f'edge_shard_axis is not in the port yet (scale-out; '
+                f'{_ROADMAP})')
+        self.bf16 = bf16
+        dtype = torch.bfloat16 if bf16 else None
         self.num_layers = num_layers
         self.include_strain_info = include_strain_info
         self.dropout = dropout
@@ -248,10 +272,10 @@ class SartorrasEGNN(nn.Module):
             node_attention=node_attention,
             attention_activation_fn=attention_activation_fn,
             gated_residual=gated_residual, rezero=rezero,
-            softmax_attention=softmax_attention)
+            softmax_attention=softmax_attention, dtype=dtype)
         self.layer_kwargs = layer_kwargs
         self.layers = nn.ModuleList(
-            [InputEmbedding(dim_input, k)]
+            [InputEmbedding(dim_input, k, dtype)]
             + [EGNNLayer(k, **layer_kwargs) for _ in range(num_layers)])
         if multi_fc:
             dims, acts = (32, 16, dim_output), (act, act, 'identity')
@@ -277,6 +301,15 @@ class SartorrasEGNN(nn.Module):
             batch = batch._replace(edge_mask=undirected_edge_dropout(
                 batch.senders, batch.receivers, batch.edge_mask,
                 self.dropout, dropout_seed))
+        width = batch.node_feats.shape[1]
+        dim_input = self.layers[0].m.in_features
+        if width != dim_input:
+            # The reference stops here too (flax's parameter shape check):
+            # e.g. --synthpharm without --compact, whose 12 features meet
+            # the dataset's feature_dim of 22.
+            raise ValueError(
+                f'the batch has {width} node features but the model was '
+                f'built for dim_input={dim_input}')
         h = self.layers[0](batch.node_feats)
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,
@@ -297,13 +330,16 @@ class SartorrasEGNN(nn.Module):
 
     def pool(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
         """Masked mean of each graph's node embeddings, with the graph's
-        dE appended under ``include_strain_info``."""
-        pooled = masked_graph_mean_pool(h, batch.graph_id,
+        dE appended under ``include_strain_info``. The embeddings are
+        rounded to f32 first, as the reference's ``pool`` does under both
+        ``--bf16`` and ``--double``; the result is in the parameters'
+        dtype, which the head takes."""
+        pooled = masked_graph_mean_pool(h.float(), batch.graph_id,
                                         batch.graph_mask.shape[0],
-                                        batch.node_mask)
+                                        batch.node_mask.float())
         if self.include_strain_info:
-            pooled = torch.cat([pooled, batch.strain[:, :1]], dim=1)
-        return pooled
+            pooled = torch.cat([pooled, batch.strain[:, :1].float()], dim=1)
+        return pooled.to(self.layers[0].m.weight.dtype)
 
     def head(self, pooled: torch.Tensor, task=None) -> torch.Tensor:
         """The output head on the pooled embeddings (one head here; the

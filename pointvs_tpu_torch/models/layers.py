@@ -8,6 +8,12 @@ lucid family's Linears are xavier-normal with zero biases (ref
 egnn_lucid.py:102-107). Parameters are drawn from an explicit
 ``torch.Generator``.
 
+``Linear`` takes an optional compute dtype, the counterpart of
+``TorchLinear(dtype=...)``: the parameters stay in their own dtype (f32,
+also in the checkpoint) and each call casts the input, the weight and the
+bias to the compute dtype, as flax's ``Dense(dtype=bfloat16)`` does
+(``--bf16``).
+
 Also the lucid family's pieces: ``fourier_encode_dist``, ``CoorsNorm``
 and ``HashDropout``, a dropout whose mask is a hash of the step's seed
 (the same on any device, like ``ops/edge_dropout``).
@@ -18,14 +24,58 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pointvs_tpu_torch.ops.edge_dropout import _MASK32, _mix
 
+def _logistic_by_ops(x):
+    """1 / (1 + exp(-x)), each op rounded to x's dtype: the reference's
+    sigmoid as XLA evaluates it on a bf16 array."""
+    return 1 / (1 + torch.exp(-x))
+
+
+class _SiLUByOps(torch.autograd.Function):
+    """x * sigmoid(x) op by op in x's dtype, keeping only x for the
+    backward, which recomputes the sigmoid: autograd through the ops would
+    keep three tensors of x's size (x, exp(-x), the sigmoid), more than a
+    fused f32 SiLU keeps."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _logistic_by_ops(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = _logistic_by_ops(x)
+        return g * (s + x * (s * (1 - s)))
+
+
+class SiLU(nn.SiLU):
+    """SiLU; on bf16 input x * sigmoid(x) with every op rounded to bf16,
+    as the reference's ``nn.silu`` computes in bf16 (``--bf16``)."""
+
+    def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return _SiLUByOps.apply(x)
+        return super().forward(x)
+
+
+class Sigmoid(nn.Sigmoid):
+    """Sigmoid; on bf16 input op by op, as ``SiLU``."""
+
+    def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return _logistic_by_ops(x)
+        return super().forward(x)
+
+
 ACTIVATIONS = {
-    'silu': nn.SiLU,
+    'silu': SiLU,
     'relu': nn.ReLU,
-    'sigmoid': nn.Sigmoid,
+    'sigmoid': Sigmoid,
     'tanh': nn.Tanh,
     'softplus': nn.Softplus,
     'identity': nn.Identity,
@@ -36,24 +86,44 @@ def activation(name: str) -> nn.Module:
     return ACTIVATIONS[name]()
 
 
-class XavierLinear(nn.Linear):
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` when one is given (None: the
+    parameters' own dtype). ``F.linear`` takes one dtype, so the input,
+    the weight and the bias are each cast to it; the product is rounded
+    to ``dtype`` before the bias is added, as flax's ``Dense`` does."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dtype = self.compute_dtype
+        if dtype is None:
+            return super().forward(x)
+        out = F.linear(x.to(dtype), self.weight.to(dtype))
+        return out if self.bias is None else out + self.bias.to(dtype)
+
+
+class XavierLinear(Linear):
     """Linear whose weight is drawn xavier-uniform with ``gain``."""
 
     def __init__(self, in_features: int, out_features: int, gain: float,
-                 bias: bool = True):
+                 bias: bool = True, dtype: torch.dtype | None = None):
         self.gain = gain
-        super().__init__(in_features, out_features, bias=bias)
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype)
 
 
-class XavierNormalLinear(nn.Linear):
+class XavierNormalLinear(Linear):
     """Linear whose weight is drawn xavier-normal and whose bias is zero
     (the lucid family's init)."""
 
 
 def mlp(in_features: int, features: Sequence[int], acts: Sequence[str],
-        final_gain: float | None = None,
-        final_bias: bool = True) -> nn.Sequential:
-    """[Linear, act] * len(features) as one Sequential.
+        final_gain: float | None = None, final_bias: bool = True,
+        dtype: torch.dtype | None = None) -> nn.Sequential:
+    """[Linear, act] * len(features) as one Sequential, computing in
+    ``dtype`` (``Linear``).
 
     Every activation is a module (Identity included), so the Linears sit
     at even indices as in the reference state_dict schema.
@@ -64,9 +134,10 @@ def mlp(in_features: int, features: Sequence[int], acts: Sequence[str],
         bias = final_bias if final else True
         if final and final_gain is not None:
             modules.append(XavierLinear(in_features, feats, final_gain,
-                                        bias=bias))
+                                        bias=bias, dtype=dtype))
         else:
-            modules.append(nn.Linear(in_features, feats, bias=bias))
+            modules.append(Linear(in_features, feats, bias=bias,
+                                  dtype=dtype))
         modules.append(activation(act))
         in_features = feats
     return nn.Sequential(*modules)

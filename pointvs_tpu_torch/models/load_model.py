@@ -43,6 +43,16 @@ def _task_prefix(task: str) -> str:
     return 'affinity' if 'regression' in task else 'pose'
 
 
+def run_args(weights_path) -> dict:
+    """The ``cmd_args.yaml`` of the run that holds ``weights_path`` (a run
+    directory or a checkpoint file in one); empty when it has none."""
+    weights_path = expand_path(weights_path)
+    root = weights_path if weights_path.is_dir() else weights_path.parent
+    if root.name == 'checkpoints':
+        root = root.parent
+    return _sidecar(root / 'cmd_args.yaml')
+
+
 def load_model(weights_path, device, init_path: bool = False,
                model_task=None):
     """Returns (trainer, model_kwargs, cmd_args).
@@ -53,7 +63,8 @@ def load_model(weights_path, device, init_path: bool = False,
     task (every checkpoint holds both epoch counters, so the newest names
     the phase to continue). Otherwise the trainer is silent, and in a
     multitask run directory it loads the newest checkpoint of
-    ``model_task`` (default: the run's task).
+    ``model_task`` (default: the run's task). A ``--double`` run loads
+    as float64, on the CPU only.
     """
     from pointvs_tpu_torch.training.engine import Trainer
 
@@ -71,9 +82,6 @@ def load_model(weights_path, device, init_path: bool = False,
     ckpt, root = resolve_run(weights_path, prefix)
     model_kwargs = load_yaml(root / 'model_kwargs.yaml') or {}
     cmd_args = _sidecar(root / 'cmd_args.yaml')
-    if cmd_args.get('double', False):
-        raise NotImplementedError('--double (float64) runs are not in the '
-                                  'port yet (see ROADMAP.md, Queue 1)')
     # Fixups for reference run dirs (ref load_model.py:49-57): the
     # node/edge attention back-compat keys, and the 'act' kwarg that the
     # reference never passed to its layers (SiLU is hard-coded there).
@@ -94,6 +102,6 @@ def load_model(weights_path, device, init_path: bool = False,
         only_save_best_models=cmd_args.get('only_save_best_models', False),
         regression_loss=cmd_args.get('regression_loss', 'mse'),
         seed=cmd_args.get('seed', 2), silent=not init_path,
-        **model_kwargs)
+        double=cmd_args.get('double', False), **model_kwargs)
     trainer.load_weights(ckpt)
     return trainer, model_kwargs, cmd_args

@@ -30,9 +30,16 @@ def _gather_rows(node_values, ids, num_segments):
 
 
 def _segment_sum(data, ids, num_segments, offsets=None):
+    """Per-id sums of [E] or [E, K] rows. bf16 rows (``--bf16`` sums that
+    the reference does not cast first) are summed in f32 and rounded to
+    bf16 once, as the reference's one-hot matmul accumulates them: K1
+    itself takes f32 only."""
     squeeze = data.dim() == 1
-    out = segment_kernels.windowed_segment_sum(
-        data[:, None] if squeeze else data, ids, num_segments, offsets)
+    rows = data[:, None] if squeeze else data
+    if rows.dtype == torch.bfloat16:
+        rows = rows.float()
+    out = segment_kernels.windowed_segment_sum(rows, ids, num_segments,
+                                               offsets).to(data.dtype)
     return out[:, 0] if squeeze else out
 
 
@@ -98,13 +105,17 @@ def dense_graph_segment_sum(node_values: torch.Tensor, graph_id: torch.Tensor,
                             num_graphs: int,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """Per-graph sums as a [N, B] one-hot product (B is the batch size);
-    padding rows (graph_id == num_graphs) match no graph."""
+    padding rows (graph_id == num_graphs) match no graph. Values and mask
+    of two dtypes are summed in the wider (bf16 values under an f32 mask
+    in f32, as the reference's product promotes them)."""
     squeeze = node_values.dim() == 1
     if squeeze:
         node_values = node_values[:, None]
+    dtype = (node_values.dtype if mask is None
+             else torch.promote_types(node_values.dtype, mask.dtype))
     onehot = (graph_id[:, None] == torch.arange(
-        num_graphs, device=graph_id.device)[None, :]).to(node_values.dtype)
+        num_graphs, device=graph_id.device)[None, :]).to(dtype)
     if mask is not None:
-        onehot = onehot * mask[:, None]
-    out = onehot.T @ node_values
+        onehot = onehot * mask[:, None].to(dtype)
+    out = onehot.T @ node_values.to(dtype)
     return out[:, 0] if squeeze else out

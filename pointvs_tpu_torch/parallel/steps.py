@@ -9,7 +9,12 @@ host from a schedule, as the reference passes it into its step).
 
 Both steps take any of the model inputs (``GraphBatch``, ``SiamesePair``,
 ``DenseBatch``); the loss and metrics read ``batch.y`` and
-``batch.graph_mask``. The fused path is the EGNN families' only. The
+``batch.graph_mask``. The fused path is the EGNN families' only. A
+float64 model (``--double``) takes its batch in float64: both steps cast
+the batch's floating tensors at the model's entry (f32 -> f64 is exact;
+the reference promotes the f32 batch op by op). Its learning rate is
+rounded to float32 first, as the reference's Trainer passes it to its
+step (``jnp.float32(lr)``) in every mode. The
 reference's wire, packed and device-id batch forms and its ('dp',) mesh
 are not in the port yet (ROADMAP.md, Queue 1).
 """
@@ -19,6 +24,7 @@ from typing import Callable, Optional
 
 import torch
 
+from pointvs_tpu_torch.data.buckets import cast_floats
 from pointvs_tpu_torch.fused_train import fused_apply
 from pointvs_tpu_torch.inference_engine import fused_forward, \
     supports_fusion
@@ -45,6 +51,18 @@ def pred_metrics(logits, batch, model_task: str) -> torch.Tensor:
                         dec.sum()])
 
 
+def _is_double(model) -> bool:
+    return next(model.parameters()).dtype == torch.float64
+
+
+def _model_input(model) -> Callable:
+    """The cast of a batch to what the model takes: float64 for a float64
+    model, unchanged otherwise."""
+    if _is_double(model):
+        return lambda batch: cast_floats(batch, torch.float64)
+    return lambda batch: batch
+
+
 def make_train_step(model, optimiser: torch.optim.Optimizer,
                     model_task: str, regression_loss: str = 'mse',
                     with_metrics: bool = False,
@@ -63,6 +81,8 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
     ``multitask`` model is given ``task=model_task``, which picks its head.
     """
     apply_kwargs = {'task': model_task} if multitask else {}
+    model_input = _model_input(model)
+    to_f32 = _is_double(model)
 
     def forward(batch, dropout_seed):
         if use_fused:   # fused configurations have no dropout
@@ -72,12 +92,15 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 
     def step(batch, lr: float, dropout_seed=None) -> torch.Tensor:
         model.train()
+        batch = model_input(batch)
         logits = forward(batch, dropout_seed)
         loss_sum, weight = loss_fn(logits, batch, model_task,
                                    regression_loss)
         loss = loss_sum / torch.clamp_min(weight, 1.0)
         optimiser.zero_grad(set_to_none=True)
         loss.backward()
+        if to_f32:
+            lr = float(torch.tensor(lr, dtype=torch.float32))
         clip_and_step(optimiser, lr)
         out = loss.detach()
         if with_metrics:
@@ -105,10 +128,12 @@ def make_eval_step(model, model_task: Optional[str] = None,
                     else {})
     fuse = (use_fused and getattr(model, 'num_layers', 0) >= 6
             and supports_fusion(model))
+    model_input = _model_input(model)
 
     @torch.no_grad()
     def step(batch) -> torch.Tensor:
         model.eval()
+        batch = model_input(batch)
         if fuse and batch.node_feats.device.type == 'cuda':
             return fused_forward(model, batch, **apply_kwargs)
         return model(batch, **apply_kwargs)

@@ -7,7 +7,8 @@ model), restores the weights, the
 optimiser state and the epoch counters, and continues the pose and then
 the affinity phase from the saved epochs. A multitask ``--model_task
 both`` run resumes from its newest checkpoint of either task, whose
-counters name the phase to continue.
+counters name the phase to continue. ``--bf16``, ``--double`` (with
+``--device cpu``) and ``--synthpharm`` runs resume as they were trained.
 
 Usage: python -m pointvs_tpu_torch.resume_training <run_dir> [--device cpu]
 """
@@ -16,16 +17,17 @@ from __future__ import annotations
 import argparse
 from types import SimpleNamespace
 
-from pointvs_tpu_torch.device import resolve_device
+from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.logging import get_logger
 from pointvs_tpu_torch.main import build_loaders, run_phases
-from pointvs_tpu_torch.models.load_model import load_model
+from pointvs_tpu_torch.models.load_model import load_model, run_args
 
 LOG = get_logger()
 # Flags an older run's cmd_args.yaml may lack, with their defaults.
 _DEFAULTS = (('prefetch', 2), ('seed', 2), ('cache_dir', None),
              ('p_noise', -1), ('p_remove_entity', 0), ('node_bucket', None),
-             ('edge_bucket', None), ('include_strain_info', False))
+             ('edge_bucket', None), ('include_strain_info', False),
+             ('synthpharm', False))
 
 
 def main(argv=None):
@@ -39,6 +41,8 @@ def main(argv=None):
         raise NotImplementedError(
             f'--num_devices {args.num_devices}: data parallelism is not in '
             f'the port (see ROADMAP.md, Queue 1)')
+    refuse_double_on_cuda(run_args(args.base_path).get('double', False),
+                          args.device)
     trainer, _, cmd_args = load_model(args.base_path,
                                       resolve_device(args.device),
                                       init_path=True)

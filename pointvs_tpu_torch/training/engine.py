@@ -21,6 +21,13 @@ and with it the multitask model's head and the epoch counter that
 into ``<save_path>/profile``. On a GPU every step is bracketed by CUDA
 events (``step_ms``); ``epoch_seconds`` holds each epoch's wall time.
 
+``double`` is the reference's ``Trainer(double=True)`` (``--double``):
+every float parameter, and so the optimiser state and the checkpoints, is
+float64, and the steps take float64 batches. It runs on the CPU only, as
+the reference's does. A ``fused_training`` Trainer whose model
+``supports_fusion`` rejects (a bf16 or float64 model among them) raises
+``ValueError`` at its first step, from ``fused_train.fused_apply``.
+
 ``train_model`` takes any loader that yields ``(batch, meta)`` and has a
 ``len()``; the batch is the model's input kind (``input_kind``: a
 ``GraphBatch``, a ``SiamesePair`` or a ``DenseBatch``), whose ``y`` and
@@ -73,7 +80,8 @@ class Trainer:
                  wandb_project: Optional[str] = None,
                  wandb_run: Optional[str] = None, wandb_dir=None,
                  silent: bool = False, profile: bool = False,
-                 num_devices: Optional[int] = None, **model_kwargs):
+                 num_devices: Optional[int] = None, double: bool = False,
+                 **model_kwargs):
         if use_1cycle and warm_restarts:
             raise ValueError('1cycle and warm restarts are mutually '
                              'exclusive')
@@ -81,8 +89,12 @@ class Trainer:
             raise NotImplementedError(
                 f'num_devices={num_devices}: data parallelism is not in the '
                 f'port yet (see ROADMAP.md, Queue 1)')
+        if double and device.type != 'cpu':
+            raise ValueError('double=True (float64) runs on the CPU only, '
+                             'as in the reference package')
         self.save_path = expand_path(save_path)
         self.device = device
+        self.double = double
         self.silent = silent
         self.predictions_file = self.save_path / 'predictions.txt'
         self.lr = learning_rate
@@ -103,6 +115,8 @@ class Trainer:
         self.input_kind = model_input_kind(model_name)
         self.model = build_model(model_name, **model_kwargs)
         init_parameters(self.model, torch.Generator().manual_seed(seed))
+        if double:
+            self.model.double()
         self.model.to(device).eval()
         self.optimiser = build_optimiser(self.model.parameters(), optimiser,
                                          weight_decay, learning_rate)

@@ -9,7 +9,13 @@ with mixed labels (weighted sampling) and one augmented copy of each
 active; the GPU run's per-step losses must be within the trajectory gate
 (atol 1e-4, rtol 1e-5) of the CPU run's, and its launches must show K2
 in every layer of every step. The siamese, dense (``lie_conv``) and
-strain-input CLIs run the same way at 2 layers, 4 steps.
+strain-input CLIs run the same way at 2 layers, 4 steps. ``--bf16``
+runs the first test's command (without dropout and augmentation) on the
+card and on the CPU: per-step losses within ``BF16_GATE`` 1e-2 relative
+(the two devices' bf16 GEMMs both accumulate in f32, in different orders,
+so a product can round to the next bf16 value), K2 in every layer of
+every step in f32 and no K3/K4. ``--double`` on the card exits naming
+``--device cpu`` and leaves no run directory.
 """
 from pathlib import Path
 
@@ -22,6 +28,7 @@ from pointvs_tpu_torch.ops import segment_kernels as sk
 
 RESOURCES = Path(__file__).parent / 'resources'
 LAYERS = 3
+BF16_GATE = 1e-2
 
 
 @pytest.fixture
@@ -95,3 +102,39 @@ def test_family_cli_on_the_gpu_matches_the_cpu(tmp_path, cuda_device, name):
     np.testing.assert_allclose(gpu.train_losses, cpu.train_losses,
                                atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(gpu.val_scores, cpu.val_scores, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_cli_on_the_gpu_matches_the_cpu(tmp_path, cuda_device):
+    del cuda_device
+    pairs = ('rec_0.parquet lig_0.parquet', 'rec.parquet lig.parquet')
+    types = tmp_path / 'train.types'
+    types.write_text(''.join(f'{int(i % 3 == 0)} -1 {0.5 + i:.1f} '
+                             f'{pairs[i % 2]}\n' for i in range(12)))
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        argv = [a for a in _argv(tmp_path / device, types, device)
+                if a not in ('--augmented_actives', '1', '--dropout', '0.1')]
+        sk.reset_launch_counts()
+        runs[device] = train_main(argv + ['--bf16'])
+        if device == 'cuda':
+            counts = sk.launch_counts()
+    gpu, cpu = runs['cuda'], runs['cpu']
+    steps = len(gpu.train_losses)
+    assert gpu.model.bf16 and steps == 2 * 6
+    assert counts['softmax_aggregate_sorted'] == LAYERS * steps
+    assert counts['fused_edge_forward'] == counts['fused_edge_backward'] == 0
+    assert all(p.dtype == torch.float32 for p in gpu.model.parameters())
+    got, want = np.asarray(gpu.train_losses), np.asarray(cpu.train_losses)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= BF16_GATE * np.abs(want)).all()
+
+
+@pytest.mark.cuda
+def test_double_on_the_gpu_exits_naming_device_cpu(tmp_path, cuda_device):
+    del cuda_device
+    run = tmp_path / 'run'
+    with pytest.raises(SystemExit, match='--device cpu'):
+        train_main(_argv(run, RESOURCES / 'test.types', 'cuda')
+                   + ['--double'])
+    assert not run.exists()

@@ -185,10 +185,6 @@ REFUSED = {
     'multihost': ['--multihost'],
     'graph_shard': ['--graph_shard', '2'],
     'device_cache_on': ['--device_cache', 'on'],
-    'bf16': ['--bf16'],
-    'double': ['--double'],
-    'synthpharm': ['--synthpharm'],
-    'synth_pharm': ['--synth_pharm'],
     'scatter_cap': ['--scatter_cap', '64'],
 }
 
