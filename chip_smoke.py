@@ -91,16 +91,19 @@ Phases:
    wall time, poses per second, and the host share of an epoch (wall minus
    the profiler's device time of a second run's steps); and the step ms
    and epoch wall of a third run with ``--prefetch 0`` (no loader thread);
-8. lucid (3 layers, also with dropout 0.1, whose masks are a hash of the
-   step's seed) and en_transformer (3 layers, 4 heads) through the
-   ``Trainer``: 5 steps on the card and on the CPU within the trajectory
-   gate, K1 launches, step ms by CUDA events;
+8. lucid (3 layers, also with dropout 0.1, whose masks are the
+   reference's under the step's JAX key: ``ops/dropout.py``'s kernel, 2 x
+   3 sites x 3 layers launches a step) and en_transformer (3 layers, 4
+   heads) through the ``Trainer``: 5 steps on the card and on the CPU
+   within the trajectory gate, K1 launches, step ms by CUDA events;
 9. multitask CLI: ``pointvs_tpu_torch.main multitask ... --model_task both
    -ep 1 -ea 1`` with the README model on the pose set and affinity labels
    drawn from the seed: both checkpoints and predictions files, epoch
    counters, K2 at 6 launches per step and validation forward, the same
    command with ``--device cpu`` within the trajectory gate, step ms by
-   CUDA events;
+   CUDA events; the pose head served from the run's newest checkpoint
+   (the affinity phase's) and from its pose checkpoint, the scores'
+   difference printed;
 10. the pair, dense and strain inputs through ``pointvs_tpu_torch.main``:
    ``siamese`` and ``egnn --include_strain_info`` (a types file with dE
    and strain RMSD drawn from the seed) with the README flags, 2 epochs
@@ -148,8 +151,26 @@ CPU's within ``BF16_SCORE_GATE``. Then:
    --double`` exits non-zero naming ``--device cpu`` and leaves no run
    directory.
 
-Then one JSON line describing every kernel, and as the last line
-``{"ok": true, "device": {...}}``.
+After phase 5, the screen (``pointvs_tpu_torch.screen.screen``): 256
+seeded poses of the test ligand screened against its receptor with the
+README model (K2 6 a batch) and ``default_3l`` (K1 3 a batch) at batch 256
+and 32, one offset computation a batch and no other kernel; 256 finite
+scores; the first 32 ligands' scores against a ``--device cpu`` screen
+within 1e-4; poses per second and the host featurisation's share of the
+wall; and the host featurisation a pose of ``SharedReceptorDataset``
+against ``PointCloudDataset``. After the K1 receiver check, the dropout
+mask kernel (``ops/csrc/threefry_dropout.cu``) against its plain version
+on lucid's three site shapes of a real batch (masks, values and
+gradients bit for bit; the node site's mask against the host's threefry),
+on an odd size and a misaligned view, timed against its bound.
+
+Then the wall seconds of every phase, one JSON line describing every
+kernel, and as the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --lucid-step ROOT`` instead times the lucid
+3-layer ``--dropout 0.1`` Trainer step of the port under ROOT (any
+checkout of this repository) and prints one JSON line: run it for two
+trees in turns in one call to compare two commits.
 """
 from __future__ import annotations
 
@@ -1082,6 +1103,202 @@ def phase_receiver_sorted(torch, np, root: Path, types: Path):
     return err, timings
 
 
+# ------------------------------------------------------------- screen
+SCREEN_POSES = 256
+SCREEN_BATCHES = (256, 32)
+SCREEN_CPU_POSES = 32
+# name -> (serving run directory of phase 5, launches a batch by kernel);
+# one offset computation a batch, and no other kernel.
+SCREEN_RUNS = {'readme_softmax_6l': {'softmax_aggregate_sorted': 6},
+               'default_3l': {'segment_sum_sorted': 3}}
+
+
+def featurise_ms(np, cls, data: Path, types: Path):
+    """Host ms a pose of ``cls``'s items over a screen manifest, cold
+    (a fresh dataset), and the first item's ms apart (the shared dataset
+    builds the receptor's grid and edges there)."""
+    from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
+    SharedReceptorDataset._shared_cache.clear()
+    ds = cls(data, types, radius=10, edge_radius=4, polar_hydrogens=False,
+             compact=True, model_task='classification')
+    times = []
+    for i in range(len(ds)):
+        start = time.perf_counter()
+        ds[i]
+        times.append(time.perf_counter() - start)
+    return 1e3 * float(np.mean(times[1:])), 1e3 * times[0]
+
+
+def phase_screen(torch, np, root: Path, card: str):
+    """``pointvs_tpu_torch.screen.screen`` over SCREEN_POSES seeded poses of
+    the test ligand against its receptor with the README model (K2) and
+    ``default_3l`` (K1) at each of SCREEN_BATCHES: each kernel's launches
+    a batch, finite scores for every pose, the first SCREEN_CPU_POSES
+    ligands' scores against a ``--device cpu`` screen within 1e-4; poses
+    per second and the share of the wall in the host featurisation; then
+    the host featurisation a pose of ``SharedReceptorDataset`` against
+    ``PointCloudDataset``. Returns each run's launches by kernel, summed
+    over the batch sizes."""
+    from pointvs_tpu_torch.data.dataset import PointCloudDataset
+    from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.screen import screen
+    types, _ = write_pose_set(np, root / 'library', SCREEN_POSES)
+    lib = types.parent
+    receptor = lib / 'rec_0.parquet'
+    ligands = str(lib / 'lig_*.parquet')
+    first = root / 'library_first'
+    first.mkdir()
+    for path in sorted(lib.glob('lig_*.parquet'))[:SCREEN_CPU_POSES]:
+        (first / path.name).write_bytes(path.read_bytes())
+    out = {}
+    for name, per_batch in SCREEN_RUNS.items():
+        run = root / name
+        cpu = screen(run, receptor, str(first), output=str(
+            root / f'screen_{name}_cpu.csv'), batch_size=32, device='cpu')
+        cpu_scores = {Path(r['ligand']).name: r['score'] for r in cpu.rows}
+        for b in SCREEN_BATCHES:
+            batches = -(-SCREEN_POSES // b)
+            sk.reset_launch_counts()
+            result = screen(run, receptor, ligands, output=str(
+                root / f'screen_{name}_{b}.csv'), batch_size=b)
+            torch.cuda.synchronize()
+            counts = sk.launch_counts()
+            for kernel, count in counts.items():
+                expect = (batches if kernel == 'segment_offsets'
+                          else per_batch.get(kernel, 0) * batches)
+                check(count == expect, f'screen {name} -b {b}: {kernel} '
+                                       f'launched {count}, expected {expect}')
+            scores = np.asarray([r['score'] for r in result.rows])
+            check(len(scores) == SCREEN_POSES and np.isfinite(scores).all(),
+                  f'screen {name} -b {b}: {len(scores)} scores')
+            gpu_scores = {Path(r['ligand']).name: r['score']
+                          for r in result.rows}
+            diff = max(abs(gpu_scores[lig] - v)
+                       for lig, v in cpu_scores.items())
+            check(diff <= 1e-4, f'screen {name} -b {b}: GPU and CPU scores '
+                                f'differ by {diff}')
+            sec = result.seconds
+            out[name] = {kernel: out.get(name, {}).get(kernel, 0) + count
+                         for kernel, count in counts.items()}
+            print(f'screen: {card}: {name} -b {b}: {SCREEN_POSES} poses in '
+                  f'{sec["total"]:.3f} s = {result.poses_per_second:.1f} '
+                  f'poses/s (load {sec["load"]:.3f}, featurise '
+                  f'{sec["featurise"]:.3f}, score {sec["score"]:.3f} s); '
+                  f'host featurisation share '
+                  f'{sec["featurise"] / sec["total"]:.3f}; launches {counts}'
+                  f'; max|gpu - cpu| over the first {SCREEN_CPU_POSES} '
+                  f'{diff:.2e}')
+    shared, shared_first = featurise_ms(np, SharedReceptorDataset, lib,
+                                        types)
+    plain, plain_first = featurise_ms(np, PointCloudDataset, lib, types)
+    print(f'screen: host featurisation a pose over {SCREEN_POSES} poses: '
+          f'SharedReceptorDataset {shared:.3f} ms (first item, with the '
+          f'receptor precomputation, {shared_first:.3f} ms), '
+          f'PointCloudDataset {plain:.3f} ms (first {plain_first:.3f} ms); '
+          f'ratio {plain / shared:.2f}')
+    return out
+
+
+# ------------------------------------------------------- dropout mask
+DROPOUT_RATE = 0.1
+DROPOUT_SOURCE = 'pointvs_tpu_torch/ops/csrc/threefry_dropout.cu'
+# Not a TPU kernel: the flax Dropout whose mask it draws (lucid's MLPs).
+DROPOUT_REPLACES = 'pointvs_tpu/models/layers.py:109'
+
+
+def lucid_site_shapes(root: Path, types: Path):
+    """lucid's three dropout sites a layer on the first real pose batch
+    (k=32, 2 fourier features, as LUCID_6L): the edge MLP's first Linear
+    [E_pad, 2 * (2 * 2 + 3 + 1 + 2k)], the coordinate MLP's [E_pad, 4k]
+    and the node MLP's [N_pad, 2k]."""
+    from pointvs_tpu_torch.data.loader import get_data_loader
+    batch = next(iter(get_data_loader(
+        types.parent, types, batch_size=32, radius=10, edge_radius=4,
+        polar_hydrogens=False, prefetch=0, mode='val')))[0]
+    e, n = batch.senders.shape[0], batch.node_feats.shape[0]
+    k = MODEL_KWARGS['k']
+    return {'edge': (e, 2 * (2 * LUCID_6L['fourier_features'] + 4 + 2 * k)),
+            'coors': (e, 4 * k), 'node': (n, 2 * k)}
+
+
+def phase_dropout_kernel(torch, np, root: Path, types: Path):
+    """The dropout-mask kernel against its plain version on the card, on
+    lucid's real site shapes: masks and values bit for bit, forward and
+    backward; the node site's mask against the host's numpy threefry
+    (``ops/prng.bernoulli``, JAX's bits); a size that is not a multiple of
+    4 and a misaligned view (the scalar path). Each site timed against its
+    bound (8 bytes an entry, or OPS_PER_ENTRY integer operations at the
+    f32 rate) and its plain version."""
+    from pointvs_tpu_torch.ops import dropout as dr
+    from pointvs_tpu_torch.ops import prng
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(SEED + 5)
+    keep = float(np.float32(1 - DROPOUT_RATE))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for name, info in dr.kernel_info().items():
+        print(f'dropout kernel: {name}: {info}')
+    err, timings = 0.0, {}
+    shapes = lucid_site_shapes(root, types)
+    for site, shape in shapes.items():
+        key = prng.lucid_site_key(prng.step_key(SEED, 3), 1, site, 6, True)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).requires_grad_()
+        got = dr.threefry_dropout(x, key, DROPOUT_RATE)
+        grad = torch.randn_like(got)
+        got.backward(grad)
+        want = dr.threefry_dropout_plain(x.detach(), key, DROPOUT_RATE)
+        want_grad = dr.threefry_dropout_plain(grad, key, DROPOUT_RATE)
+        again = dr.threefry_dropout(x.detach(), key, DROPOUT_RATE)
+        torch.cuda.synchronize()
+        check(torch.equal(got == 0, want == 0),
+              f'dropout {site}: kernel and plain masks differ')
+        check(torch.equal(got, want) and torch.equal(x.grad, want_grad)
+              and torch.equal(got, again),
+              f'dropout {site}: kernel values or gradient differ from '
+              f'plain')
+        err = max(err, (got - want).abs().max().item())
+        dropped = float((got == 0).float().mean())
+        if site == 'node':
+            host = prng.bernoulli(key, keep, shape)
+            check(np.array_equal((got != 0).cpu().numpy(), host),
+                  'dropout: the node mask is not the host threefry draw')
+        xd = x.detach()
+        launch = lambda: dr.threefry_dropout(  # noqa: E731
+            xd, key, DROPOUT_RATE)
+        n = xd.numel()
+        v = dict(ms=time_cuda(torch, launch, flush),
+                 device_ms=profiled_ms(torch, launch, flush,
+                                       'threefry_dropout'),
+                 plain_ms=time_cuda(torch, lambda: dr.threefry_dropout_plain(
+                     xd, key, DROPOUT_RATE), flush),
+                 # torch's own dropout draws another (Philox) mask: a
+                 # yardstick of speed only, not the same function.
+                 torch_dropout_ms=time_cuda(
+                     torch, lambda: torch.nn.functional.dropout(
+                         xd, DROPOUT_RATE), flush),
+                 library_ms=None,
+                 bound=bound_ms(8 * n, dr.OPS_PER_ENTRY * n))
+        timings[f'dropout_{site}'] = v
+        print(f'dropout kernel: site {site} {list(shape)} ({n} entries) '
+              f'dropped {dropped:.4f} ms={v["ms"]:.4f} (profiler device '
+              f'time {v["device_ms"]:.4f}) plain_ms={v["plain_ms"]:.4f} '
+              f'bound_ms={v["bound"][0]:.4f} ({v["bound"][1]}) '
+              f'share_of_bound={v["bound"][0] / v["ms"]:.3f} '
+              f'torch.nn.functional.dropout (another mask) '
+              f'{v["torch_dropout_ms"]:.4f} ms; masks, values and '
+              f'gradients equal to plain')
+    key = prng.step_key(SEED, 9)
+    for label, x in (('odd size', torch.randn(1001, 3, device=dev)),
+                     ('misaligned', torch.randn(4097, device=dev)[1:])):
+        got = dr.threefry_dropout(x, key, DROPOUT_RATE)
+        check(torch.equal(got, dr.threefry_dropout_plain(
+            x, key, DROPOUT_RATE)), f'dropout: {label} differs from plain')
+    print(f'dropout kernel: odd size and misaligned view equal to plain; '
+          f'max_abs_err {err:.2e}')
+    return err, timings
+
+
 # ----------------------------------------------------------------- 6
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-3
@@ -1369,8 +1586,9 @@ def phase_training_cli(torch, np, root: Path, types: Path, card: str):
 # ----------------------------------------------------------------- 8
 # The lucid and en_transformer families through the Trainer, 5 steps on
 # the card against the same on the CPU (depth cut to 3 layers for the CPU
-# runs' time; lucid also with dropout 0.1, whose masks the port draws from
-# the step's seed, the same on both devices).
+# runs' time; lucid also with dropout 0.1, whose masks are the
+# reference's under the step's JAX key on both devices: the kernel of
+# ops/dropout.py on the card, its plain version on the CPU).
 FAMILY_TRAIN = {
     'lucid_3l': ('lucid', dict(LUCID_6L, num_layers=3)),
     'lucid_3l_dropout': ('lucid', dict(LUCID_6L, num_layers=3,
@@ -1419,6 +1637,11 @@ def phase_family_training(torch, np, root: Path, types: Path, card: str):
               and gpu['segment_offsets'] <= 2 * TRAIN_STEPS,
               f'{name}: launches {gpu}, expected K1 >= {k1_min}, no K2-K4, '
               f'at most 2 offset computations a step')
+        drops = 2 * 3 * flags['num_layers'] * TRAIN_STEPS \
+            if flags.get('dropout') else 0   # 3 sites a layer, fwd + bwd
+        check(gpu['threefry_dropout'] == drops,
+              f'{name}: {gpu["threefry_dropout"]} dropout-mask launches, '
+              f'expected {drops}')
         check(not any(counts['cpu'].values()),
               f'{name}: a CPU run launched a CUDA kernel')
         diff = float(np.abs(losses['cuda'] - losses['cpu']).max())
@@ -1515,6 +1738,25 @@ def phase_multitask_cli(torch, np, root: Path, types: Path, card: str):
         rows = (run / fname).read_text().splitlines()
         check(len(rows) >= 64, f'multitask CLI: {fname} has {len(rows)} '
                                f'rows')
+    # The pose serve of the run: from its newest checkpoint (either task:
+    # the affinity phase's trunk, the reference's choice) and from the pose
+    # phase's own checkpoint (the port's choice before this check).
+    from pointvs_tpu_torch import inference
+    served = {}
+    for label, path in (('newest', run),
+                        ('pose', run / MT_RUN_FILES[0])):
+        trainer = inference.main([str(path), str(types), data,
+                                  '--model_task', 'both', '--output_fname',
+                                  f'served_{label}.txt'])
+        served[label] = (trainer.val_scores, (trainer.p_epoch,
+                                              trainer.a_epoch))
+    check(served['newest'][1] == (1, 1) and served['pose'][1] == (1, 0),
+          f'multitask serve: checkpoints {served}')
+    choice = np.abs(served['newest'][0] - served['pose'][0])
+    print(f'multitask CLI: {card}: pose scores of the {len(choice)} poses, '
+          f'newest (affinity-phase) checkpoint against the pose '
+          f'checkpoint: max |diff| {choice.max():.4f}, mean '
+          f'{choice.mean():.4f}')
     ms = np.asarray(gpu.step_ms())
     print(f'multitask CLI: {card}: {steps} steps (pose, pose, affinity, '
           f'affinity), wall {wall:.3f} s; launches {counts} (K2 '
@@ -1936,38 +2178,98 @@ def phase_double_refused(root: Path, types: Path):
           f'{proc.stderr.strip().splitlines()[-1]}')
 
 
+LUCID_STEP_FLAGS = dict(LUCID_6L, num_layers=3, dropout=DROPOUT_RATE)
+LUCID_STEP_COUNT = 12
+
+
+def lucid_step_ms(package_root: str) -> int:
+    """``--lucid-step ROOT``: the lucid 3-layer ``--dropout 0.1`` step of
+    the port found under ROOT (a checkout of any commit of this
+    repository), as ``Trainer.train_model`` takes it on the pose set at
+    batch 32: step ms by CUDA events, printed as one JSON line. Run it for
+    two trees in turns in one call to compare them."""
+    sys.path.insert(0, str(Path(package_root).resolve()))
+    import numpy as np
+    import torch
+    import pointvs_tpu_torch
+    from pointvs_tpu_torch.data.loader import get_data_loader
+    from pointvs_tpu_torch.training.engine import Trainer
+    check(torch.cuda.is_available(), 'torch.cuda.is_available() is False')
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        types, _ = write_pose_set(np, root / 'data')
+        host = list(get_data_loader(types.parent, types, batch_size=32,
+                                    radius=10, edge_radius=4,
+                                    polar_hydrogens=False, prefetch=0))
+        steps = [host[i % len(host)] for i in range(LUCID_STEP_COUNT)]
+        trainer = Trainer('lucid', root / 'run', torch.device('cuda'),
+                          learning_rate=TRAIN_LR, weight_decay=1e-4,
+                          seed=SEED, **dict(MODEL_KWARGS, **LUCID_STEP_FLAGS))
+        trainer.train_model(steps, epochs=1)
+        ms = trainer.step_ms()
+    print(json.dumps({'package': str(Path(
+        pointvs_tpu_torch.__file__).parent), 'lucid_step_flags':
+        LUCID_STEP_FLAGS, 'step_ms': [round(v, 3) for v in ms],
+        'median_ms_after_2': statistics.median(ms[2:]),
+        'losses': trainer.train_losses}))
+    return 0
+
+
 def main() -> int:
+    phase_seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[name] = round(time.perf_counter() - start, 1)
+        return out
+
     try:
         import numpy as np
         import torch
         card = phase_device(torch)
         check((RESOURCES / 'lig_0.parquet').exists(),
               f'{RESOURCES} is missing: run from a checkout of the repo')
-        phase_build()
-        err, timings = phase_kernels(torch, np)
-        fused_err, fused_timings = phase_fused_kernels(torch, np)
+        timed('build', phase_build)
+        err, timings = timed('kernels', phase_kernels, torch, np)
+        fused_err, fused_timings = timed('fused_kernels',
+                                         phase_fused_kernels, torch, np)
         err.update(fused_err)
         timings.update(fused_timings)
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
             types, n_poses = write_pose_set(np, root / 'data')
-            launches = phase_serving(torch, np, root, types, n_poses)
-            recv_err, recv_timings = phase_receiver_sorted(torch, np, root,
-                                                           types)
+            launches = timed('serving', phase_serving, torch, np, root,
+                             types, n_poses)
+            screen_launches = timed('screen', phase_screen, torch, np, root,
+                                    card)
+            recv_err, recv_timings = timed(
+                'receiver_sorted', phase_receiver_sorted, torch, np, root,
+                types)
             err['k1'] = max(err['k1'], recv_err)
             timings.update(recv_timings)
-            train_launches = phase_training(torch, np, root, types)
-            cli_launches = phase_training_cli(torch, np, root, types, card)
-            family_launches = phase_family_training(torch, np, root, types,
-                                                    card)
-            mt_launches = phase_multitask_cli(torch, np, root, types, card)
-            input_launches = phase_input_cli(torch, np, root, types,
-                                             n_poses, card)
-            strain_launches = phase_strain_fused(torch, np, root)
-            bf16_launches = phase_bf16(torch, np, root, types, n_poses,
-                                       card)
-            sp_launches = phase_synthpharm(torch, np, root, types, card)
-            phase_double_refused(root, types)
+            err['dropout'], drop_timings = timed(
+                'dropout_kernel', phase_dropout_kernel, torch, np, root,
+                types)
+            timings.update(drop_timings)
+            train_launches = timed('training', phase_training, torch, np,
+                                   root, types)
+            cli_launches = timed('training_cli', phase_training_cli, torch,
+                                 np, root, types, card)
+            family_launches = timed('family_training',
+                                    phase_family_training, torch, np, root,
+                                    types, card)
+            mt_launches = timed('multitask_cli', phase_multitask_cli, torch,
+                                np, root, types, card)
+            input_launches = timed('input_cli', phase_input_cli, torch, np,
+                                   root, types, n_poses, card)
+            strain_launches = timed('strain_fused', phase_strain_fused,
+                                    torch, np, root)
+            bf16_launches = timed('bf16', phase_bf16, torch, np, root,
+                                  types, n_poses, card)
+            sp_launches = timed('synthpharm', phase_synthpharm, torch, np,
+                                root, types, card)
+            timed('double_refused', phase_double_refused, root, types)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1982,8 +2284,10 @@ def main() -> int:
                 'bound_by': v['bound'][1], 'library_ms': v['library_ms']}
 
     def served(kernel, names=None):
-        """Launches of ``kernel`` over the serving runs (or ``names``)."""
-        return sum(counts[kernel] for name, counts in launches.items()
+        """Launches of ``kernel`` over the serving runs (or ``names``) and
+        the screens."""
+        return sum(counts[kernel] for name, counts in
+                   list(launches.items()) + list(screen_launches.items())
                    if names is None or name in names)
 
     softmax_runs = [name for name in SERVING if name != 'sigmoid_3l']
@@ -2000,6 +2304,9 @@ def main() -> int:
               train_launches['k3'], 'k3', 'k3'),
         entry('fused_edge_backward', K4_SOURCE, K4_REPLACES,
               train_launches['k4'], 'k4', 'k4'),
+        entry('threefry_dropout', DROPOUT_SOURCE, DROPOUT_REPLACES,
+              family_launches['lucid_3l_dropout']['threefry_dropout'],
+              'dropout', 'dropout_edge'),
     ]
     print(f'launches on the main paths: serving {launches}; training '
           f'(module path K1/K2, fused path K3/K4) {train_launches}; '
@@ -2007,7 +2314,8 @@ def main() -> int:
           f'{family_launches}; multitask CLI {mt_launches}; siamese, '
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
-          f'synthpharm CLI {sp_launches}')
+          f'synthpharm CLI {sp_launches}; screens {screen_launches}')
+    print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -2017,4 +2325,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--lucid-step':
+        sys.exit(lucid_step_ms(sys.argv[2]))
     sys.exit(main())

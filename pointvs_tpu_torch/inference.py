@@ -12,12 +12,12 @@ scores such a model with dE = 0 (ROADMAP.md, Queue 3). A ``--synthpharm``
 run is scored with ``SynthPharmDataset``, as its own validation was (the
 reference's serving CLI reads it as ordinary complexes). A ``--double``
 run is served in float64 with ``--device cpu`` only; on the card the CLI
-exits before any CUDA work. ``--model_task`` picks
-the task (``both`` serves as ``classification``); for a multitask run
-directory it also picks the head and the newest checkpoint of that task. Runs on the GPU unless
-``--device cpu`` is given. ``--num_devices`` is the reference's flag: None
-or 1 runs on the one device; more is refused until data parallelism is
-ported.
+exits before any CUDA work. The newest checkpoint of the run serves, of
+either task for a multitask run, as in the reference; ``--model_task``
+picks the task, and with it a multitask model's head (``both`` serves as
+``classification``). Runs on the GPU unless ``--device cpu`` is given.
+``--num_devices`` is the reference's flag: None or 1 runs on the one
+device; more is refused until data parallelism is ported.
 
 Usage:
     python -m pointvs_tpu_torch.inference <run_dir_or_ckpt> <test_types> \
@@ -41,8 +41,7 @@ LOG = get_logger()
 def get_model_and_test_dl(model_path, test_types, data_root, device,
                           model_task=None, batch_size=None):
     """(trainer, loader) rebuilt from a run directory."""
-    trainer, model_kwargs, cmd_args = load_model(model_path, device,
-                                                 model_task=model_task)
+    trainer, model_kwargs, cmd_args = load_model(model_path, device)
     model_task = model_task or model_kwargs.get('model_task',
                                                 'classification')
     if model_task == 'both':
@@ -83,7 +82,7 @@ def main(argv=None):
     if args.num_devices not in (None, 1):
         raise NotImplementedError(
             f'--num_devices {args.num_devices}: data parallelism is not in '
-            f'the port yet (see ROADMAP.md, Queue 1, item 5)')
+            f'the port yet (see ROADMAP.md, Queue 1, item 7)')
 
     refuse_double_on_cuda(run_args(args.model_path).get('double', False),
                           args.device)

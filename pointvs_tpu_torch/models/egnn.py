@@ -34,9 +34,12 @@ Under ``--double`` the parameters are float64 and the batch arrives in
 float64 (``parallel/steps.py``); ``pool`` still rounds the node
 embeddings to f32 before the head, as the reference's ``pool`` does.
 
-Training options: ``dropout`` drops undirected edges (``ops/edge_dropout``,
-from an explicit per-step seed) when the forward is called with
-``train=True``; ``remat`` recomputes each layer in the backward
+Training options: ``dropout`` drops undirected edges (``ops/edge_dropout``)
+when the forward is called with ``train=True``, by the seed the reference
+draws from the step's JAX key (``dropout_rng``:
+``ops/prng.egnn_edge_dropout_seed``, flax's ``make_rng('dropout')`` in the
+model's root scope and ``randint`` to int32 max) or by an explicit
+``dropout_seed``; ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``nn.remat``.
 """
 from __future__ import annotations
@@ -50,6 +53,7 @@ from pointvs_tpu_torch.models.layers import Linear, activation, mlp
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.edge_dropout import undirected_edge_dropout
 from pointvs_tpu_torch.ops.graphnorm import GraphNorm
+from pointvs_tpu_torch.ops.prng import egnn_edge_dropout_seed
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 _ROADMAP = 'see ROADMAP.md, Queue 1'
@@ -290,14 +294,17 @@ class SartorrasEGNN(nn.Module):
         return k + (1 if self.include_strain_info else 0)
 
     def embed(self, batch: GraphBatch, train: bool = False,
-              dropout_seed=None) -> torch.Tensor:
+              dropout_seed=None, dropout_rng=None) -> torch.Tensor:
         """Input linear + message-passing stack -> node embeddings; with
         ``train``, ``dropout`` of the undirected edges masked out as drawn
-        by ``dropout_seed`` (a uint32)."""
+        by ``dropout_seed`` (a uint32), or by the seed the reference draws
+        from the step's raw JAX key ``dropout_rng``."""
         if train and self.dropout > 0:
+            if dropout_seed is None and dropout_rng is not None:
+                dropout_seed = egnn_edge_dropout_seed(dropout_rng)
             if dropout_seed is None:
                 raise ValueError('a training forward with dropout needs a '
-                                 'dropout_seed')
+                                 'dropout_rng or a dropout_seed')
             batch = batch._replace(edge_mask=undirected_edge_dropout(
                 batch.senders, batch.receivers, batch.edge_mask,
                 self.dropout, dropout_seed))
@@ -348,6 +355,6 @@ class SartorrasEGNN(nn.Module):
         return self.feats_linear_layers(pooled)
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_seed=None) -> torch.Tensor:
-        return self.head(self.pool(self.embed(batch, train, dropout_seed),
-                                   batch))
+                dropout_seed=None, dropout_rng=None) -> torch.Tensor:
+        return self.head(self.pool(
+            self.embed(batch, train, dropout_seed, dropout_rng), batch))

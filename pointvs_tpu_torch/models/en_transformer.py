@@ -139,8 +139,8 @@ class EnTransformer(nn.Module):
                 for i in range(self.num_layers)]
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_seed=None) -> torch.Tensor:
-        del train, dropout_seed   # no dropout in this family
+                dropout_rng=None) -> torch.Tensor:
+        del train, dropout_rng   # no dropout in this family
         h = self.input_embed(batch.node_feats)
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,

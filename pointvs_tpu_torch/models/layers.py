@@ -15,8 +15,8 @@ bias to the compute dtype, as flax's ``Dense(dtype=bfloat16)`` does
 (``--bf16``).
 
 Also the lucid family's pieces: ``fourier_encode_dist``, ``CoorsNorm``
-and ``HashDropout``, a dropout whose mask is a hash of the step's seed
-(the same on any device, like ``ops/edge_dropout``).
+and ``Dropout``, flax's ``nn.Dropout`` under a JAX key
+(``ops/dropout.threefry_dropout``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointvs_tpu_torch.ops.edge_dropout import _MASK32, _mix
+from pointvs_tpu_torch.ops.dropout import threefry_dropout
 
 def _logistic_by_ops(x):
     """1 / (1 + exp(-x)), each op rounded to x's dtype: the reference's
@@ -196,27 +196,18 @@ class CoorsNorm(nn.Module):
         return rel_coors / norm * self.scale
 
 
-class HashDropout(nn.Module):
-    """Inverted dropout drawn from the training step's uint32 seed.
-
-    Entry i (row-major) of the input at dropout site ``site`` is kept when
-    fmix32(fmix32(i ^ seed) ^ key(site)) / 2**32 >= rate, and kept
-    entries are scaled by 1 / (1 - rate), as flax's ``Dropout`` scales
-    them. The mask is a pure function of (seed, site, i), so a CPU and a
-    GPU run drop the same entries; its stream is not flax's. It holds no
-    parameters, so it can sit in a reference-schema Sequential.
-    """
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate)``: with a raw JAX key (uint32[2], the
+    site's flax rng), ``where(keep, x / (1 - rate), 0)`` with ``keep``
+    drawn as ``jax.random.bernoulli(key, 1 - rate, x.shape)``; with no
+    key, the identity. It holds no parameters, so it can sit in a
+    reference-schema Sequential."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, seed=None, site: int = 0):
-        if seed is None or self.rate <= 0:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        if key is None or self.rate <= 0:
             return x
-        idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
-        key = (int(site) * 0x9E3779B9 + 0x7F4A7C15) & _MASK32
-        h = _mix(_mix(idx ^ (int(seed) & _MASK32)) ^ key)
-        keep = (h.to(torch.float32) / 4294967296.0 >= self.rate).view(
-            x.shape)
-        return torch.where(keep, x / (1.0 - self.rate), x.new_zeros(()))
+        return threefry_dropout(x, key, self.rate)

@@ -39,7 +39,7 @@ def _sidecar(path: Path) -> dict:
 
 
 def _task_prefix(task: str) -> str:
-    """Checkpoint name prefix of a task (``both`` serves as pose)."""
+    """Checkpoint name prefix of a task."""
     return 'affinity' if 'regression' in task else 'pose'
 
 
@@ -53,32 +53,35 @@ def run_args(weights_path) -> dict:
     return _sidecar(root / 'cmd_args.yaml')
 
 
-def load_model(weights_path, device, init_path: bool = False,
-               model_task=None):
+def load_model(weights_path, device, init_path: bool = False):
     """Returns (trainer, model_kwargs, cmd_args).
 
     ``init_path`` reopens the run directory for continued training: the
     trainer writes its sidecars and records there, and loads the newest
     checkpoint of the run's task; of a multitask run, the newest of either
     task (every checkpoint holds both epoch counters, so the newest names
-    the phase to continue). Otherwise the trainer is silent, and in a
-    multitask run directory it loads the newest checkpoint of
-    ``model_task`` (default: the run's task). A ``--double`` run loads
-    as float64, on the CPU only.
+    the phase to continue). Otherwise the trainer is silent and loads the
+    newest checkpoint of any task, as the reference's ``load_model`` does:
+    after a ``--model_task both`` run that is the affinity phase's, whose
+    trunk serves both heads (the caller's task picks the head). A
+    ``--double`` run loads as float64, on the CPU only.
+
+    The Trainer takes the reference's default seed (2), not the run's
+    ``--seed``: the reference's ``load_model`` passes none, so a resumed
+    run's dropout keys restart from ``PRNGKey(2)`` at step 0 in both
+    packages.
     """
     from pointvs_tpu_torch.training.engine import Trainer
 
     weights_path = expand_path(weights_path)
     prefix = ''
-    if weights_path.is_dir():
+    if weights_path.is_dir() and init_path:
         saved_task = _sidecar(weights_path / 'model_kwargs.yaml').get(
             'model_task', 'classification')
         multitask = _sidecar(weights_path / 'cmd_args.yaml').get(
             'model') == 'multitask'
-        if init_path and not multitask:
+        if not multitask:
             prefix = _task_prefix(saved_task)
-        elif multitask and not init_path:
-            prefix = _task_prefix(model_task or saved_task)
     ckpt, root = resolve_run(weights_path, prefix)
     model_kwargs = load_yaml(root / 'model_kwargs.yaml') or {}
     cmd_args = _sidecar(root / 'cmd_args.yaml')
@@ -101,7 +104,7 @@ def load_model(weights_path, device, init_path: bool = False,
         warm_restarts=cmd_args.get('warm_restarts', False),
         only_save_best_models=cmd_args.get('only_save_best_models', False),
         regression_loss=cmd_args.get('regression_loss', 'mse'),
-        seed=cmd_args.get('seed', 2), silent=not init_path,
+        silent=not init_path,
         double=cmd_args.get('double', False), **model_kwargs)
     trainer.load_weights(ckpt)
     return trainer, model_kwargs, cmd_args

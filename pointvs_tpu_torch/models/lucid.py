@@ -26,8 +26,16 @@ reference's Dropout modules sit at its indices with no parameters.
 
 Dropout (``dropout`` > 0, ``train=True``) follows the first Linear of the
 edge and coordinate MLPs and the node MLP's first Linear, as in the
-reference; its masks are drawn from the step's uint32 seed by
-``HashDropout`` (the same mask on the CPU and the GPU; not flax's stream).
+reference. A training forward takes the step's raw JAX key
+(``dropout_rng``, what the reference passes as ``rngs={'dropout': ...}``);
+each site's key is the one flax derives for it (``ops/prng.lucid_site_key``:
+the scope path, and under ``scan_layers`` the layer's row of the key's
+split), and its mask is flax's ``bernoulli`` draw (``layers.Dropout``, on
+the card the kernel of ``ops/dropout.py``). The reference's own node-MLP
+dropout is an unnamed ``nn.Dropout`` in a ``setup`` module, which flax
+refuses (``AssignSubModuleError``) whenever ``dropout`` > 0; the port
+gives that site the key flax names it by in a compact layer,
+``Dropout_0`` in the layer's scope (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -35,17 +43,16 @@ import torch
 from torch import nn
 
 from pointvs_tpu_torch.data.buckets import GraphBatch
-from pointvs_tpu_torch.models.layers import (CoorsNorm, HashDropout,
+from pointvs_tpu_torch.models.layers import (CoorsNorm, Dropout,
                                              XavierNormalLinear,
                                              fourier_encode_dist)
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.graphnorm import (GraphNorm, _masked_graph_mean,
                                              broadcast_per_graph)
+from pointvs_tpu_torch.ops.prng import LUCID_SITES, lucid_site_key
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
 _ROADMAP = 'see ROADMAP.md, Queue 1'
-# Dropout sites per layer: the edge MLP, the coordinate MLP, the node MLP.
-_SITES = 3
 
 
 class GraphLayerNorm(nn.Module):
@@ -71,11 +78,10 @@ class GraphLayerNorm(nn.Module):
                            out * self.weight + self.bias, out.new_zeros(()))
 
 
-def _run(seq: nn.Sequential, x, seed, site: int):
-    """A lucid MLP forward; its HashDropout draws from (seed, site)."""
+def _run(seq: nn.Sequential, x, key):
+    """A lucid MLP forward; its Dropout draws under ``key``."""
     for module in seq:
-        x = module(x, seed, site) if isinstance(module, HashDropout) \
-            else module(x)
+        x = module(x, key) if isinstance(module, Dropout) else module(x)
     return x
 
 
@@ -100,7 +106,7 @@ class LucidEGNNLayer(nn.Module):
         final = nn.Tanh() if tanh else nn.Identity()
         eid = fourier_features * 2 + edge_attr_dim + 1 + k * 2
         self.edge_mlp = nn.Sequential(
-            XavierNormalLinear(eid, eid * 2), HashDropout(dropout), nn.SiLU(),
+            XavierNormalLinear(eid, eid * 2), Dropout(dropout), nn.SiLU(),
             XavierNormalLinear(eid * 2, k), nn.SiLU())
         if soft_edge:
             self.edge_weight = (
@@ -118,22 +124,25 @@ class LucidEGNNLayer(nn.Module):
         last = nn.SiLU() if node_final_act else nn.Identity()
         if thin_mlps:
             self.node_mlp = nn.Sequential(
-                XavierNormalLinear(2 * k, k), HashDropout(dropout), norm,
+                XavierNormalLinear(2 * k, k), Dropout(dropout), norm,
                 last)
         else:
             self.node_mlp = nn.Sequential(
-                XavierNormalLinear(2 * k, 2 * k), HashDropout(dropout), norm,
+                XavierNormalLinear(2 * k, 2 * k), Dropout(dropout), norm,
                 nn.SiLU(), XavierNormalLinear(2 * k, k), last)
         if update_coors:
             self.coors_mlp = (
-                nn.Sequential(XavierNormalLinear(k, 1), HashDropout(dropout),
+                nn.Sequential(XavierNormalLinear(k, 1), Dropout(dropout),
                               final) if thin_mlps else
                 nn.Sequential(XavierNormalLinear(k, 4 * k),
-                              HashDropout(dropout), nn.SiLU(),
+                              Dropout(dropout), nn.SiLU(),
                               XavierNormalLinear(4 * k, 1), final))
 
     def forward(self, h, batch: GraphBatch, agg: EdgeAggregator,
-                num_graphs: int, seed=None, site: int = 0):
+                num_graphs: int, keys=None):
+        """``keys``: each dropout site's JAX key by site name
+        (``prng.LUCID_SITES``), or None (no dropout)."""
+        keys = keys or {}
         if agg.inv_recv_perm is not None:
             h_j, h_i = agg.gather_pair(h)   # h[senders], h[receivers]
         else:
@@ -145,10 +154,10 @@ class LucidEGNNLayer(nn.Module):
                       if self.fourier_features > 0 else rel_dist)
         m_ij = _run(self.edge_mlp, torch.cat(
             [h_i[:, 3:], h_j[:, 3:], batch.edge_attr, dist_feats], dim=-1),
-            seed, site)
+            keys.get('edge'))
 
         if self.update_coors:
-            coor_wij = _run(self.coors_mlp, m_ij, seed, site + 1)
+            coor_wij = _run(self.coors_mlp, m_ij, keys.get('coors'))
             if self.norm_coors:
                 rel_coors = self.coors_norm(rel_coors)
             coors = coors + agg.mean_to_dst(coor_wij * rel_coors)
@@ -160,7 +169,7 @@ class LucidEGNNLayer(nn.Module):
                                  batch.node_mask)
                   if self.norm_feats else feats)
         lin1, drop, norm, *rest = self.node_mlp
-        out = drop(lin1(torch.cat([hidden, m_i], dim=-1)), seed, site + 2)
+        out = drop(lin1(torch.cat([hidden, m_i], dim=-1)), keys.get('node'))
         if self.graphnorm:
             out = norm(out, batch.graph_id, num_graphs, batch.node_mask)
         for module in rest:
@@ -195,9 +204,11 @@ class LucidEGNN(nn.Module):
                  edge_shard_axis: str | None = None,
                  scan_layers: bool = False):
         super().__init__()
-        # scan_layers only changes the JAX parameter layout (models/params.py
-        # reads both); model_task does not change the network.
-        del scan_layers, model_task
+        # scan_layers changes the JAX parameter layout (models/params.py
+        # reads both) and the dropout keys' scopes; model_task does not
+        # change the network.
+        del model_task
+        self.scan_layers = scan_layers
         if edge_shard_axis is not None:
             raise NotImplementedError(
                 f'edge_shard_axis is not in the port yet (scale-out; '
@@ -217,14 +228,19 @@ class LucidEGNN(nn.Module):
         self.feats_linear_layers = nn.Sequential(
             XavierNormalLinear(k, dim_output))
 
+    def _site_keys(self, layer: int, dropout_rng) -> dict:
+        return {site: lucid_site_key(dropout_rng, layer, site,
+                                     self.num_layers, self.scan_layers)
+                for site in LUCID_SITES}
+
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_seed=None) -> torch.Tensor:
-        seed = None
-        if train and self.dropout > 0:
-            if dropout_seed is None:
-                raise ValueError('a training forward with dropout needs a '
-                                 'dropout_seed')
-            seed = dropout_seed
+                dropout_rng=None) -> torch.Tensor:
+        """Logits; a training forward with dropout takes the step's raw
+        JAX key ``dropout_rng`` (uint32[2])."""
+        dropping = train and self.dropout > 0
+        if dropping and dropout_rng is None:
+            raise ValueError('a training forward with dropout needs a '
+                             'dropout_rng')
         h = torch.cat([batch.coords, self.layers[0](batch.node_feats)],
                       dim=-1)
         agg = EdgeAggregator(batch.senders, batch.receivers,
@@ -233,7 +249,8 @@ class LucidEGNN(nn.Module):
                              inv_recv_perm=batch.inv_recv_perm)
         num_graphs = batch.graph_mask.shape[0]
         for i, layer in enumerate(self.layers[1:]):
-            h = layer(h, batch, agg, num_graphs, seed, site=_SITES * i)
+            h = layer(h, batch, agg, num_graphs,
+                      self._site_keys(i, dropout_rng) if dropping else None)
         pooled = masked_graph_mean_pool(h[:, 3:], batch.graph_id, num_graphs,
                                         batch.node_mask)
         return self.feats_linear_layers(pooled)

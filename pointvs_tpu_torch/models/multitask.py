@@ -78,7 +78,8 @@ class MultitaskSatorrasEGNN(SartorrasEGNN):
         return self.feats_linear_layers_affinity(pooled)
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_seed=None,
+                dropout_seed=None, dropout_rng=None,
                 task: str = 'classification') -> torch.Tensor:
-        return self.head(self.pool(self.embed(batch, train, dropout_seed),
-                                   batch), task)
+        return self.head(self.pool(
+            self.embed(batch, train, dropout_seed, dropout_rng), batch),
+            task)

@@ -51,10 +51,10 @@ class SiameseEGNN(nn.Module):
                         ('silu', 'silu', 'identity'))
 
     def forward(self, batch: SiamesePair, train: bool = False,
-                dropout_seed=None) -> torch.Tensor:
-        """The towers have no dropout; ``train`` and ``dropout_seed`` are
+                dropout_rng=None) -> torch.Tensor:
+        """The towers have no dropout; ``train`` and ``dropout_rng`` are
         the Trainer's common arguments."""
-        del train, dropout_seed
+        del train, dropout_rng
         embedding = torch.cat([self.rec_tower(batch.rec),
                                self.lig_tower(batch.lig)], dim=-1)
         return self.head(nn.functional.silu(embedding))

@@ -97,11 +97,11 @@ class DenseEGNN(nn.Module):
             cutoff=cutoff) for _ in range(num_layers)])
         self.head = nn.Linear(k, dim_output)
 
-    def forward(self, batch, train: bool = False, dropout_seed=None):
+    def forward(self, batch, train: bool = False, dropout_rng=None):
         """``batch``: a ``DenseBatch`` or the bare (p, v, m) tuple. The
-        family has no dropout; ``train`` and ``dropout_seed`` are the
+        family has no dropout; ``train`` and ``dropout_rng`` are the
         Trainer's common arguments."""
-        del train, dropout_seed
+        del train, dropout_rng
         p, v, m = ((batch.p, batch.v, batch.m)
                    if isinstance(batch, DenseBatch) else batch)
         return self.forward_pvm(p, v, m)

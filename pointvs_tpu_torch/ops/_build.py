@@ -25,6 +25,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_U32, _F32 = ctypes.c_uint32, ctypes.c_float
 # C signature of every exported function, by library.
 SIGNATURES = {
     'segment_kernels': {
@@ -55,6 +56,12 @@ SIGNATURES = {
         # int[5]: registers, spill bytes, static and dynamic shared bytes,
         # blocks resident per SM
         'pvs_fused_backward_info': (_P,),
+    },
+    'threefry_dropout': {
+        # x, out, numel, key words k0 and k1, keep probability, stream
+        'pvs_threefry_dropout': (_P, _P, _I64, _U32, _U32, _F32, _P),
+        # variant index (0 scalar, 1 float4), int[5] as above
+        'pvs_threefry_dropout_info': (_I, _P),
     },
 }
 

@@ -222,17 +222,19 @@ def kernel_info() -> dict:
 
 def _launch_counted():
     from pointvs_tpu_torch.ops.fused_egnn import fused_edge_forward
+    from pointvs_tpu_torch.ops.dropout import threefry_dropout
     from pointvs_tpu_torch.ops.fused_egnn_bwd import fused_edge_backward
     return {'segment_offsets': segment_offsets,
             'segment_sum_sorted': windowed_segment_sum,
             'softmax_aggregate_sorted': fused_softmax_aggregate,
             'fused_edge_forward': fused_edge_forward,
-            'fused_edge_backward': fused_edge_backward}
+            'fused_edge_backward': fused_edge_backward,
+            'threefry_dropout': threefry_dropout}
 
 
 def launch_counts() -> dict:
-    """Launches so far of every CUDA kernel of the port (K1-K4), and the
-    offset computations on a GPU, by name."""
+    """Launches so far of every CUDA kernel of the port (K1-K4 and the
+    dropout mask), and the offset computations on a GPU, by name."""
     return {name: fn.launches for name, fn in _launch_counted().items()}
 
 

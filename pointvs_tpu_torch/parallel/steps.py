@@ -68,10 +68,11 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
                     with_metrics: bool = False,
                     use_fused: bool = False,
                     multitask: bool = False) -> Callable:
-    """Returns ``step(batch, lr, dropout_seed=None)``: one optimiser step
-    on a batch of tensors on the model's device, with the model's edge
-    dropout drawn from ``dropout_seed`` (a uint32; the reference's step
-    rng). It returns the loss (a 0-d tensor, left on the device) or, with
+    """Returns ``step(batch, lr, dropout_rng=None)``: one optimiser step
+    on a batch of tensors on the model's device, with the model's dropout
+    drawn under ``dropout_rng`` (the step's raw JAX key, uint32[2]: what
+    the reference's step passes as ``rngs={'dropout': ...}``, after its
+    fold of the device index). It returns the loss (a 0-d tensor, left on the device) or, with
     ``with_metrics``, the 5-vector ``[loss, act_sum, act_cnt, dec_sum,
     dec_cnt]``.
 
@@ -84,16 +85,16 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
     model_input = _model_input(model)
     to_f32 = _is_double(model)
 
-    def forward(batch, dropout_seed):
+    def forward(batch, dropout_rng):
         if use_fused:   # fused configurations have no dropout
             return fused_apply(model, batch, **apply_kwargs)
-        return model(batch, train=True, dropout_seed=dropout_seed,
+        return model(batch, train=True, dropout_rng=dropout_rng,
                      **apply_kwargs)
 
-    def step(batch, lr: float, dropout_seed=None) -> torch.Tensor:
+    def step(batch, lr: float, dropout_rng=None) -> torch.Tensor:
         model.train()
         batch = model_input(batch)
-        logits = forward(batch, dropout_seed)
+        logits = forward(batch, dropout_rng)
         loss_sum, weight = loss_fn(logits, batch, model_task,
                                    regression_loss)
         loss = loss_sum / torch.clamp_min(weight, 1.0)

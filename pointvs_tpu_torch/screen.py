@@ -1,0 +1,241 @@
+"""Library screening: rank a ligand library against one receptor with a
+trained model (counterpart of ``pointvs_tpu/screen.py``, its host-streamed
+scoring path).
+
+The library (a directory searched for ``*.parquet``, a glob or one file)
+is sorted by file size, so that batches hold poses of similar size, and
+written as an unlabelled ``<receptor> <ligand>`` manifest beside the
+output. The run directory's model serves with the run's own graph flags
+(``cmd_args.yaml``) through ``SharedReceptorDataset``, which builds the
+receptor's grid and edges once. One pass over the library pins one node
+and one edge bucket for the whole screen (every batch then has one
+shape); the serving eval step (the module path: K2 with attention, K1
+without) scores every batch, the logits stay on the device until the last
+batch is dispatched and come back in one copy. Scores are the sigmoid of
+the pose logit (classification) or the mean of the outputs (regression),
+written ranked as ``ligand,score,rank``.
+
+Refused by name, as missing features (``NotImplementedError`` naming
+ROADMAP.md): ``--attribute_top > 0`` (attribution) and ``--num_devices``
+above 1 (data parallelism). Refused as runs the reference's screen does
+not serve as trained (``ValueError`` naming the flag):
+``--include_strain_info``, ``--extended_atom_types``, ``--synthpharm`` and
+the receptor/ligand pair and dense layouts. The reference's resident,
+chunked, grouped and one-shot scoring programs (its ``POINTVS_SCREEN_*``
+and ``POINTVS_DD_*`` variables) give the scores of this path; the port
+reads none of them.
+
+Usage:
+    python -m pointvs_tpu_torch.screen <run_dir> <receptor.parquet> \\
+        <ligand_dir_or_glob> --output hits.csv --batch_size 256 \\
+        [--cache_dir DIR] [--device cuda|cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import glob
+import os
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pointvs_tpu_torch.data.buckets import pick_bucket, to_device
+from pointvs_tpu_torch.data.loader import get_data_loader
+from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
+from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
+from pointvs_tpu_torch.models.load_model import load_model, run_args
+from pointvs_tpu_torch.models.registry import model_input_kind
+from pointvs_tpu_torch.parallel.steps import make_eval_step
+from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
+
+LOG = get_logger()
+# Run flags the reference's screen leaves out of its loader: a run
+# trained with one is not scored as it was trained (ROADMAP.md, Queue 3).
+UNSERVED_FLAGS = ('include_strain_info', 'extended_atom_types',
+                  'synthpharm')
+
+
+@dataclass
+class ScreenResult:
+    """The ranked rows (``ligand``, ``score``, ``rank``, best first) and
+    the screen's wall seconds by part: ``load`` (model), ``featurise``
+    (the sizing pass, which builds and caches every graph), ``score``
+    (collation, copies, the eval steps and the drain) and ``total``."""
+    rows: list
+    seconds: dict = field(default_factory=dict)
+
+    @property
+    def poses_per_second(self) -> float:
+        return len(self.rows) / max(self.seconds.get('total', 0.0), 1e-12)
+
+
+def _collect_ligands(ligands) -> list:
+    """Absolute paths of the library: every ``*.parquet`` under a
+    directory, the matches of a glob, or the one file, sorted by name."""
+    path = Path(ligands)
+    if path.is_dir():
+        found = sorted(str(p) for p in path.glob('**/*.parquet'))
+    elif any(ch in str(ligands) for ch in '*?['):
+        found = sorted(glob.glob(str(ligands), recursive=True))
+    else:
+        found = [str(path)]
+    # The manifest resolves against '/', so its paths are absolute.
+    return [str(expand_path(p)) for p in found]
+
+
+def refuse_unserved(cmd_args: dict) -> None:
+    """Raise for a run the reference's screen cannot serve as trained."""
+    for flag in UNSERVED_FLAGS:
+        if cmd_args.get(flag):
+            raise ValueError(
+                f'--{flag}: the screen builds its graphs without it, as the '
+                f'reference screen does, so a --{flag} run is not scored as '
+                f'trained (see ROADMAP.md, Queue 3)')
+    model = cmd_args.get('model', 'egnn')
+    kind = model_input_kind(model)
+    if kind != 'graph':
+        raise ValueError(
+            f'model {model!r} takes {kind} batches; the screen builds graph '
+            f'batches only, as the reference screen does (see ROADMAP.md, '
+            f'Queue 3)')
+
+
+def _file_size(path) -> int:
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
+
+
+def screen(model_path, receptor, ligands, output='screen_results.csv',
+           batch_size: int = 256, radius: float = 10,
+           edge_radius: float = 4, estimate_bonds: bool = False,
+           attribute_top: int = 0, num_devices=None, cache_dir=None,
+           device: str = 'cuda') -> ScreenResult:
+    """Score every ligand against ``receptor`` and write the ranked CSV.
+    ``radius``, ``edge_radius`` and ``estimate_bonds`` apply where the
+    run's ``cmd_args.yaml`` does not set them."""
+    if attribute_top > 0:
+        raise NotImplementedError(
+            f'--attribute_top {attribute_top}: attribution is not in the '
+            f'port yet (see ROADMAP.md, Queue 1, item 4)')
+    if num_devices not in (None, 1):
+        raise NotImplementedError(
+            f'--num_devices {num_devices}: data parallelism is not in the '
+            f'port yet (see ROADMAP.md, Queue 1, item 7)')
+    saved = run_args(model_path)
+    refuse_unserved(saved)
+    refuse_double_on_cuda(saved.get('double', False), device)
+    torch_device = resolve_device(device)
+    start = time.perf_counter()
+
+    receptor = expand_path(receptor)
+    lig_files = _collect_ligands(ligands)
+    if not lig_files:
+        raise SystemExit(f'No ligand files found under {ligands}')
+    LOG.info(f'Screening {len(lig_files)} ligands against {receptor.name}')
+    # Size-sorted (a stat, not a parquet read, per file): batches of
+    # similar poses waste less padding under the one pinned bucket.
+    lig_files = sorted(lig_files, key=_file_size)
+    output = Path(output)
+    manifest = output.with_suffix('.types')
+    mkdir(output.parent if output.parent != Path('') else '.')
+    manifest.write_text(''.join(f'{receptor} {lig}\n' for lig in lig_files))
+
+    trainer, model_kwargs, cmd_args = load_model(model_path, torch_device)
+    task = model_kwargs.get('model_task', 'classification')
+    trainer.set_task('classification' if task == 'both' else task)
+    loaded = time.perf_counter()
+
+    loader = get_data_loader(
+        '/', manifest, batch_size=batch_size,
+        dataset_class=SharedReceptorDataset,
+        compact=cmd_args.get('compact', True),
+        radius=cmd_args.get('radius', radius),
+        use_atomic_numbers=cmd_args.get('use_atomic_numbers', False),
+        rot=False, polar_hydrogens=cmd_args.get('hydrogens', False),
+        mode='val', model_task=trainer.model_task,
+        edge_radius=cmd_args.get('edge_radius', edge_radius),
+        estimate_bonds=cmd_args.get('estimate_bonds', estimate_bonds),
+        prune=cmd_args.get('prune', False), cache_dir=cache_dir)
+
+    # One pass over the library pins one bucket for the whole screen; it
+    # also builds every graph into the dataset's memory cache.
+    dataset = loader.dataset
+    sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
+             for i in range(len(dataset))]
+    max_n = max_e = 1
+    for lo in range(0, len(sizes), batch_size):
+        chunk = sizes[lo:lo + batch_size]
+        max_n = max(max_n, sum(s[0] for s in chunk))
+        max_e = max(max_e, sum(s[1] for s in chunk))
+    loader.node_buckets = [pick_bucket(max_n, loader.node_buckets)]
+    loader.edge_buckets = [pick_bucket(max_e, loader.edge_buckets)]
+    LOG.info(f'Screen bucket: {loader.node_buckets[0]} nodes x '
+             f'{loader.edge_buckets[0]} edges (max batch {max_n}/{max_e})')
+    featurised = time.perf_counter()
+
+    eval_fn = make_eval_step(trainer.model, trainer.model_task,
+                             multitask=trainer.multitask)
+    logits, metas = [], []
+    for batch, meta in loader:
+        logits.append(eval_fn(to_device(batch, torch_device)))
+        metas.append(meta)
+    # One copy back, after every batch is dispatched.
+    drained = torch.stack(logits).float().cpu().numpy()
+    rows = []
+    for out, meta in zip(drained, metas):
+        scores = out[meta.graph_mask.reshape(-1) > 0]
+        if trainer.model_task == 'classification':
+            scores = 1 / (1 + np.exp(-scores[:, 0]))
+        else:
+            scores = scores.mean(axis=1)
+        rows += [{'ligand': lig, 'score': float(score)}
+                 for lig, score in zip(meta.lig_fnames, scores)]
+    scored = time.perf_counter()
+
+    rows.sort(key=lambda r: -r['score'])
+    for rank, row in enumerate(rows, start=1):
+        row['rank'] = rank
+    with open(output, 'w', newline='', encoding='utf-8') as f:
+        writer = csv.DictWriter(f, fieldnames=('ligand', 'score', 'rank'))
+        writer.writeheader()
+        writer.writerows(rows)
+    end = time.perf_counter()
+    result = ScreenResult(rows, {
+        'load': loaded - start, 'featurise': featurised - loaded,
+        'score': scored - featurised, 'total': end - start})
+    LOG.info(f'Scored {len(rows)} poses in {result.seconds["total"]:.1f}s '
+             f'({result.poses_per_second:.0f} poses/s end to end); ranked '
+             f'results written to {output}')
+    return result
+
+
+def main(argv=None) -> ScreenResult:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('model', help='Trained run directory or checkpoint')
+    parser.add_argument('receptor', help='Receptor parquet')
+    parser.add_argument('ligands', help='Ligand dir, glob or single file')
+    parser.add_argument('--output', '-o', default='screen_results.csv')
+    parser.add_argument('--batch_size', '-b', type=int, default=256)
+    parser.add_argument('--attribute_top', type=int, default=0)
+    parser.add_argument('--attribution', default='atom_masking')
+    parser.add_argument('--num_devices', type=int, default=None)
+    parser.add_argument('--cache_dir', default=None,
+                        help='On-disk featurisation cache (libraries are '
+                             'screened repeatedly; do not re-featurise)')
+    parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
+    args = parser.parse_args(argv)
+    return screen(args.model, args.receptor, args.ligands,
+                  output=args.output, batch_size=args.batch_size,
+                  attribute_top=args.attribute_top,
+                  num_devices=args.num_devices, cache_dir=args.cache_dir,
+                  device=args.device)
+
+
+if __name__ == '__main__':
+    main()

@@ -10,11 +10,15 @@ files in the reference layout (``training/checkpoints.py``). Unless
 ``silent``, the Trainer writes ``model_kwargs.yaml`` and appends the
 reference's records to ``metrics.jsonl`` (``MetricsLogger``).
 
-Each training step takes one uint32 dropout seed, drawn on the host from
-a ``torch.Generator`` seeded with ``seed`` (the counterpart of the
-reference's per-step rng): the EGNN families drop edges by it and the
-lucid family draws its feature dropout masks from it, so a CPU run and a
-GPU run drop the same edges and entries. ``set_task`` switches the task,
+Each training step takes the reference's dropout key, computed on the
+host (``ops/prng.step_key``): ``fold_in(fold_in(split(PRNGKey(seed))[1],
+global_iter), 0)``, the reference Trainer's key for the step folded with
+the one device's index. The EGNN families draw their edge-dropout seed
+from it and the lucid family its masks, as the reference's flax models
+do, so the port drops the edges and entries that the reference drops, on
+the CPU and on the GPU. ``global_iter`` counts the Trainer's steps from
+0; a Trainer rebuilt to resume starts it at 0 again, as the reference's
+does. ``set_task`` switches the task,
 and with it the multitask model's head and the epoch counter that
 ``epoch`` reads (``p_epoch`` for pose, ``a_epoch`` for affinity).
 ``profile`` traces steps 3-8 of the first epoch with ``torch.profiler``
@@ -50,6 +54,7 @@ from pointvs_tpu_torch.models.layers import init_parameters
 from pointvs_tpu_torch.models.params import load_reference_checkpoint
 from pointvs_tpu_torch.models.registry import build_model, \
     model_input_kind
+from pointvs_tpu_torch.ops.prng import step_key
 from pointvs_tpu_torch.parallel.steps import make_eval_step, \
     make_train_step
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
@@ -120,7 +125,7 @@ class Trainer:
         self.model.to(device).eval()
         self.optimiser = build_optimiser(self.model.parameters(), optimiser,
                                          weight_decay, learning_rate)
-        self.dropout_rng = torch.Generator().manual_seed(seed)
+        self.seed = seed
         self.set_task(model_kwargs.get('model_task', 'classification'))
         self.p_epoch = 0
         self.a_epoch = 0
@@ -168,9 +173,6 @@ class Trainer:
         if self._step_events:
             torch.cuda.synchronize(self.device)
         return [a.elapsed_time(b) for a, b in self._step_events]
-
-    def _next_dropout_seed(self) -> int:
-        return int(torch.randint(0, 1 << 32, (), generator=self.dropout_rng))
 
     # ------------------------------------------------------------------ #
     def training_setup(self, data_loader, epochs: int,
@@ -254,13 +256,13 @@ class Trainer:
             for batch_idx, (batch, _) in enumerate(data_loader):
                 prof = self._profiler(epoch_idx, init_epoch, batch_idx, prof)
                 lr_now = self.scheduler(sched_step)
-                seed = self._next_dropout_seed()
+                dropout_rng = step_key(self.seed, self.global_iter)
                 batch = to_device(batch, self.device)
                 if timed:
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                     events[0].record()
-                stats = step_fn(batch, lr_now, seed)
+                stats = step_fn(batch, lr_now, dropout_rng)
                 if timed:
                     events[1].record()
                     self._step_events.append(events)

@@ -22,7 +22,8 @@ chip_smoke.py, and in their JAX layout by tests/test_torch_fused_egnn.py):
 a hub sender over several tiles, senders of exactly 64 and 65 edges, tiles
 straddling senders and blocks, 64+ consecutive masked edges (a tile of NaN
 canaries in ``prev``), blocks without edges, K = 20 and K = 13; K3 and K4
-run twice must give identical bits.
+run twice must give identical bits. The dropout-mask kernel
+(``ops/dropout.py``) equals its plain version and the CPU's bit for bit.
 Tolerance atol 1e-5, rtol 1e-5 (f32 sums of the same terms in a different
 order); K4's parameter gradients, sums over every edge, atol 3e-5 x
 max(1, |plain|).
@@ -554,3 +555,32 @@ def test_destination_aggregations_on_gpu_match_cpu(case, cuda_device):
     assert after['segment_offsets'] == counts['segment_offsets'] + 2
     for g, w in zip(got, run(torch.device('cpu'))):
         torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1001, 37), (4096, 64), (7,)],
+                         ids=str)
+def test_threefry_dropout_matches_plain_and_the_cpu(shape, cuda_device):
+    """The dropout-mask kernel (scalar and float4 paths) against its plain
+    version on the card and on the CPU: masks, values and the gradient bit
+    for bit; a misaligned view takes the scalar path."""
+    from pointvs_tpu_torch.ops import prng
+    from pointvs_tpu_torch.ops.dropout import threefry_dropout, \
+        threefry_dropout_plain
+    key = prng.step_key(4, 2)
+    x = torch.from_numpy(np.random.RandomState(3).randn(*shape).astype(
+        np.float32))
+    gpu = x.to(cuda_device).requires_grad_(True)
+    before = threefry_dropout.launches
+    got = threefry_dropout(gpu, key, 0.1)
+    got.backward(torch.ones_like(got))
+    assert threefry_dropout.launches == before + 2
+    want = threefry_dropout(x, key, 0.1)
+    assert torch.equal(got.detach().cpu(), want)
+    assert torch.equal(got.detach(), threefry_dropout_plain(
+        gpu.detach(), key, 0.1))
+    assert torch.equal(gpu.grad.cpu(), threefry_dropout(
+        torch.ones_like(x), key, 0.1))
+    view = torch.cat([x.new_zeros(1), x.reshape(-1)]).to(cuda_device)[1:]
+    assert torch.equal(threefry_dropout(view, key, 0.1).cpu(),
+                       threefry_dropout(x.reshape(-1), key, 0.1))

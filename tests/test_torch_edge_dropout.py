@@ -4,8 +4,11 @@ The undirected mask equals ``pointvs_tpu.ops.edge_dropout`` bit for bit
 (node ids up to 2**31 - 1, four seeds); (i, j) and (j, i) share their
 fate; a training forward with a fixed seed equals the JAX model's
 ``apply(..., train=True)`` within 1e-5 when the JAX model draws the same
-seed (its draw is replaced inside the test); remat leaves the loss and
-every gradient unchanged within 1e-6.
+seed (its draw is replaced inside the test); under the step's JAX key the
+port draws the seed the reference draws (flax's ``make_rng('dropout')``
+in the model's root scope, then ``randint``) and its training forward
+equals the reference's, for egnn and multitask, with nothing replaced;
+remat leaves the loss and every gradient unchanged within 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -15,11 +18,15 @@ import torch
 
 from pointvs_tpu.ops.edge_dropout import \
     undirected_edge_dropout as jax_edge_dropout
+import flax.linen as fnn
+from pointvs_tpu.models import build_model as build_jax_model
+from pointvs_tpu_torch.ops import prng
 from pointvs_tpu_torch.ops.edge_dropout import undirected_edge_dropout
 from pointvs_tpu_torch.training.losses import loss_fn
 from tests.setup_and_params import ORIGINAL_GRAPH
-from tests.test_torch_egnn import jax_model_and_params, port_batch, \
-    port_model
+from tests.test_torch_egnn import DIM_IN, K, LAYERS, jax_batch, \
+    jax_model_and_params, port_batch, port_model
+from tests.test_torch_lucid import FWD_TOL, draw_params, port_from_jax
 
 FLAGS = dict(residual=True, normalize=True, tanh=True, graphnorm=True,
              edge_attention=True, softmax_attention=True, dropout=0.3)
@@ -77,6 +84,32 @@ def test_train_forward_matches_jax_with_the_same_seed(monkeypatch):
     assert np.abs(want - plain).max() > 1e-4   # the mask changed it
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got_eval, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize('name', ['egnn', 'multitask'])
+def test_egnn_dropout_key_and_forward_match_flax(name):
+    """The EGNN's ``make_rng('dropout')`` in its root scope, its randint
+    seed, and the training forward it drops edges by."""
+    batch = jax_batch(3, seed=1)
+    kwargs = dict(dim_input=DIM_IN, k=K, dim_output=1, num_layers=LAYERS,
+                  residual=True, normalize=True, edge_attention=True,
+                  softmax_attention=True, dropout=0.3)
+    model = build_jax_model(name, **kwargs)
+    params = draw_params(model, batch, seed=2)
+    key = prng.step_key(4, 9)
+    rngs = {'dropout': jnp.asarray(key)}
+    root = fnn.apply(lambda m: m.make_rng('dropout'), model)(
+        params, rngs=rngs)
+    np.testing.assert_array_equal(prng.make_rng(key, ()), np.asarray(root))
+    assert prng.egnn_edge_dropout_seed(key) == int(jax.random.randint(
+        root, (), 0, jnp.iinfo(jnp.int32).max))
+    want = np.asarray(model.apply(params, batch, train=True, rngs=rngs))
+    plain = np.asarray(model.apply(params, batch))
+    port = port_from_jax(name, params, **kwargs)
+    with torch.no_grad():
+        got = port(port_batch(batch), train=True, dropout_rng=key).numpy()
+    assert np.abs(want - plain).max() > 1e-4
+    np.testing.assert_allclose(got, want, **FWD_TOL)
 
 
 def test_remat_leaves_loss_and_gradients_unchanged():

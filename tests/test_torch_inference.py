@@ -97,15 +97,17 @@ def test_orbax_run_dir_is_refused(tmp_path):
         resolve_run(tmp_path)
 
 
-# Modules of the training slice and of the model families that the walk
-# below must reach.
+# Modules of the training slice, the model families and the screen that
+# the walk below must reach.
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
     'training.losses', 'training.optimisers', 'main', 'resume_training',
     'config', 'logging', 'data.loader', 'data.blob', 'ops.edge_dropout',
     'training.metrics_logger', 'models.multitask', 'models.lucid',
-    'models.en_transformer', 'models.siamese', 'models.vanilla')
+    'models.en_transformer', 'models.siamese', 'models.vanilla',
+    'screen', 'data.shared_receptor', 'data.single_item', 'ops.prng',
+    'ops.dropout')
 
 
 def test_port_imports_no_jax():
@@ -139,6 +141,8 @@ def test_port_sources_name_no_jax_module():
         r'(?!_torch)', re.M)
     scanned = sorted(PORT_DIR.rglob('*.py'))
     names = {p.relative_to(PORT_DIR).as_posix() for p in scanned}
-    assert {'models/siamese.py', 'models/vanilla.py'} <= names
+    assert {'models/siamese.py', 'models/vanilla.py', 'screen.py',
+            'data/shared_receptor.py', 'data/single_item.py', 'ops/prng.py',
+            'ops/dropout.py'} <= names
     offenders = [str(p) for p in scanned if pattern.search(p.read_text())]
     assert not offenders

@@ -13,8 +13,9 @@ parameters carried across exactly. Also: a reference-schema state_dict
 (JAX weights put into ``testing/torch_ref.RefLucidEGNN`` by
 ``load_flax_lucid_params``, re-keyed as the reference saves it) loads and
 gives the reference's forward; gradients stay finite through
-padding edges; the port's dropout masks are a function of the seed, at
-the flag's rate.
+padding edges; a training forward with dropout equals the reference's
+under the same JAX key, its own lucid layer made compact (the reference's
+refuses dropout > 0 at init), unscanned and scanned.
 
 The shared helpers here (batches, parameter draws, the port trajectory)
 serve ``test_torch_multitask.py`` and ``test_torch_en_transformer.py``.
@@ -323,32 +324,93 @@ def test_padding_gradients_are_finite():
         assert p.grad is None or torch.isfinite(p.grad).all(), name
 
 
-def test_dropout_masks_follow_the_seed():
-    """Dropout 0 trains as the eval forward does; at 0.3 the mask is a
-    function of the seed (the same seed, the same output; another seed,
-    another output), and the realised rate of one site is within 0.03 of
-    the flag's. The stream is the port's own, not flax's."""
-    from pointvs_tpu_torch.models.layers import HashDropout
-    batch = port_batch(batch_of('asym'))
+def compact_reference_lucid():
+    """The reference's lucid layer (and its scan body) with ``__call__``
+    made compact: the least repair under which flax accepts the layer's
+    inline node-MLP ``nn.Dropout`` (``pointvs_tpu/models/lucid.py:187``),
+    which the reference's own layer refuses whenever dropout > 0. The
+    body is the reference's code object, unchanged."""
+    import types
+
+    import flax.linen as fnn
+    from pointvs_tpu.models import lucid as jax_lucid
+    fn = jax_lucid.LucidEGNNLayer.__call__
+    fn = getattr(fn, '__wrapped__', fn)
+    body = types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                              fn.__defaults__, fn.__closure__)
+    body.__kwdefaults__ = fn.__kwdefaults__
+
+    class CompactLucidLayer(jax_lucid.LucidEGNNLayer):
+        __call__ = fnn.compact(body)
+
+    class CompactLucidScanBody(CompactLucidLayer):
+        def __call__(self, h, batch, agg, edge_mask, train, capture_aux):
+            return CompactLucidLayer.__call__(
+                self, h, batch, agg, edge_mask, train=train,
+                capture_aux=capture_aux)
+
+    return CompactLucidLayer, CompactLucidScanBody
+
+
+def repair_reference_lucid(monkeypatch):
+    """Build the JAX package's lucid models from the compact layer while
+    the test runs (its ``LucidEGNN.setup`` reads the two names)."""
+    from pointvs_tpu.models import lucid as jax_lucid
+    layer, body = compact_reference_lucid()
+    monkeypatch.setattr(jax_lucid, 'LucidEGNNLayer', layer)
+    monkeypatch.setattr(jax_lucid, '_LucidScanBody', body)
+
+
+def test_reference_lucid_refuses_dropout():
+    """The fault the repair above works round: the JAX package's lucid
+    cannot even be initialised with dropout > 0."""
+    import flax
+    model = build_jax_model('lucid', dim_input=DIM_IN, k=K, dim_output=1,
+                            num_layers=LAYERS, dropout=0.1)
+    with pytest.raises(flax.errors.AssignSubModuleError):
+        jax.eval_shape(lambda b: model.init(jax.random.PRNGKey(0), b),
+                       batch_of('asym'))
+
+
+@pytest.mark.parametrize('scan_layers', [False, True],
+                         ids=['layers', 'scan'])
+def test_dropout_masks_follow_the_seed(scan_layers, monkeypatch):
+    """A training forward with dropout 0.3 under one JAX key equals the
+    repaired reference's ``apply(..., train=True, rngs={'dropout': key})``
+    within the forward gate (the port draws each site's mask from the key
+    flax derives for it, unscanned and under ``nn.scan``); another key
+    gives another output; dropout 0 trains as the eval forward does; a
+    training forward with dropout and no key is refused; the realised
+    rate of one site is within 0.03 of the flag's."""
+    from pointvs_tpu_torch.models.layers import Dropout
+    from pointvs_tpu_torch.ops import prng
+    repair_reference_lucid(monkeypatch)
+    batch = batch_of('asym')
+    pb = port_batch(batch)
     kwargs = dict(dim_input=DIM_IN, k=K, dim_output=1, num_layers=LAYERS,
-                  attention=True)
-    torch.manual_seed(0)
-    plain = build_model('lucid', dropout=0.0, **kwargs)
+                  attention=True, fourier_features=2, dropout=0.3)
+    model = build_jax_model('lucid', scan_layers=scan_layers, **kwargs)
+    params = draw_params(model, batch, seed=5)
+    port = port_from_jax('lucid', params, scan_layers=scan_layers,
+                         **kwargs)
+    key = prng.step_key(3, 7)
+    want = np.asarray(model.apply(params, batch, train=True,
+                                  rngs={'dropout': jnp.asarray(key)}))
+    plain = np.asarray(model.apply(params, batch))
     with torch.no_grad():
+        got = port(pb, train=True, dropout_rng=key).numpy()
+        other = port(pb, train=True,
+                     dropout_rng=prng.step_key(3, 8)).numpy()
+        assert np.abs(want - plain).max() > 1e-4   # the masks changed it
+        np.testing.assert_allclose(got, want, **FWD_TOL)
+        assert np.abs(other - got).max() > 1e-4
+        with pytest.raises(ValueError, match='dropout_rng'):
+            port(pb, train=True)
+        port.dropout = 0.0
         np.testing.assert_array_equal(
-            plain(batch, train=True, dropout_seed=7).numpy(),
-            plain(batch).numpy())
-    drop = build_model('lucid', dropout=0.3, **kwargs)
-    drop.load_state_dict(plain.state_dict())
-    with torch.no_grad():
-        a = drop(batch, train=True, dropout_seed=7)
-        b = drop(batch, train=True, dropout_seed=7)
-        c = drop(batch, train=True, dropout_seed=8)
-    assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(ValueError, match='dropout_seed'):
-        drop(batch, train=True)
+            port(pb, train=True, dropout_rng=key).numpy(), port(pb).numpy())
     x = torch.ones(400, 50)
-    kept = HashDropout(0.3)(x, seed=123, site=4)
+    kept = Dropout(0.3)(x, prng.prng_key(123))
     assert abs(float((kept == 0).float().mean()) - 0.3) < 0.03
     assert torch.allclose(kept[kept != 0], torch.tensor(1 / 0.7))
 

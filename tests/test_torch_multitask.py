@@ -416,12 +416,25 @@ def test_serving_cli_scores_affinity_like_jax(both_runs):
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[3:] == w[3:]
         assert abs(float(g[2]) - float(w[2])) <= 1.1e-3
-    # --model_task both serves as classification: the pose checkpoint.
-    pose = inference.main([str(run), str(RESOURCES / 'test.types'),
-                           str(RESOURCES), '--model_task', 'both',
-                           '--device', 'cpu', '--output_fname', 'b.txt'])
-    assert (pose.p_epoch, pose.a_epoch) == (1, 0)
-    assert (run / 'pose_b.txt').exists()
+    # --model_task both serves as classification, the pose head, from the
+    # newest checkpoint of either task (the affinity phase's trunk), as
+    # the JAX serving CLI does: the same rows within the serving gate.
+    pose_args = [str(run), str(RESOURCES / 'test.types'), str(RESOURCES),
+                 '--model_task', 'both']
+    jax_inference(pose_args + ['--num_devices', '1', '--output_fname',
+                               'jax_b.txt'])
+    pose = inference.main(pose_args + ['--device', 'cpu',
+                                       '--output_fname', 'b.txt'])
+    assert (pose.p_epoch, pose.a_epoch) == (1, 1)
+    want = [r.split() for r in (run / 'pose_jax_b.txt')
+            .read_text().splitlines()]
+    got = [r.split() for r in (run / 'pose_b.txt').read_text().splitlines()]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[1] == '|' and g[3:] == w[3:]
+        assert abs(float(g[2]) - float(w[2])) <= 2e-3
+    np.testing.assert_allclose(pose.val_scores, [float(w[2]) for w in want],
+                               atol=2e-3)
 
 
 def test_resume_continues_the_affinity_phase(both_runs, tmp_path):

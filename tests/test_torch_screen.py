@@ -1,0 +1,306 @@
+"""Library screening in the port against the JAX package.
+
+``SharedReceptorDataset``: on a library of seeded poses of the test
+ligand in its pocket and the two test complexes, every item of the port's
+dataset has the JAX package's ``SharedReceptorDataset`` node features
+(array-equal), coordinates (within 1e-6), edge multiset and receiver
+permutation, and equals the port's own ``PointCloudDataset`` item in
+every array (the same edges in the same order); its edges are in
+(sender, receiver) lexical order. At the three radii of
+``tests/test_shared_receptor.py`` and through each fallback (pruning, the
+whole-complex rotation, the ``bp`` filter, ``edge_radius < 0``).
+``_collect_ligands`` on a directory, a glob and one file gives the
+reference's list; ``single_item``'s batches equal the reference's.
+
+The screen: ``pointvs_tpu_torch.screen.screen --device cpu`` against
+``pointvs_tpu.screen.screen`` on the same run directory and a 5-ligand
+library (three poses and two copies of one, so scores tie) at batch 2:
+a pose run and a multitask ``--model_task both`` run (its newest
+checkpoint, the affinity phase's, with the pose head), scores per ligand
+within 1e-5, the CSV's columns and ranks. Each refusal by name.
+"""
+import csv
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from pointvs_tpu.data.dataset import PointCloudDataset as JaxDataset
+from pointvs_tpu.data.shared_receptor import \
+    SharedReceptorDataset as JaxSharedDataset
+from pointvs_tpu.screen import _collect_ligands as jax_collect
+from pointvs_tpu.screen import screen as jax_screen
+from pointvs_tpu_torch import screen as port_screen
+from pointvs_tpu_torch.data.dataset import PointCloudDataset
+from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
+from pointvs_tpu_torch.main import main as port_main
+from tests.setup_and_params import RESOURCES
+from tests.test_torch_multitask import write_affinity_types
+
+N_POSES = 3
+
+
+def _rotation(rng, max_deg):
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    theta = np.deg2rad(rng.uniform(0, max_deg))
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                   [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+
+
+def write_library(root: Path, n_poses=N_POSES, copies=2, seed=1):
+    """Seeded rigid perturbations of the test ligand in its pocket, then
+    ``copies`` byte copies of the first: ``root/lib/*.parquet``."""
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(seed)
+    lig = pq.read_table(RESOURCES / 'lig_0.parquet')
+    lib = root / 'lib'
+    lib.mkdir(parents=True)
+    xyz = np.stack([lig.column(c).to_numpy() for c in 'xyz'], axis=1)
+    centre = xyz.mean(axis=0)
+    for i in range(n_poses):
+        new = ((xyz - centre) @ _rotation(rng, 40).T + centre
+               + rng.standard_normal(3))
+        table = lig
+        for j, col in enumerate('xyz'):
+            table = table.set_column(table.schema.get_field_index(col), col,
+                                     [new[:, j]])
+        pq.write_table(table, lib / f'pose_{i}.parquet')
+    for i in range(copies):
+        shutil.copy(lib / 'pose_0.parquet', lib / f'copy_{i}.parquet')
+    return lib
+
+
+@pytest.fixture(scope='module')
+def library(tmp_path_factory):
+    """(library dir, a types file of its poses against rec_0 and the two
+    test complexes, its data root)."""
+    root = tmp_path_factory.mktemp('screen_lib')
+    lib = write_library(root)
+    shutil.copy(RESOURCES / 'rec_0.parquet', lib / 'rec_0.parquet')
+    shutil.copy(RESOURCES / 'rec.parquet', lib / 'rec.parquet')
+    shutil.copy(RESOURCES / 'lig.parquet', lib / 'lig.parquet')
+    lines = [f'{i % 2} -1 -1 rec_0.parquet {p.name}'
+             for i, p in enumerate(sorted(lib.glob('pose_*.parquet')))]
+    lines += ['1 -1 -1 rec.parquet lig.parquet',
+              '0 -1 -1 rec_0.parquet copy_0.parquet']
+    types = root / 'lib.types'
+    types.write_text('\n'.join(lines) + '\n')
+    return lib, types
+
+
+def _edge_multiset(sample):
+    cls = np.argmax(np.asarray(sample.edge_attr), axis=1)
+    trip = np.stack([np.asarray(sample.senders),
+                     np.asarray(sample.receivers), cls], axis=1)
+    return sorted(map(tuple, trip.tolist()))
+
+
+CASES = {
+    'r6_e4': dict(radius=6, edge_radius=4, estimate_bonds=False),
+    'r8_e4_bonds': dict(radius=8, edge_radius=4, estimate_bonds=True),
+    'r4_e6': dict(radius=4, edge_radius=6, estimate_bonds=False),
+    'prune': dict(radius=6, edge_radius=4, prune=True),
+    'rotation': dict(radius=6, edge_radius=4, rot=True),
+    'bp': dict(radius=6, edge_radius=4, bp=1),
+    'no_edges': dict(radius=6, edge_radius=-1),
+}
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_items_match_jax_and_the_standard_pipeline(library, case):
+    from pointvs_tpu_torch.data.single_item import \
+        get_single_graph_for_inference
+    lib, types = library
+    common = dict(compact=True, polar_hydrogens=False,
+                  model_task='classification', seed=3, **CASES[case])
+    common.setdefault('rot', False)
+    jax_ds = JaxSharedDataset(lib, types_fname=types, **common)
+    fast = SharedReceptorDataset(lib, types, **common)
+    std = PointCloudDataset(lib, types, **common)
+    assert len(fast) == len(std) == len(jax_ds) == N_POSES + 2
+    for i in range(len(fast)):
+        want, got, plain = jax_ds[i], fast[i], std[i]
+        np.testing.assert_array_equal(got.node_feats,
+                                      np.asarray(want.node_feats))
+        np.testing.assert_allclose(got.coords, np.asarray(want.coords),
+                                   atol=1e-6)
+        assert _edge_multiset(got) == _edge_multiset(want)
+        for name in ('node_feats', 'coords', 'senders', 'receivers',
+                     'edge_attr'):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(plain, name), name)
+        s, r = got.senders, got.receivers
+        if len(s) > 1:
+            assert np.all((s[1:] > s[:-1])
+                          | ((s[1:] == s[:-1]) & (r[1:] >= r[:-1])))
+        batch = get_single_graph_for_inference(got)
+        e = got.num_edges
+        rb = batch.receivers[batch.recv_perm]
+        assert np.all(rb[1:] >= rb[:-1])
+        if want.recv_perm is not None:
+            np.testing.assert_array_equal(batch.recv_perm[:e],
+                                          np.asarray(want.recv_perm))
+    if case == 'no_edges':
+        assert fast[0].num_edges == 0
+    if case in ('r6_e4', 'r8_e4_bonds', 'r4_e6'):
+        assert SharedReceptorDataset._shared_cache
+
+
+@pytest.mark.parametrize('kind', ['dir', 'glob', 'file'])
+def test_collect_ligands_matches_jax(library, kind):
+    lib = library[0]
+    arg = {'dir': str(lib), 'glob': str(lib / 'pose_*.parquet'),
+           'file': str(lib / 'copy_1.parquet')}[kind]
+    got = port_screen._collect_ligands(arg)
+    assert got == jax_collect(arg)
+    assert len(got) == {'dir': N_POSES + 5, 'glob': N_POSES,
+                        'file': 1}[kind]
+
+
+@pytest.mark.parametrize('pads', [(None, None), (512, 4096)],
+                         ids=['buckets', 'given'])
+def test_single_item_batches_match_jax(library, pads):
+    from pointvs_tpu.data.single_item import \
+        get_single_graph_for_inference as jax_single
+    from pointvs_tpu.data.single_item import \
+        graph_batch_from_arrays as jax_from_arrays
+    from pointvs_tpu_torch.data.single_item import (
+        get_single_graph_for_inference, graph_batch_from_arrays)
+    lib, types = library
+    common = dict(compact=True, polar_hydrogens=False, radius=6,
+                  edge_radius=4, model_task='classification')
+    sample = SharedReceptorDataset(lib, types, **common)[1]
+    jax_sample = JaxDataset(lib, types_fname=types, **common)[1]
+    n_pad, e_pad = pads
+    pairs = [(get_single_graph_for_inference(sample, n_pad, e_pad),
+              jax_single(jax_sample, n_pad, e_pad)),
+             (graph_batch_from_arrays(
+                 sample.node_feats, sample.coords, sample.senders,
+                 sample.receivers, sample.edge_attr, y=1.0, n_pad=n_pad,
+                 e_pad=e_pad),
+              jax_from_arrays(
+                  jax_sample.node_feats, jax_sample.coords,
+                  jax_sample.senders, jax_sample.receivers,
+                  jax_sample.edge_attr, y=1.0, n_pad=n_pad, e_pad=e_pad))]
+    for got, want in pairs:
+        assert got.graph_mask.shape == (1,)
+        for name in ('node_feats', 'coords', 'node_mask', 'graph_id',
+                     'senders', 'receivers', 'edge_attr', 'edge_mask',
+                     'y', 'graph_mask', 'recv_perm'):
+            np.testing.assert_array_equal(
+                getattr(got, name), np.asarray(getattr(want, name)), name)
+
+
+# ------------------------------------------------------------ screen
+POSE_CLI = ['-ep', '1', '--layers', '2', '-k', '16', '-b', '2', '--compact',
+            '--radius', '6', '--edge_radius', '4', '--estimate_bonds',
+            '--egnn_attention', '--softmax_attention', '--device', 'cpu']
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    """A pose run and a multitask --model_task both run, each trained one
+    epoch by the port's CLI on the test complexes."""
+    root = tmp_path_factory.mktemp('screen_runs')
+    data = ['--train_data_root_pose', str(RESOURCES), '--train_types_pose',
+            str(RESOURCES / 'test.types')]
+    port_main(['egnn', str(root / 'pose')] + data + POSE_CLI)
+    affinity = write_affinity_types(root / 'aff.types', n=4, seed=2)
+    port_main(['multitask', str(root / 'multitask')] + data + [
+        '--train_data_root_affinity', str(RESOURCES),
+        '--train_types_affinity', str(affinity), '--model_task', 'both',
+        '-ea', '1', '--final_softplus'] + POSE_CLI)
+    return root
+
+
+def _csv(path):
+    with open(path, newline='', encoding='utf-8') as f:
+        return list(csv.DictReader(f))
+
+
+@pytest.mark.parametrize('run', ['pose', 'multitask'])
+def test_screen_matches_jax(runs, library, tmp_path, run):
+    lib = library[0]
+    ligands = str(lib / '[pc]o*.parquet')
+    want = jax_screen(runs / run, RESOURCES / 'rec_0.parquet', ligands,
+                      output=str(tmp_path / 'jax.csv'), batch_size=2)
+    got = port_screen.screen(runs / run, RESOURCES / 'rec_0.parquet',
+                             ligands, output=str(tmp_path / 'port.csv'),
+                             batch_size=2, device='cpu')
+    rows = _csv(tmp_path / 'port.csv')
+    assert list(rows[0]) == ['ligand', 'score', 'rank']
+    assert [int(r['rank']) for r in rows] == list(range(1, 6))
+    assert [float(r['score']) for r in rows] == sorted(
+        (float(r['score']) for r in rows), reverse=True)
+    by_ligand = {r['ligand']: float(r['score']) for r in rows}
+    assert by_ligand == {r['ligand']: r['score'] for r in got.rows}
+    jax_scores = dict(zip(want.ligand, want.score))
+    assert sorted(by_ligand) == sorted(jax_scores)
+    for lig, score in by_ligand.items():
+        assert abs(score - jax_scores[lig]) <= 1e-5, lig
+    copies = [by_ligand[str(lib / n)] for n in
+              ('pose_0.parquet', 'copy_0.parquet', 'copy_1.parquet')]
+    assert copies[0] == copies[1] == copies[2]
+    assert len(set(by_ligand.values())) == N_POSES
+    assert (tmp_path / 'port.types').read_text().count('\n') == 5
+    assert set(got.seconds) == {'load', 'featurise', 'score', 'total'}
+
+
+def test_screen_cli_writes_the_ranked_csv(runs, library, tmp_path):
+    out = tmp_path / 'hits.csv'
+    result = port_screen.main([str(runs / 'pose'),
+                               str(RESOURCES / 'rec_0.parquet'),
+                               str(library[0] / 'pose_1.parquet'), '-o',
+                               str(out), '-b', '4', '--device', 'cpu'])
+    rows = _csv(out)
+    assert len(rows) == len(result.rows) == 1
+    assert rows[0]['rank'] == '1' and 0 <= float(rows[0]['score']) <= 1
+
+
+def _run_with(runs, tmp_path, **cmd_args):
+    run = tmp_path / 'run'
+    shutil.copytree(runs / 'pose', run)
+    saved = yaml.safe_load((run / 'cmd_args.yaml').read_text())
+    saved.update(cmd_args)
+    (run / 'cmd_args.yaml').write_text(yaml.dump(saved))
+    return run
+
+
+REFUSED = {
+    'attribute_top': (dict(), dict(attribute_top=3), NotImplementedError,
+                      'ROADMAP.md'),
+    'num_devices': (dict(), dict(num_devices=2), NotImplementedError,
+                    'ROADMAP.md'),
+    'include_strain_info': (dict(include_strain_info=True), {}, ValueError,
+                            '--include_strain_info'),
+    'extended_atom_types': (dict(extended_atom_types=True), {}, ValueError,
+                            '--extended_atom_types'),
+    'synthpharm': (dict(synthpharm=True), {}, ValueError, '--synthpharm'),
+    'pair_layout': (dict(model='siamese'), {}, ValueError, 'siamese'),
+    'dense_layout': (dict(model='lie_conv'), {}, ValueError, 'lie_conv'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(REFUSED))
+def test_refusals_by_name(runs, library, tmp_path, name):
+    saved, kwargs, error, match = REFUSED[name]
+    run = _run_with(runs, tmp_path, **saved)
+    out = tmp_path / 'hits.csv'
+    with pytest.raises(error, match=match):
+        port_screen.screen(run, RESOURCES / 'rec_0.parquet',
+                           str(library[0]), output=str(out), device='cpu',
+                           **kwargs)
+    assert not out.exists() and not out.with_suffix('.types').exists()
+
+
+def test_cuda_without_a_gpu_raises(runs, library, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        port_screen.main([str(runs / 'pose'),
+                          str(RESOURCES / 'rec_0.parquet'),
+                          str(library[0]), '-o', str(tmp_path / 'h.csv')])
