@@ -124,7 +124,8 @@ batch: the ligand tower's coordinates are frozen, so it aggregates with
 K1 at widths 1 and 32), ``dense_egnn`` at 6 layers (no kernel of ours;
 its peak memory is printed) and the README model with
 ``--include_strain_info`` on the strain types file, on the module path
-and through K3.
+and through K3 (served with dE = 0, as the reference's serving CLI
+serves such a run).
 
 Phase 5 also serves the README model and the multitask model with
 ``--bf16`` (bf16 feature MLPs, K2 in f32: 6 launches a batch), and the
@@ -157,9 +158,17 @@ README model (K2 6 a batch) and ``default_3l`` (K1 3 a batch) at batch 256
 and 32, one offset computation a batch and no other kernel; 256 finite
 scores; the first 32 ligands' scores against a ``--device cpu`` screen
 within 1e-4; poses per second and the host featurisation's share of the
-wall; and the host featurisation a pose of ``SharedReceptorDataset``
-against ``PointCloudDataset``. After the K1 receiver check, the dropout
-mask kernel (``ops/csrc/threefry_dropout.cu``) against its plain version
+wall; and the host featurisation a pose of the screen's dataset with the
+native graph library (``pointvs_tpu_torch/native``) and with its numpy
+plain versions in its place, every item array-equal. Then attribution:
+the 7zzp pair parsed by the port's parser; ``attribute`` with each of
+the 12 method names on the README model (K2) and ``default_3l`` (K1)
+runs, on the card against a ``--device cpu`` run of the same call within
+1e-4 (a method the model has no values for stops on both); atom masking
+timed by CUDA events (masked variants a second, ms a 32-copy chunk) with
+K2 6 / K1 3 launches a chunk and K1/K2 on a chunk's own inputs against
+their plain versions; ``screen --attribute_top 4``. After the K1
+receiver check, the dropout mask kernel (``ops/csrc/threefry_dropout.cu``) against its plain version
 on lucid's three site shapes of a real batch (masks, values and
 gradients bit for bit; the node site's mask against the host's threefry),
 on an odd size and a misaligned view, timed against its bound.
@@ -171,6 +180,9 @@ kernel, and as the last line ``{"ok": true, "device": {...}}``.
 3-layer ``--dropout 0.1`` Trainer step of the port under ROOT (any
 checkout of this repository) and prints one JSON line: run it for two
 trees in turns in one call to compare two commits.
+``python3 chip_smoke.py --featurise ROOT`` likewise prints the host
+featurisation a pose over the screen's 256 poses and a ``default_3l``
+screen's poses/s and host share, for the port under ROOT.
 """
 from __future__ import annotations
 
@@ -779,8 +791,8 @@ SERVING = {
                            'segment_sum_sorted': 12}, 2),
     # dense_egnn: all-pairs tensor algebra, no kernel of ours.
     'dense_egnn_6l': ('dense_egnn', DENSE_6L, None, False, {}, 0),
-    # The strain input (the types file's dE into the head) on the module
-    # path and through K3.
+    # The strain model on the module path and through K3 (the serving
+    # CLI scores it with dE = 0, as the reference's does).
     'strain_readme_6l': ('egnn', STRAIN_6L, None, False,
                          {'softmax_aggregate_sorted': 6}, 1),
     'strain_readme_6l_fused': ('egnn', STRAIN_6L, None, True,
@@ -1115,18 +1127,68 @@ SCREEN_RUNS = {'readme_softmax_6l': {'softmax_aggregate_sorted': 6},
 
 def featurise_ms(np, cls, data: Path, types: Path):
     """Host ms a pose of ``cls``'s items over a screen manifest, cold
-    (a fresh dataset), and the first item's ms apart (the shared dataset
-    builds the receptor's grid and edges there)."""
-    from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
-    SharedReceptorDataset._shared_cache.clear()
+    (a fresh dataset), the first item's ms apart (a shared-receptor
+    dataset builds the receptor's grid and edges there), and the items."""
+    # A dataset that keeps a receptor cache starts it empty.
+    getattr(cls, '_shared_cache', {}).clear()
     ds = cls(data, types, radius=10, edge_radius=4, polar_hydrogens=False,
              compact=True, model_task='classification')
-    times = []
+    times, items = [], []
     for i in range(len(ds)):
         start = time.perf_counter()
-        ds[i]
+        items.append(ds[i])
         times.append(time.perf_counter() - start)
-    return 1e3 * float(np.mean(times[1:])), 1e3 * times[0]
+    return 1e3 * float(np.mean(times[1:])), 1e3 * times[0], items
+
+
+def _plain_argsort(ids, max_id):
+    """``native.build.counting_argsort``'s plain version."""
+    import numpy as np
+    del max_id
+    return np.argsort(np.asarray(ids), kind='stable').astype(np.int32)
+
+
+def featurise_native_vs_numpy(np, lib: Path, types: Path) -> dict:
+    """Host featurisation a pose of the screen's dataset
+    (``PointCloudDataset``) over the screen's poses with the native graph
+    library (the main path) and with its numpy plain versions
+    (``make_box_numpy``, ``generate_edges_numpy``, ``np.lexsort``,
+    ``np.argsort``) put in its place; every item's arrays must be
+    equal. Returns {'native': ms, 'numpy': ms, 'native_first': ms,
+    'numpy_first': ms}."""
+    from pointvs_tpu_torch.data import buckets, dataset
+    from pointvs_tpu_torch.data import preprocessing as pre
+    plain = ((dataset, 'make_box', pre.make_box_numpy),
+             (dataset, 'generate_edges', pre.generate_edges_numpy),
+             (dataset, 'lexsort_pairs',
+              lambda rows, cols, _: np.lexsort((cols, rows))),
+             (buckets, 'counting_argsort', _plain_argsort))
+    for path in lib.glob('*.parquet'):   # neither pays the first reads
+        pre.read_struct(path)
+    cls = dataset.PointCloudDataset
+    native_ms, native_first, native_items = featurise_ms(np, cls, lib, types)
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in plain]
+    for module, name, fn in plain:
+        setattr(module, name, fn)
+    try:
+        numpy_ms, numpy_first, numpy_items = featurise_ms(np, cls, lib,
+                                                          types)
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    for got, want in zip(native_items, numpy_items):
+        for field in ('node_feats', 'coords', 'senders', 'receivers',
+                      'edge_attr'):
+            check(np.array_equal(getattr(got, field), getattr(want, field)),
+                  f'featurisation: native and numpy {field} differ')
+    print(f'featurisation: {cls.__name__} over {len(native_items)} poses: '
+          f'native {native_ms:.3f} ms a pose (first item '
+          f'{native_first:.3f}), numpy plain version {numpy_ms:.3f} ms '
+          f'(first {numpy_first:.3f}); numpy / native '
+          f'{numpy_ms / native_ms:.2f}; every item array-equal')
+    return {'native': native_ms, 'numpy': numpy_ms,
+            'native_first': native_first, 'numpy_first': numpy_first}
 
 
 def phase_screen(torch, np, root: Path, card: str):
@@ -1136,11 +1198,9 @@ def phase_screen(torch, np, root: Path, card: str):
     a batch, finite scores for every pose, the first SCREEN_CPU_POSES
     ligands' scores against a ``--device cpu`` screen within 1e-4; poses
     per second and the share of the wall in the host featurisation; then
-    the host featurisation a pose of ``SharedReceptorDataset`` against
-    ``PointCloudDataset``. Returns each run's launches by kernel, summed
-    over the batch sizes."""
-    from pointvs_tpu_torch.data.dataset import PointCloudDataset
-    from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
+    the host featurisation a pose with the native graph library against
+    its numpy plain versions. Returns each run's launches by kernel,
+    summed over the batch sizes."""
     from pointvs_tpu_torch.ops import segment_kernels as sk
     from pointvs_tpu_torch.screen import screen
     types, _ = write_pose_set(np, root / 'library', SCREEN_POSES)
@@ -1189,15 +1249,259 @@ def phase_screen(torch, np, root: Path, card: str):
                   f'{sec["featurise"] / sec["total"]:.3f}; launches {counts}'
                   f'; max|gpu - cpu| over the first {SCREEN_CPU_POSES} '
                   f'{diff:.2e}')
-    shared, shared_first = featurise_ms(np, SharedReceptorDataset, lib,
-                                        types)
-    plain, plain_first = featurise_ms(np, PointCloudDataset, lib, types)
-    print(f'screen: host featurisation a pose over {SCREEN_POSES} poses: '
-          f'SharedReceptorDataset {shared:.3f} ms (first item, with the '
-          f'receptor precomputation, {shared_first:.3f} ms), '
-          f'PointCloudDataset {plain:.3f} ms (first {plain_first:.3f} ms); '
-          f'ratio {plain / shared:.2f}')
+    featurise_native_vs_numpy(np, lib, types)
     return out
+
+
+# -------------------------------------------------------- attribution
+REC_7ZZP = RESOURCES / '7zzp_rec_0.pdb'
+LIG_7ZZP = RESOURCES / '7zzp_lig_0.sdf'
+# name -> (serving run directory of phase 5, launches a forward by
+# kernel); one offset computation a forward, and no other kernel.
+ATTRIBUTION_RUNS = {'readme_softmax_6l': {'softmax_aggregate_sorted': 6},
+                    'default_3l': {'segment_sum_sorted': 3}}
+ATTRIBUTION_GATE = 1e-4     # the card's scores against the CPU's
+# Attention values the two devices may order either way (their own
+# values agree within about 1e-7).
+RANK_TIE_TOL = 1e-6
+ATTRIBUTE_TOP = 4
+
+
+def _first_call_recorder(module, name: str, store: dict):
+    """Replace ``module.name`` by a wrapper that keeps its first call's
+    arguments in ``store[name]``; returns the original."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        store.setdefault(name, (args, kwargs))
+        return original(*args, **kwargs)
+    # The wrapped function counts its launches on the module's name.
+    wrapper.launches = 0
+    setattr(module, name, wrapper)
+    return original
+
+
+def _check_recorded_kernels(torch, sk, recorded: dict, label: str) -> dict:
+    """K1 and K2 on the inputs a forward gave them, against their plain
+    versions in float64; their worst |kernel - plain|."""
+    err = {}
+    if 'windowed_segment_sum' in recorded:
+        args, kwargs = recorded['windowed_segment_sum']
+        data, ids, n = args[:3]
+        got = sk.windowed_segment_sum(*args, **kwargs)
+        want = sk.windowed_segment_sum_plain(data.double(), ids, n).float()
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, **TOL),
+              f'{label}: K1 disagrees with plain on the chunk\'s inputs')
+        err['k1'] = (got - want).abs().max().item()
+    if 'fused_softmax_aggregate' in recorded:
+        args, kwargs = recorded['fused_softmax_aggregate']
+        out, seg_max = sk.fused_softmax_aggregate(*args, **kwargs)
+        w_out, w_max = (w.float() for w in sk.fused_softmax_aggregate_plain(
+            *[a.double() for a in args[:4]], *args[4:7]))
+        torch.cuda.synchronize()
+        check(torch.allclose(out, w_out, **TOL)
+              and torch.allclose(seg_max, w_max, **TOL),
+              f'{label}: K2 disagrees with plain on the chunk\'s inputs')
+        err['softmax'] = max((out - w_out).abs().max().item(),
+                             (seg_max - w_max).abs().max().item())
+    return err
+
+
+def _near_ties(np, values, tol: float):
+    """For each value, how many others lie within ``tol`` of it."""
+    ordered = np.sort(values)
+    return (np.searchsorted(ordered, values + tol, side='right')
+            - np.searchsorted(ordered, values - tol, side='left') - 1)
+
+
+def rank_slack(torch, np, model, batch, method: str, rows, cols, n: int):
+    """Per atom, how far a mean-rank method's score may move when values
+    within RANK_TIE_TOL of each other swap ranks: each layer's near
+    ties of the ranked values (the CPU's), averaged over the layers (as
+    the ranks are), and for edge ranks summed onto both end atoms (as
+    ``score_atoms`` maps them)."""
+    key = 'node_att_val' if 'node' in method else 'att_val'
+    with torch.no_grad():
+        layers = model(batch, capture_aux=True)[1]['layers']
+    count = n if key == 'node_att_val' else len(rows)
+    slack = np.mean([_near_ties(np, aux[key].float().reshape(-1)[:count]
+                                .numpy(), RANK_TIE_TOL)
+                     for aux in layers[:10] if key in aux], axis=0)
+    if key == 'node_att_val':
+        return slack
+    atoms = np.zeros(n)
+    np.add.at(atoms, rows, slack)
+    np.add.at(atoms, cols, slack)
+    return atoms
+
+
+def phase_attribution(torch, np, root: Path, card: str):
+    """Attribution on the card. The 7zzp pair parsed by the port's parser;
+    ``attribute`` with every method name on the ``readme_softmax_6l`` (K2)
+    and ``default_3l`` (K1) runs at their full width, each held against a
+    ``--device cpu`` run of the same call within ATTRIBUTION_GATE (a
+    method the model has no values for must stop on both); atom masking
+    timed by CUDA events (masked variants a second, ms a 32-copy chunk)
+    with its launches a chunk; K1/K2 on one chunk's own inputs against
+    their plain versions; then ``screen --attribute_top`` over the
+    screen's poses. Returns (launches by run, worst kernel errors)."""
+    from pointvs_tpu_torch.attribution import attribution_fns as fns
+    from pointvs_tpu_torch.attribution.attribution import (attribute,
+                                                           model_batch,
+                                                           pocket_graph)
+    from pointvs_tpu_torch.dataset_generation.types_to_parquet import \
+        StructuralFileParser
+    from pointvs_tpu_torch.models.load_model import load_model
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.screen import screen
+    dev = torch.device('cuda')
+    lig_frame = StructuralFileParser('ligand').file_to_parquets(LIG_7ZZP)
+    rec_frame = StructuralFileParser('receptor').file_to_parquets(REC_7ZZP)
+    check(len(lig_frame) == 9 and (lig_frame.bp == 0).all()
+          and len(rec_frame) > 1000 and (rec_frame.bp == 1).all(),
+          f'7zzp parsed to {len(lig_frame)} + {len(rec_frame)} atoms')
+    _, rows, cols, sample = pocket_graph(REC_7ZZP, LIG_7ZZP, radius=10,
+                                         edge_radius=4)
+    print(f'attribution: 7zzp parsed: ligand {len(lig_frame)} heavy atoms, '
+          f'receptor {len(rec_frame)}; the pocket at 10 A: '
+          f'{sample.num_nodes} atoms, {sample.num_edges} edges')
+    launches, err = {}, {'k1': 0.0, 'softmax': 0.0}
+    for name, per_forward in ATTRIBUTION_RUNS.items():
+        run = root / name
+        compared, stopped = [], []
+        for method in sorted(fns.ATTRIBUTION_FNS):
+            scored = {}
+            for device in ('cuda', 'cpu'):
+                try:
+                    scored[device] = attribute(
+                        method, run, root / f'attribution_{name}_{device}',
+                        rec=REC_7ZZP, lig=LIG_7ZZP, radius=10,
+                        edge_radius=4, device=device)
+                except (KeyError, ValueError) as exc:
+                    scored[device] = type(exc)
+            gpu, cpu = scored['cuda'], scored['cpu']
+            if isinstance(cpu, type):
+                check(gpu is cpu, f'attribution {name} {method}: the CPU '
+                                  f'stops ({cpu.__name__}), the card gives '
+                                  f'{gpu}')
+                stopped.append(method)
+                continue
+            check(not isinstance(gpu, type),
+                  f'attribution {name} {method}: the card stops ({gpu})')
+            g, c = gpu.attribution.to_numpy(), cpu.attribution.to_numpy()
+            diff = np.abs(g - c)
+            gate = np.full(len(c), ATTRIBUTION_GATE)
+            if method.startswith('mean_'):
+                # Ranks are whole numbers: values within the gate of each
+                # other may swap ranks between the two devices.
+                cpu_trainer = load_model(run, torch.device('cpu'))[0]
+                gate += rank_slack(torch, np, *model_batch(
+                    cpu_trainer, sample), method, rows, cols, len(c))
+            check(len(g) == sample.num_nodes and np.isfinite(g).all()
+                  and (diff <= gate).all(),
+                  f'attribution {name} {method}: card against CPU '
+                  f'{diff.max()} (gate {gate[diff.argmax()]})')
+            compared.append(f'{method} {diff.max():.1e}')
+        check(len(compared) >= 7, f'attribution {name}: only {compared}')
+        print(f'attribution: {card}: {name}: card against CPU, max |diff| '
+              f'by method: {", ".join(compared)}; stopped on both (no such '
+              f'values in this model): {", ".join(stopped) or "none"}')
+
+        trainer, _, _ = load_model(run, dev)
+        model, batch = model_batch(trainer, sample)
+        n_real = sample.num_nodes
+        gone = np.eye(batch.node_mask.shape[0], dtype=np.float32)[:n_real]
+        chunks = -(-n_real // fns._CHUNK)
+        fns._masked_deltas(model, batch, gone, trainer.model_task)   # warm
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        deltas = fns._masked_deltas(model, batch, gone, trainer.model_task)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        counts = sk.launch_counts()
+        for kernel, count in counts.items():
+            expect = (chunks + 1) * (1 if kernel == 'segment_offsets'
+                                     else per_forward.get(kernel, 0))
+            check(count == expect, f'attribution {name}: {kernel} launched '
+                                   f'{count}, expected {expect}')
+        check(np.isfinite(deltas).all(), f'attribution {name}: deltas')
+        launches[name] = counts
+        tiled = fns._tiled_batch(batch, torch.from_numpy(
+            gone[:fns._CHUNK]).to(dev))
+        times = []
+        with torch.no_grad():
+            for _ in range(10):
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                model(tiled)
+                s1.record()
+                torch.cuda.synchronize()
+                times.append(s0.elapsed_time(s1))
+            print_profile(f'attribution {name}, one chunk forward',
+                          kernel_profile(torch, lambda: model(tiled)),
+                          SEGMENT_SHARES, top=6)
+            recorded = {}
+            originals = {k: _first_call_recorder(sk, k, recorded) for k in
+                         ('windowed_segment_sum', 'fused_softmax_aggregate')}
+            try:
+                model(tiled)
+            finally:
+                for k, fn in originals.items():
+                    setattr(sk, k, fn)
+        check(set(recorded) == ({'fused_softmax_aggregate'}
+                                if 'softmax_aggregate_sorted' in per_forward
+                                else {'windowed_segment_sum'}),
+              f'attribution {name}: a chunk called {sorted(recorded)}')
+        for key, value in _check_recorded_kernels(
+                torch, sk, recorded, f'attribution {name}').items():
+            err[key] = max(err[key], value)
+        per_chunk = {k: (v - v // (chunks + 1)) / chunks
+                     for k, v in counts.items()}
+        print(f'attribution: {card}: {name}: atom_masking of {n_real} atoms '
+              f'in {chunks} chunks of {fns._CHUNK} copies '
+              f'({tiled.node_feats.shape[0]} nodes x '
+              f'{tiled.senders.shape[0]} edges a chunk) and the original '
+              f'forward: {ms:.3f} ms by CUDA events = '
+              f'{n_real / ms * 1e3:.1f} masked variants/s, '
+              f'{ms / chunks:.3f} ms a chunk; one chunk forward alone '
+              f'{statistics.median(times):.3f} ms (median of 10); launches '
+              f'{counts}, per chunk {per_chunk}; K1/K2 on a chunk\'s inputs '
+              f'against plain {err}')
+
+    lib = root / 'library'
+    out = root / 'attribute_top' / 'hits.csv'
+    sk.reset_launch_counts()
+    result = screen(root / 'readme_softmax_6l', lib / 'rec_0.parquet',
+                    str(lib / 'lig_*.parquet'), output=str(out),
+                    batch_size=32, attribute_top=ATTRIBUTE_TOP)
+    torch.cuda.synchronize()
+    counts = sk.launch_counts()
+    csvs = {p.name: p for p in (out.parent / 'top_hit_attributions')
+            .glob('*.csv')}
+    want = [f'{Path(r["ligand"]).stem}_atom_masking.csv'
+            for r in result.rows[:ATTRIBUTE_TOP]]
+    check(sorted(csvs) == sorted(want), f'attribute_top wrote {sorted(csvs)}')
+    forwards = -(-SCREEN_POSES // 32)
+    import pandas as pd
+    for name in want:
+        frame = pd.read_csv(csvs[name])
+        check(len(frame) > 9 and np.isfinite(frame.attribution).all(),
+              f'attribute_top: {name} has {len(frame)} rows')
+        forwards += -(-len(frame) // fns._CHUNK) + 1
+    check(counts.get('softmax_aggregate_sorted') == 6 * forwards,
+          f'attribute_top: K2 launched {counts}, expected 6 x {forwards}')
+    launches['screen_attribute_top'] = counts
+    print(f'attribution: {card}: screen --attribute_top {ATTRIBUTE_TOP} of '
+          f'{SCREEN_POSES} poses (readme_softmax_6l, -b 32): screen '
+          f'{result.seconds["total"]:.3f} s, attributions '
+          f'{result.seconds["attribute"]:.3f} s; launches {counts}')
+    return launches, err
 
 
 # ------------------------------------------------------- dropout mask
@@ -1892,14 +2196,15 @@ def phase_strain_fused(torch, np, root: Path):
     """5 ``Trainer`` steps of the README strain model on the module path
     (K1/K2) and the fused path (K3 forward, K4 backward) on the card, on
     the strain pose batches: the two trajectories within the gate."""
-    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch.data.loader import get_data_loader
     from pointvs_tpu_torch.ops import segment_kernels as sk
     from pointvs_tpu_torch.training.engine import Trainer
-    _, loader = inference.get_model_and_test_dl(
-        str(root / 'strain_readme_6l'),
-        str(root / 'data' / 'poses_strain.types'), str(root / 'data'),
-        torch.device('cpu'), batch_size=32)
-    host = list(loader)
+    # The training loader of a strain run (the serving CLI's leaves the
+    # strain column out, as the reference's does).
+    host = list(get_data_loader(
+        root / 'data', root / 'data' / 'poses_strain.types', batch_size=32,
+        radius=10, edge_radius=4, polar_hydrogens=False, prefetch=0,
+        include_strain_info=True))
     check(all(np.abs(b.strain[:, 0]).max() > 0 for b, _ in host),
           'the strain batches carry no dE')
     steps = [host[i % len(host)] for i in range(TRAIN_STEPS)]
@@ -2215,6 +2520,55 @@ def lucid_step_ms(package_root: str) -> int:
     return 0
 
 
+def featurise_tree(package_root: str) -> int:
+    """``--featurise ROOT``: the host featurisation a pose of the port
+    found under ROOT (any checkout of this repository) over the screen's
+    SCREEN_POSES poses, by ``PointCloudDataset`` and, in a tree that has
+    it, ``SharedReceptorDataset``, and a ``default_3l`` screen of them at
+    batch 32 on the card (poses/s and the host featurisation share, the
+    second of two screens), printed as one JSON line. Run it for two
+    trees in turns in one call to compare them."""
+    sys.path.insert(0, str(Path(package_root).resolve()))
+    import numpy as np
+    import torch
+    import pointvs_tpu_torch
+    from pointvs_tpu_torch.data.dataset import PointCloudDataset
+    from pointvs_tpu_torch.screen import screen
+    check(torch.cuda.is_available(), 'torch.cuda.is_available() is False')
+    datasets = [PointCloudDataset]
+    try:   # the screen's own dataset up to PR 11
+        from pointvs_tpu_torch.data.shared_receptor import \
+            SharedReceptorDataset
+        datasets.insert(0, SharedReceptorDataset)
+    except ImportError:
+        pass
+    out = {'package': str(Path(pointvs_tpu_torch.__file__).parent)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        types, _ = write_pose_set(np, root / 'library', SCREEN_POSES)
+        lib = types.parent
+        from pointvs_tpu_torch.data.preprocessing import read_struct
+        for path in lib.glob('*.parquet'):   # neither pays the first reads
+            read_struct(path)
+        for cls in datasets:
+            ms, first, _ = featurise_ms(np, cls, lib, types)
+            out[cls.__name__] = {'ms_a_pose': ms, 'first_ms': first}
+        run = root / 'default_3l'
+        write_run_dir(torch, run, dict(num_layers=3))
+        for rep in range(2):
+            result = screen(run, lib / 'rec_0.parquet',
+                            str(lib / 'lig_*.parquet'),
+                            output=str(root / f'hits_{rep}.csv'),
+                            batch_size=32)
+        sec = result.seconds
+        out['screen_default_3l_b32'] = {
+            'poses_per_s': result.poses_per_second,
+            'host_share': sec['featurise'] / sec['total'],
+            'seconds': sec}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     phase_seconds = {}
 
@@ -2243,6 +2597,10 @@ def main() -> int:
                              types, n_poses)
             screen_launches = timed('screen', phase_screen, torch, np, root,
                                     card)
+            attr_launches, attr_err = timed('attribution', phase_attribution,
+                                            torch, np, root, card)
+            err['k1'] = max(err['k1'], attr_err['k1'])
+            err['softmax'] = max(err['softmax'], attr_err['softmax'])
             recv_err, recv_timings = timed(
                 'receiver_sorted', phase_receiver_sorted, torch, np, root,
                 types)
@@ -2284,13 +2642,15 @@ def main() -> int:
                 'bound_by': v['bound'][1], 'library_ms': v['library_ms']}
 
     def served(kernel, names=None):
-        """Launches of ``kernel`` over the serving runs (or ``names``) and
-        the screens."""
-        return sum(counts[kernel] for name, counts in
+        """Launches of ``kernel`` over the serving runs (or ``names``),
+        the screens and the attributions."""
+        return sum(counts.get(kernel, 0) for name, counts in
                    list(launches.items()) + list(screen_launches.items())
+                   + list(attr_launches.items())
                    if names is None or name in names)
 
-    softmax_runs = [name for name in SERVING if name != 'sigmoid_3l']
+    softmax_runs = [name for name in SERVING if name != 'sigmoid_3l'] + [
+        'screen_attribute_top']
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
               served('segment_sum_sorted'), 'k1', 'k1_36'),
@@ -2314,7 +2674,8 @@ def main() -> int:
           f'{family_launches}; multitask CLI {mt_launches}; siamese, '
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
-          f'synthpharm CLI {sp_launches}; screens {screen_launches}')
+          f'synthpharm CLI {sp_launches}; screens {screen_launches}; '
+          f'attribution {attr_launches}')
     print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))
@@ -2327,4 +2688,6 @@ def main() -> int:
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--lucid-step':
         sys.exit(lucid_step_ms(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--featurise':
+        sys.exit(featurise_tree(sys.argv[2]))
     sys.exit(main())

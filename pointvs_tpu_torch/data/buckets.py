@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from pointvs_tpu_torch.native.build import counting_argsort
+
 
 class GraphBatch(NamedTuple):
     """A padded batch of graphs: numpy arrays on the host, tensors on a
@@ -192,10 +194,10 @@ def pad_graphs_to_batch(samples: Sequence[GraphSample],
         e_off += e
 
     if not np.all(senders[1:] >= senders[:-1]):
-        order = np.argsort(senders, kind='stable')
+        order = counting_argsort(senders, n_pad)
         senders, receivers = senders[order], receivers[order]
         edge_attr, edge_mask = edge_attr[order], edge_mask[order]
-    recv_perm = np.argsort(receivers, kind='stable').astype(np.int32)
+    recv_perm = counting_argsort(receivers, n_pad)
     inv_recv_perm = None
     if np.array_equal(receivers[recv_perm], senders):
         inv_recv_perm = np.empty((e_pad,), np.int32)

@@ -12,6 +12,8 @@ Counterpart of ``pointvs_tpu/data/dataset.py`` (``PointCloudDataset``):
 - class-balancing sample weights; label noise ``p_noise``; entity dropout
   ``p_remove_entity`` (edges rebuilt on the entity kept); a whole-complex
   rotation ``rot``; regression targets (``multi_regression``: 3 values);
+- parquet structures, or PDB/SDF/MOL2 files typed on reading
+  (``preprocessing.read_structure``), by each path's own suffix;
 - smina-type or atomic-number featurisation with the compact one-hot +
   entity-bit scheme; box filter; radius graph with inter/intra radii
   (``estimate_bonds`` => intra 2.0 A) and optional pruning; edges sorted by
@@ -55,7 +57,7 @@ from pointvs_tpu_torch.data.preprocessing import (
     generate_edges,
     make_bit_vector,
     make_box,
-    read_struct,
+    read_structure,
     read_synthpharm,
     rotate_struct,
     subset,
@@ -66,6 +68,7 @@ from pointvs_tpu_torch.data.types_files import (
     parse_regression_types,
 )
 from pointvs_tpu_torch.logging import get_logger
+from pointvs_tpu_torch.native.build import lexsort_pairs
 from pointvs_tpu_torch.utils import expand_path, shorten_home
 
 LOG = get_logger()
@@ -313,10 +316,12 @@ class PointCloudDataset:
 
     def _build_struct(self, lig_path, rec_path, aug_angle: float = 0,
                       rng=None):
-        lig = read_struct(lig_path)
+        extended = self.extended_atom_types
+        lig = read_structure(lig_path, 'ligand', extended)
         if aug_angle:
             lig = rotate_struct(lig, aug_angle, rng)
-        struct = make_box(concat_structs(read_struct(rec_path), lig,
+        rec = read_structure(rec_path, 'receptor', extended)
+        struct = make_box(concat_structs(rec, lig,
                                          self.n_features,
                                          extended=self.extended_atom_types),
                           radius=self.radius)
@@ -345,7 +350,7 @@ class PointCloudDataset:
             return struct, empty, empty, np.zeros((0, 3), np.float32)
         struct, rows, cols, attrs = generate_edges(
             struct, edge_radius, intra_radius, prune=self.prune)
-        order = np.lexsort((cols, rows))   # stable: by row, then column
+        order = lexsort_pairs(rows, cols, len(struct['x']) - 1)
         rows = rows[order].astype(np.int32)
         cols = cols[order].astype(np.int32)
         onehot = np.zeros((len(order), 3), np.float32)

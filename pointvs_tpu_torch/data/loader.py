@@ -227,14 +227,14 @@ def get_data_loader(
         dataset_class=PointCloudDataset) -> GraphDataLoader:
     """Dataset + loader with the reference's keywords. Unlike the
     reference, ``rot`` defaults to False (the scoring loader's setting) and
-    ``mode`` to ``'val'``; parquet structures only. ``layout='pair'``
+    ``mode`` to ``'val'``. Structures are parquet, PDB, SDF or MOL2 files,
+    read by each path's own suffix (``fname_suffix``, the reference's
+    ``--input_suffix``, names the receptors it globs for without a types
+    file; the port always reads a types file). ``layout='pair'``
     builds two datasets of the same types file and seed, the receptor's
     atoms (bp 1) and the ligand's (bp 0). ``dataset_class`` is
     ``PointCloudDataset`` or ``SynthPharmDataset`` (``--synthpharm``)."""
-    if fname_suffix != 'parquet':
-        raise NotImplementedError(
-            f'fname_suffix={fname_suffix!r}: the port reads parquet '
-            f'structures only (see ROADMAP.md, Queue 1)')
+    del fname_suffix
 
     def make_dataset(bp_filter):
         return dataset_class(

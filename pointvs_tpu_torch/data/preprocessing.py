@@ -6,6 +6,8 @@ Own copy of the numpy semantics of the reference's
 parquet schema keys ``x, y, z, atomic_number, types, bp`` (bp 0 = ligand,
 1 = receptor).
 
+- ``read_structure``: a parquet file, or a PDB/SDF/MOL2 file typed by
+  ``dataset_generation/types_to_parquet.StructuralFileParser``.
 - ``concat_structs``: ligand rows first, receptor types offset by
   ``n_features`` (+8 with extended typing).
 - ``make_box``: keep every ligand atom plus the receptor atoms strictly
@@ -16,6 +18,11 @@ parquet schema keys ``x, y, z, atomic_number, types, bp`` (bp 0 = ligand,
   molecule, which reproduces the reference's duplicate edges when the radii
   overlap); optional pruning of atoms not connected to the first
   inter-molecular edge's source.
+- Both go through the port's g++ library (``native/build.py``: a cell
+  grid, no [n, n] matrix); ``make_box_numpy`` and
+  ``generate_edges_numpy`` are their plain versions over dense distance
+  matrices, equal to them array for array (rows, order, edge classes,
+  the pruned atoms).
 - ``make_bit_vector``: compact one-hot + receptor/ligand bit featurisation.
 - ``uniform_random_rotation`` / ``rotate_struct``: rotations drawn from a
   caller's ``RandomState`` in the reference's draw order, so seeded streams
@@ -35,6 +42,8 @@ from functools import lru_cache
 from typing import Dict
 
 import numpy as np
+
+from pointvs_tpu_torch.native import build as native
 
 KEYS = ('x', 'y', 'z', 'atomic_number', 'types', 'bp')
 SYNTH_PHARM_KEYS = ('x', 'y', 'z', 'type', 'bp')
@@ -60,6 +69,28 @@ def read_synthpharm(path) -> Struct:
     names = set(pq.ParquetFile(path).schema_arrow.names)
     keys = tuple(k for k in SYNTH_PHARM_KEYS if k in names)
     return _read_struct_cached(path, (st.st_size, st.st_mtime_ns), keys)
+
+
+def read_structure(path, mol_type: str, extended: bool = False) -> Struct:
+    """A parquet file's struct (``read_struct``), or a PDB/SDF/MOL2 file's
+    first molecule smina-typed by ``StructuralFileParser`` (``mol_type``
+    'ligand' or 'receptor'), cached as ``read_struct``."""
+    path = str(path)
+    if path.rsplit('.', 1)[-1] == 'parquet':
+        return read_struct(path)
+    st = os.stat(path)
+    return _parse_cached(path, (st.st_size, st.st_mtime_ns), mol_type,
+                         extended)
+
+
+@lru_cache(maxsize=4096)
+def _parse_cached(path: str, _fingerprint, mol_type: str,
+                  extended: bool) -> Struct:
+    from pointvs_tpu_torch.dataset_generation.types_to_parquet import \
+        StructuralFileParser
+    frame = StructuralFileParser(mol_type, extended).file_to_parquets(
+        path, add_polar_hydrogens=True)
+    return {k: frame[k].to_numpy() for k in KEYS}
 
 
 @lru_cache(maxsize=4096)
@@ -164,18 +195,42 @@ def _pairwise_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.sqrt(np.einsum('ijk,ijk->ij', diff, diff))
 
 
-def make_box(struct: Struct, radius: float) -> Struct:
+def _box_rows(struct: Struct, radius: float, rec_near) -> np.ndarray:
+    """The rows ``make_box`` keeps: every ligand row, then the receptor
+    rows ``rec_near(lig_xyz, rec_xyz, radius)`` selects (positions into the
+    receptor rows)."""
     bp = struct['bp']
-    lig_idx = np.where(bp == 0)[0]
-    rec_idx = np.where(bp == 1)[0]
+    lig_idx = np.flatnonzero(bp == 0)
+    rec_idx = np.flatnonzero(bp == 1)
     if len(lig_idx) and len(rec_idx):
         xyz = coords_of(struct)
-        near = (_pairwise_distances(xyz[lig_idx], xyz[rec_idx])
-                < radius).any(axis=0)
-        rec_idx = rec_idx[near]
+        rec_idx = rec_idx[rec_near(xyz[lig_idx], xyz[rec_idx], radius)]
     elif not len(lig_idx):
         rec_idx = rec_idx[:0]
-    return subset(struct, np.concatenate([lig_idx, rec_idx]))
+    return np.concatenate([lig_idx, rec_idx])
+
+
+def _near_numpy(lig_xyz, rec_xyz, radius) -> np.ndarray:
+    return np.flatnonzero(
+        (_pairwise_distances(lig_xyz, rec_xyz) < radius).any(axis=0))
+
+
+def make_box(struct: Struct, radius: float) -> Struct:
+    """Every ligand atom, then the receptor atoms strictly within
+    ``radius`` of any ligand atom, in their original order (the native
+    box filter)."""
+    return subset(struct, _box_rows(struct, radius, native.box_filter))
+
+
+def make_box_numpy(struct: Struct, radius: float) -> Struct:
+    """``make_box``'s plain version: the dense [n_lig, n_rec] distances."""
+    return subset(struct, _box_rows(struct, radius, _near_numpy))
+
+
+def _entity_bp(struct: Struct, synthpharm: bool) -> Struct:
+    if synthpharm:
+        return dict(struct, bp=(struct['atom_id'] <= 2).astype(np.int64))
+    return struct
 
 
 def generate_edges(struct: Struct, inter_radius: float = 4.0,
@@ -183,9 +238,22 @@ def generate_edges(struct: Struct, inter_radius: float = 4.0,
                    synthpharm: bool = False):
     """-> (struct, rows, cols, attrs); struct loses pruned atoms. With
     ``synthpharm`` the entity ``bp`` is ``atom_id <= 2`` (the receptor's
-    ids), in the struct returned too."""
-    if synthpharm:
-        struct = dict(struct, bp=(struct['atom_id'] <= 2).astype(np.int64))
+    ids), in the struct returned too. The native library's cell grid;
+    equal, array for array, to ``generate_edges_numpy``."""
+    struct = _entity_bp(struct, synthpharm)
+    rows, cols, attrs, keep = native.radius_edges(
+        coords_of(struct), struct['bp'], inter_radius, intra_radius, prune)
+    if not keep.all():
+        struct = subset(struct, keep)
+    return struct, rows, cols, attrs
+
+
+def generate_edges_numpy(struct: Struct, inter_radius: float = 4.0,
+                         intra_radius: float = 2.0, prune: bool = True,
+                         synthpharm: bool = False):
+    """``generate_edges``' plain version, over the dense [n, n] distance
+    matrix."""
+    struct = _entity_bp(struct, synthpharm)
     coords = coords_of(struct).astype(np.float64)
     bp = struct['bp']
     dists = _pairwise_distances(coords, coords)
@@ -217,8 +285,8 @@ def generate_edges(struct: Struct, inter_radius: float = 4.0,
                     frontier.append(child)
         keep = np.array(sorted(seen))
         if len(keep) < len(bp):
-            return generate_edges(subset(struct, keep), inter_radius,
-                                  intra_radius, prune=False)
+            return generate_edges_numpy(subset(struct, keep), inter_radius,
+                                        intra_radius, prune=False)
     return struct, rows, cols, attrs
 
 

@@ -4,13 +4,15 @@
 Rebuilds the model from a run directory (``.pt`` checkpoint plus
 ``model_kwargs.yaml`` / ``cmd_args.yaml`` sidecars), rebuilds the data
 pipeline from the saved flags (the layout the model's input kind names:
-graph, receptor/ligand pair or dense), scores every pose and writes
-``<task>_<output_fname>`` into the run directory. A run trained with
-``--include_strain_info`` is scored with the types file's dE, as its own
-validation was; the reference's serving CLI leaves the flag out and
-scores such a model with dE = 0 (ROADMAP.md, Queue 3). A ``--synthpharm``
-run is scored with ``SynthPharmDataset``, as its own validation was (the
-reference's serving CLI reads it as ordinary complexes). A ``--double``
+graph, receptor/ligand pair or dense; parquet, PDB, SDF or MOL2
+structures by each path's suffix), scores every pose and writes
+``<task>_<output_fname>`` into the run directory. As in the reference's
+serving CLI (ROADMAP.md, Queue 3): a run trained with
+``--include_strain_info`` is scored with dE = 0 (the loader is built
+without the flag), and a ``--synthpharm`` run is refused with a
+``ValueError`` naming the flag (the reference reads it as ordinary
+complexes, whose columns a synthetic-pharmacophore file lacks, and stops
+at its first item). A ``--double``
 run is served in float64 with ``--device cpu`` only; on the card the CLI
 exits before any CUDA work. The newest checkpoint of the run serves, of
 either task for a multitask run, as in the reference; ``--model_task``
@@ -28,8 +30,6 @@ from __future__ import annotations
 
 import argparse
 
-from pointvs_tpu_torch.data.dataset import PointCloudDataset, \
-    SynthPharmDataset
 from pointvs_tpu_torch.data.loader import get_data_loader
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.models.load_model import load_model, run_args
@@ -41,6 +41,12 @@ LOG = get_logger()
 def get_model_and_test_dl(model_path, test_types, data_root, device,
                           model_task=None, batch_size=None):
     """(trainer, loader) rebuilt from a run directory."""
+    if run_args(model_path).get('synthpharm'):
+        raise ValueError(
+            '--synthpharm: the serving CLI reads a run\'s structures as '
+            'ordinary complexes, as the reference\'s does, and a '
+            'synthetic-pharmacophore file has no atomic_number or types '
+            'column (see ROADMAP.md, Queue 3)')
     trainer, model_kwargs, cmd_args = load_model(model_path, device)
     model_task = model_task or model_kwargs.get('model_task',
                                                 'classification')
@@ -58,10 +64,8 @@ def get_model_and_test_dl(model_path, test_types, data_root, device,
         estimate_bonds=cmd_args.get('estimate_bonds', False),
         prune=cmd_args.get('prune', False),
         extended_atom_types=cmd_args.get('extended_atom_types', False),
-        include_strain_info=cmd_args.get('include_strain_info', False),
-        layout=trainer.input_kind, model_task=model_task, mode='val',
-        dataset_class=(SynthPharmDataset if cmd_args.get('synthpharm')
-                       else PointCloudDataset))
+        fname_suffix=cmd_args.get('input_suffix', 'parquet'),
+        layout=trainer.input_kind, model_task=model_task, mode='val')
     return trainer, loader
 
 

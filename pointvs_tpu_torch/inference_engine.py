@@ -23,9 +23,10 @@ gradient) and training (``fused_train.fused_apply``, through
 The reference also gates fusion on the TPU's scoped VMEM and runs
 ``model.apply`` where it would not fit; that function is the same as the
 fused one, and a CUDA kernel has no such capacity, so the port has no
-such gate. With ``graphnorm_whole_batch`` the port's fused walk keeps the
-model's whole-batch statistics (its GraphNorm module), where the
-reference's fused walk uses per-graph statistics.
+such gate. GraphNorm takes per-graph statistics on this walk, also under
+``graphnorm_whole_batch``, as the reference's fused walk does
+(``pointvs_tpu/inference_engine.py:196-209``, ``fused_train.py:150-163``);
+the module path takes the whole batch's.
 """
 from __future__ import annotations
 
@@ -129,7 +130,7 @@ def fused_network(model, batch: GraphBatch, differentiable: bool,
             coord = coord + agg.mean_to_src(coord_diff * phi[:, None],
                                             mask=edge_mask)
         h = layer.node_update(h, agg_feats, batch.node_mask, batch.graph_id,
-                              num_graphs)
+                              num_graphs, per_graph_norm=True)
     return model.head(model.pool(h, batch), task)
 
 

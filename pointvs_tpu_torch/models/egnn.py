@@ -128,7 +128,13 @@ class EGNNLayer(nn.Module):
         return new + old
 
     def forward(self, h, coord, edge_messages, agg: EdgeAggregator,
-                edge_attr, edge_mask, node_mask, graph_id, num_graphs: int):
+                edge_attr, edge_mask, node_mask, graph_id, num_graphs: int,
+                aux: dict | None = None):
+        """-> (h, coord, edge messages). With an ``aux`` dict (attribution's
+        ``capture_aux``) the layer takes the unfused branch, as the
+        reference does, and fills ``att_val`` (the per-edge attention, with
+        edge attention), ``intermediate_coords`` and ``node_att_val`` (with
+        node attention)."""
         # h and coord ride one gather per edge endpoint, in coord's dtype
         # (bf16 h exactly as f32; its cotangents are summed in f32).
         k = h.shape[1]
@@ -165,7 +171,7 @@ class EGNNLayer(nn.Module):
         sigmoid_att = (self.edge_attention and not self.softmax_attention
                        and self.attention_activation_fn == 'sigmoid')
         if self.edge_attention and self.update_coords and (
-                self.softmax_attention or sigmoid_att):
+                self.softmax_attention or sigmoid_att) and aux is None:
             # Attention weighting folded into the aggregation kernel.
             att_logits = self.att_mlp(edge_feat)
             trans = coord_diff * self.coord_mlp(edge_feat)
@@ -184,6 +190,8 @@ class EGNNLayer(nn.Module):
                            if self.softmax_attention else
                            activation(self.attention_activation_fn)(
                                att_logits))
+                if aux is not None:
+                    aux['att_val'] = att_val
                 messages = att_val * edge_feat
             if self.update_coords:
                 trans = coord_diff * self.coord_mlp(edge_feat)
@@ -193,24 +201,33 @@ class EGNNLayer(nn.Module):
                 coord = coord + coord_delta
             else:
                 agg_feats = agg.sum_to_src(messages, mask=edge_mask)
+        if aux is not None:
+            aux['intermediate_coords'] = coord
 
         out = self.node_update(h, agg_feats, node_mask, graph_id,
-                               num_graphs)
+                               num_graphs, aux=aux)
         return out, coord, edge_feat
 
     def node_update(self, h, agg_feats, node_mask, graph_id,
-                    num_graphs: int):
+                    num_graphs: int, per_graph_norm: bool = False,
+                    aux: dict | None = None):
         """Node model (ref :134-166): node MLP with GraphNorm, node
         attention and the residual. Shared with the fused paths
-        (``inference_engine.py``)."""
+        (``inference_engine.py``), whose GraphNorm takes per-graph
+        statistics also under ``graphnorm_whole_batch``
+        (``per_graph_norm``), as the reference's fused paths do."""
         lin1, norm, act, lin2 = self.node_mlp
         out = lin1(torch.cat([h, agg_feats], dim=1))
         if self.graphnorm:
-            out = norm(out, graph_id, num_graphs, node_mask)
+            out = norm(out, graph_id, num_graphs, node_mask,
+                       per_graph=per_graph_norm)
         out = lin2(act(out))
         if self.node_attention:
-            out = out * activation(self.attention_activation_fn)(
+            node_att = activation(self.attention_activation_fn)(
                 self.node_att_mlp(out))
+            if aux is not None:
+                aux['node_att_val'] = node_att
+            out = out * node_att
         if self.residual:
             out = self._gated(getattr(self, 'node_gate_parameter', None),
                               out, h)
@@ -294,11 +311,13 @@ class SartorrasEGNN(nn.Module):
         return k + (1 if self.include_strain_info else 0)
 
     def embed(self, batch: GraphBatch, train: bool = False,
-              dropout_seed=None, dropout_rng=None) -> torch.Tensor:
+              dropout_seed=None, dropout_rng=None,
+              aux_layers: list | None = None) -> torch.Tensor:
         """Input linear + message-passing stack -> node embeddings; with
         ``train``, ``dropout`` of the undirected edges masked out as drawn
         by ``dropout_seed`` (a uint32), or by the seed the reference draws
-        from the step's raw JAX key ``dropout_rng``."""
+        from the step's raw JAX key ``dropout_rng``. A list ``aux_layers``
+        gets each layer's aux dict (``EGNNLayer.forward``)."""
         if train and self.dropout > 0:
             if dropout_seed is None and dropout_rng is not None:
                 dropout_seed = egnn_edge_dropout_seed(dropout_rng)
@@ -325,14 +344,20 @@ class SartorrasEGNN(nn.Module):
                              inv_recv_perm=batch.inv_recv_perm)
         num_graphs = batch.graph_mask.shape[0]
         edge_messages = None
-        remat = self.remat and torch.is_grad_enabled()
+        remat = (self.remat and torch.is_grad_enabled()
+                 and aux_layers is None)
         for layer in self.layers[1:]:
             args = (h, coord, edge_messages, agg, batch.edge_attr,
                     batch.edge_mask, batch.node_mask, batch.graph_id,
                     num_graphs)
-            h, coord, edge_messages = (
-                checkpoint(layer, *args, use_reentrant=False) if remat
-                else layer(*args))
+            if remat:
+                h, coord, edge_messages = checkpoint(layer, *args,
+                                                     use_reentrant=False)
+            elif aux_layers is not None:
+                aux_layers.append({})
+                h, coord, edge_messages = layer(*args, aux=aux_layers[-1])
+            else:
+                h, coord, edge_messages = layer(*args)
         return h
 
     def pool(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
@@ -355,6 +380,21 @@ class SartorrasEGNN(nn.Module):
         return self.feats_linear_layers(pooled)
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_seed=None, dropout_rng=None) -> torch.Tensor:
-        return self.head(self.pool(
-            self.embed(batch, train, dropout_seed, dropout_rng), batch))
+                dropout_seed=None, dropout_rng=None,
+                capture_aux: bool = False):
+        """Logits; with ``capture_aux``, (logits, aux) where aux holds each
+        layer's aux dict (``layers``), ``node_embeddings`` and
+        ``pooled``, as the reference's ``capture_aux``."""
+        return self._forward(batch, train, dropout_seed, dropout_rng,
+                             capture_aux)
+
+    def _forward(self, batch, train, dropout_seed, dropout_rng,
+                 capture_aux, task=None):
+        layers = [] if capture_aux else None
+        h = self.embed(batch, train, dropout_seed, dropout_rng, layers)
+        pooled = self.pool(h, batch)
+        out = self.head(pooled, task)
+        if capture_aux:
+            return out, {'layers': layers, 'node_embeddings': h,
+                         'pooled': pooled}
+        return out

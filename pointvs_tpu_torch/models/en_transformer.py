@@ -78,7 +78,10 @@ class EnTransformerLayer(nn.Module):
                                  ('silu', 'tanh' if tanh else 'identity'),
                                  final_gain=0.001, final_bias=False)
 
-    def forward(self, h, coord, agg: EdgeAggregator, edge_attr, edge_mask):
+    def forward(self, h, coord, agg: EdgeAggregator, edge_attr, edge_mask,
+                aux: dict | None = None):
+        """-> (h, coord); an ``aux`` dict gets ``att_val`` (the heads' mean
+        attention, [E, 1]) and ``intermediate_coords``."""
         normed = self.norm(h)
         q, k, v = (self.q_proj(normed), self.k_proj(normed),
                    self.v_proj(normed))
@@ -97,6 +100,8 @@ class EnTransformerLayer(nn.Module):
         logits = (q_s * k_r).sum(-1) / math.sqrt(float(self.head_dim)) \
             + bias                                       # [E, H]
         att = agg.softmax_src(logits, mask=edge_mask)    # [E, H]
+        if aux is not None:
+            aux['att_val'] = att.mean(dim=1, keepdim=True)
         weighted = (att[:, :, None] * v_r).reshape(-1, self.k)
         h = h + self.o_proj(agg.sum_to_src(weighted, mask=edge_mask))
         h = h + self.ff(self.ff_norm(h))
@@ -105,6 +110,8 @@ class EnTransformerLayer(nn.Module):
             gate = self.coord_mlp(weighted).mean(dim=1, keepdim=True)
             coord = coord + agg.mean_to_src(coord_diff * gate,
                                             mask=edge_mask)
+        if aux is not None:
+            aux['intermediate_coords'] = coord
         return h, coord
 
 
@@ -139,16 +146,26 @@ class EnTransformer(nn.Module):
                 for i in range(self.num_layers)]
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_rng=None) -> torch.Tensor:
+                dropout_rng=None, capture_aux: bool = False):
+        """Logits; with ``capture_aux``, (logits, aux) as
+        ``SartorrasEGNN.forward``."""
         del train, dropout_rng   # no dropout in this family
         h = self.input_embed(batch.node_feats)
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,
                              batch.edge_mask, num_nodes=h.shape[0],
                              recv_perm=batch.recv_perm)
+        layers = []
         for layer in self.tf_layers():
-            h, coord = layer(h, coord, agg, batch.edge_attr, batch.edge_mask)
+            aux = {} if capture_aux else None
+            h, coord = layer(h, coord, agg, batch.edge_attr, batch.edge_mask,
+                             aux)
+            layers.append(aux)
         pooled = masked_graph_mean_pool(h, batch.graph_id,
                                         batch.graph_mask.shape[0],
                                         batch.node_mask)
-        return self.head(pooled)
+        out = self.head(pooled)
+        if capture_aux:
+            return out, {'layers': layers, 'node_embeddings': h,
+                         'pooled': pooled}
+        return out

@@ -139,9 +139,11 @@ class LucidEGNNLayer(nn.Module):
                               XavierNormalLinear(4 * k, 1), final))
 
     def forward(self, h, batch: GraphBatch, agg: EdgeAggregator,
-                num_graphs: int, keys=None):
+                num_graphs: int, keys=None, aux: dict | None = None):
         """``keys``: each dropout site's JAX key by site name
-        (``prng.LUCID_SITES``), or None (no dropout)."""
+        (``prng.LUCID_SITES``), or None (no dropout). An ``aux`` dict gets
+        ``intermediate_coords`` and, with the soft edge gate, ``att_val``
+        (the reference's ``capture_aux``)."""
         keys = keys or {}
         if agg.inv_recv_perm is not None:
             h_j, h_i = agg.gather_pair(h)   # h[senders], h[receivers]
@@ -161,8 +163,13 @@ class LucidEGNNLayer(nn.Module):
             if self.norm_coors:
                 rel_coors = self.coors_norm(rel_coors)
             coors = coors + agg.mean_to_dst(coor_wij * rel_coors)
+        if aux is not None:
+            aux['intermediate_coords'] = coors
         if self.soft_edge:
-            m_ij = m_ij * self.edge_weight(m_ij)
+            att_val = self.edge_weight(m_ij)
+            if aux is not None:
+                aux['att_val'] = att_val
+            m_ij = m_ij * att_val
         m_i = agg.mean_to_dst(m_ij)
 
         hidden = (self.node_norm(feats, batch.graph_id, num_graphs,
@@ -234,9 +241,11 @@ class LucidEGNN(nn.Module):
                 for site in LUCID_SITES}
 
     def forward(self, batch: GraphBatch, train: bool = False,
-                dropout_rng=None) -> torch.Tensor:
+                dropout_rng=None, capture_aux: bool = False):
         """Logits; a training forward with dropout takes the step's raw
-        JAX key ``dropout_rng`` (uint32[2])."""
+        JAX key ``dropout_rng`` (uint32[2]). With ``capture_aux``, (logits,
+        aux): each layer's aux dict (``layers``), ``node_embeddings`` and
+        ``pooled``."""
         dropping = train and self.dropout > 0
         if dropping and dropout_rng is None:
             raise ValueError('a training forward with dropout needs a '
@@ -248,9 +257,17 @@ class LucidEGNN(nn.Module):
                              recv_perm=batch.recv_perm,
                              inv_recv_perm=batch.inv_recv_perm)
         num_graphs = batch.graph_mask.shape[0]
+        layers = []
         for i, layer in enumerate(self.layers[1:]):
+            aux = {} if capture_aux else None
             h = layer(h, batch, agg, num_graphs,
-                      self._site_keys(i, dropout_rng) if dropping else None)
+                      self._site_keys(i, dropout_rng) if dropping else None,
+                      aux)
+            layers.append(aux)
         pooled = masked_graph_mean_pool(h[:, 3:], batch.graph_id, num_graphs,
                                         batch.node_mask)
-        return self.feats_linear_layers(pooled)
+        out = self.feats_linear_layers(pooled)
+        if capture_aux:
+            return out, {'layers': layers, 'node_embeddings': h[:, 3:],
+                         'pooled': pooled}
+        return out

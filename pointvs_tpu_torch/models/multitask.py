@@ -79,7 +79,8 @@ class MultitaskSatorrasEGNN(SartorrasEGNN):
 
     def forward(self, batch: GraphBatch, train: bool = False,
                 dropout_seed=None, dropout_rng=None,
-                task: str = 'classification') -> torch.Tensor:
-        return self.head(self.pool(
-            self.embed(batch, train, dropout_seed, dropout_rng), batch),
-            task)
+                task: str = 'classification', capture_aux: bool = False):
+        """The head ``task`` names; ``capture_aux`` as
+        ``SartorrasEGNN.forward``."""
+        return self._forward(batch, train, dropout_seed, dropout_rng,
+                             capture_aux, task)

@@ -42,8 +42,11 @@ class GraphNorm(nn.Module):
         self.mean_scale = nn.Parameter(torch.ones(features))
         self.whole_batch = whole_batch
 
-    def forward(self, x, graph_id, num_graphs: int, node_mask):
-        if self.whole_batch:
+    def forward(self, x, graph_id, num_graphs: int, node_mask,
+                per_graph: bool = False):
+        """``per_graph`` takes per-graph statistics whatever
+        ``whole_batch`` says (the fused paths' GraphNorm)."""
+        if self.whole_batch and not per_graph:
             count = torch.maximum(node_mask.sum(), node_mask.new_tensor(1.0))
             mean = (x * node_mask[:, None]).sum(0) / count
             out = x - mean[None, :] * self.mean_scale

@@ -6,8 +6,10 @@ The library (a directory searched for ``*.parquet``, a glob or one file)
 is sorted by file size, so that batches hold poses of similar size, and
 written as an unlabelled ``<receptor> <ligand>`` manifest beside the
 output. The run directory's model serves with the run's own graph flags
-(``cmd_args.yaml``) through ``SharedReceptorDataset``, which builds the
-receptor's grid and edges once. One pass over the library pins one node
+(``cmd_args.yaml``) through the standard pipeline (``PointCloudDataset``;
+the reference's ``SharedReceptorDataset`` gives the same graphs, and the
+port's native graph builder takes less time a pose than its shared
+receptor grid, PERF.md). One pass over the library pins one node
 and one edge bucket for the whole screen (every batch then has one
 shape); the serving eval step (the module path: K2 with attention, K1
 without) scores every batch, the logits stay on the device until the last
@@ -15,12 +17,18 @@ batch is dispatched and come back in one copy. Scores are the sigmoid of
 the pose logit (classification) or the mean of the outputs (regression),
 written ranked as ``ligand,score,rank``.
 
-Refused by name, as missing features (``NotImplementedError`` naming
-ROADMAP.md): ``--attribute_top > 0`` (attribution) and ``--num_devices``
-above 1 (data parallelism). Refused as runs the reference's screen does
-not serve as trained (``ValueError`` naming the flag):
-``--include_strain_info``, ``--extended_atom_types``, ``--synthpharm`` and
-the receptor/ligand pair and dense layouts. The reference's resident,
+With ``--attribute_top N`` the N best hits are attributed with the method
+``--attribution`` names (``attribution.score_atoms``, the run's radius and
+edge radius) into ``top_hit_attributions/<ligand>_<method>.csv`` beside
+the output. A run trained with ``--include_strain_info`` is scored with
+dE = 0, as the reference's screen scores it (its loader carries no strain
+column; ROADMAP.md, Queue 3).
+
+Refused by name, as a missing feature (``NotImplementedError`` naming
+ROADMAP.md): ``--num_devices`` above 1 (data parallelism). Refused as
+runs the reference's screen stops on (``ValueError`` naming the flag):
+``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
+and dense layouts. The reference's resident,
 chunked, grouped and one-shot scoring programs (its ``POINTVS_SCREEN_*``
 and ``POINTVS_DD_*`` variables) give the scores of this path; the port
 reads none of them.
@@ -28,7 +36,8 @@ reads none of them.
 Usage:
     python -m pointvs_tpu_torch.screen <run_dir> <receptor.parquet> \\
         <ligand_dir_or_glob> --output hits.csv --batch_size 256 \\
-        [--cache_dir DIR] [--device cuda|cpu]
+        [--attribute_top N --attribution atom_masking] [--cache_dir DIR] \\
+        [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -45,7 +54,6 @@ import torch
 
 from pointvs_tpu_torch.data.buckets import pick_bucket, to_device
 from pointvs_tpu_torch.data.loader import get_data_loader
-from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.models.registry import model_input_kind
@@ -53,10 +61,10 @@ from pointvs_tpu_torch.parallel.steps import make_eval_step
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
 LOG = get_logger()
-# Run flags the reference's screen leaves out of its loader: a run
-# trained with one is not scored as it was trained (ROADMAP.md, Queue 3).
-UNSERVED_FLAGS = ('include_strain_info', 'extended_atom_types',
-                  'synthpharm')
+# Run flags the reference's screen leaves out of its loader, where it then
+# stops (ROADMAP.md, Queue 3). It also leaves out --include_strain_info,
+# and scores such a run with dE = 0, as this screen does.
+UNSERVED_FLAGS = ('extended_atom_types', 'synthpharm')
 
 
 @dataclass
@@ -64,7 +72,9 @@ class ScreenResult:
     """The ranked rows (``ligand``, ``score``, ``rank``, best first) and
     the screen's wall seconds by part: ``load`` (model), ``featurise``
     (the sizing pass, which builds and caches every graph), ``score``
-    (collation, copies, the eval steps and the drain) and ``total``."""
+    (collation, copies, the eval steps and the drain) and ``total``; with
+    ``--attribute_top``, ``attribute`` (the top hits' attributions, after
+    ``total``)."""
     rows: list
     seconds: dict = field(default_factory=dict)
 
@@ -88,13 +98,13 @@ def _collect_ligands(ligands) -> list:
 
 
 def refuse_unserved(cmd_args: dict) -> None:
-    """Raise for a run the reference's screen cannot serve as trained."""
+    """Raise for a run the reference's screen stops on."""
     for flag in UNSERVED_FLAGS:
         if cmd_args.get(flag):
             raise ValueError(
                 f'--{flag}: the screen builds its graphs without it, as the '
-                f'reference screen does, so a --{flag} run is not scored as '
-                f'trained (see ROADMAP.md, Queue 3)')
+                f'reference screen does, which then stops on a --{flag} '
+                f'run (see ROADMAP.md, Queue 3)')
     model = cmd_args.get('model', 'egnn')
     kind = model_input_kind(model)
     if kind != 'graph':
@@ -114,15 +124,18 @@ def _file_size(path) -> int:
 def screen(model_path, receptor, ligands, output='screen_results.csv',
            batch_size: int = 256, radius: float = 10,
            edge_radius: float = 4, estimate_bonds: bool = False,
-           attribute_top: int = 0, num_devices=None, cache_dir=None,
+           attribute_top: int = 0, attribution: str = 'atom_masking',
+           num_devices=None, cache_dir=None,
            device: str = 'cuda') -> ScreenResult:
-    """Score every ligand against ``receptor`` and write the ranked CSV.
-    ``radius``, ``edge_radius`` and ``estimate_bonds`` apply where the
-    run's ``cmd_args.yaml`` does not set them."""
-    if attribute_top > 0:
-        raise NotImplementedError(
-            f'--attribute_top {attribute_top}: attribution is not in the '
-            f'port yet (see ROADMAP.md, Queue 1, item 4)')
+    """Score every ligand against ``receptor`` and write the ranked CSV
+    (and the top hits' attributions). ``radius``, ``edge_radius`` and
+    ``estimate_bonds`` apply where the run's ``cmd_args.yaml`` does not
+    set them."""
+    from pointvs_tpu_torch.attribution.attribution_fns import \
+        ATTRIBUTION_FNS
+    if attribute_top > 0 and attribution not in ATTRIBUTION_FNS:
+        raise ValueError(f'--attribution must be one of '
+                         f'{sorted(ATTRIBUTION_FNS)}')
     if num_devices not in (None, 1):
         raise NotImplementedError(
             f'--num_devices {num_devices}: data parallelism is not in the '
@@ -153,7 +166,6 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
 
     loader = get_data_loader(
         '/', manifest, batch_size=batch_size,
-        dataset_class=SharedReceptorDataset,
         compact=cmd_args.get('compact', True),
         radius=cmd_args.get('radius', radius),
         use_atomic_numbers=cmd_args.get('use_atomic_numbers', False),
@@ -212,7 +224,29 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     LOG.info(f'Scored {len(rows)} poses in {result.seconds["total"]:.1f}s '
              f'({result.poses_per_second:.0f} poses/s end to end); ranked '
              f'results written to {output}')
+    if attribute_top > 0:
+        _attribute_top_hits(trainer, receptor, rows[:attribute_top],
+                            ATTRIBUTION_FNS[attribution], attribution,
+                            output, cmd_args.get('radius', radius),
+                            cmd_args.get('edge_radius', edge_radius))
+        result.seconds['attribute'] = time.perf_counter() - end
     return result
+
+
+def _attribute_top_hits(trainer, receptor, hits, attribution_fn,
+                        method: str, output: Path, radius: float,
+                        edge_radius: float) -> None:
+    """``top_hit_attributions/<ligand>_<method>.csv`` beside ``output``
+    for each hit, as the reference's screen writes them."""
+    from pointvs_tpu_torch.attribution.attribution import score_atoms
+    out_dir = mkdir(output.parent / 'top_hit_attributions')
+    for hit in hits:
+        scored = score_atoms(trainer, receptor, hit['ligand'],
+                             attribution_fn, radius=radius,
+                             edge_radius=edge_radius)
+        scored.to_csv(out_dir / f'{Path(hit["ligand"]).stem}_{method}.csv',
+                      index=False)
+    LOG.info(f'Attributions for the top {len(hits)} hits in {out_dir}')
 
 
 def main(argv=None) -> ScreenResult:
@@ -233,6 +267,7 @@ def main(argv=None) -> ScreenResult:
     return screen(args.model, args.receptor, args.ligands,
                   output=args.output, batch_size=args.batch_size,
                   attribute_top=args.attribute_top,
+                  attribution=args.attribution,
                   num_devices=args.num_devices, cache_dir=args.cache_dir,
                   device=args.device)
 

@@ -1,4 +1,5 @@
-"""Host helpers: paths, yaml sidecars, checkpoint lookup, timers.
+"""Host helpers: paths, yaml sidecars, checkpoint lookup, timers,
+coordinate keys (``PositionDict``) and a process fan-out.
 
 Own copies of the helpers the port needs from the reference's
 ``pointvs_tpu/utils.py``; ``get_logger`` is ``logging.get_logger``.
@@ -127,3 +128,61 @@ class Timer:
         if self.name:
             print(f'{self.name}: {format_time(self.interval)}')
         return False
+
+
+def truncate_float(x: float, decimals: int = 3) -> float:
+    """Truncate (not round) a float to a number of decimal places."""
+    factor = 10 ** decimals
+    return math.trunc(x * factor) / factor
+
+
+def coords_to_string(coords, eps: float = 1e-3) -> str:
+    """Coordinates truncated onto an ``eps`` grid, as a string key."""
+    if isinstance(coords, str):
+        coords = [float(c) for c in coords.split()]
+    decimals = max(0, int(round(-math.log10(eps))))
+    return ' '.join(f'{truncate_float(float(c), decimals):.{decimals}f}'
+                    for c in np.asarray(coords).reshape(-1))
+
+
+class PositionDict(dict):
+    """A dict keyed by 3D coordinates, truncated to an ``eps`` grid so
+    that nearby coordinates find one entry (attribution maps scores back
+    onto structure-file atoms by position)."""
+
+    def __init__(self, *args, eps: float = 1e-3, **kwargs):
+        self.eps = eps
+        super().__init__(*args, **kwargs)
+
+    def _key(self, coords) -> str:
+        return coords_to_string(coords, eps=self.eps)
+
+    def __setitem__(self, key, value):
+        super().__setitem__(self._key(key), value)
+
+    def __getitem__(self, key):
+        return super().__getitem__(self._key(key))
+
+    def __contains__(self, key):
+        return super().__contains__(self._key(key))
+
+    def get(self, key, default=None):
+        return super().get(self._key(key), default)
+
+
+def no_return_parallelise(func, *args, cpus: int | None = None) -> None:
+    """Call ``func`` once per position of the list or tuple arguments
+    (other arguments are passed to every call), over a process pool, or
+    in this process with one CPU or one call."""
+    import multiprocessing as mp
+    lengths = [len(a) for a in args if isinstance(a, (list, tuple))]
+    n = max(lengths) if lengths else 1
+    calls = [tuple(a[i] if isinstance(a, (list, tuple)) else a
+                   for a in args) for i in range(n)]
+    cpus = cpus if cpus is not None else max(1, (os.cpu_count() or 1) - 1)
+    if cpus <= 1 or n <= 1:
+        for call in calls:
+            func(*call)
+        return
+    with mp.Pool(processes=min(cpus, n)) as pool:
+        pool.starmap(func, calls)

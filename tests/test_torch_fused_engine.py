@@ -7,8 +7,8 @@ tests/test_fused_engine.py, atol 3e-5; ``fused_train.fused_apply``
 for the variants of tests/test_fused_train.py: outputs 2e-5, coordinate
 gradients 3e-5, parameter gradients 3e-5 x max(1, |ref|), and against the
 port's own module-path autograd at the same gates. With
-``graphnorm_whole_batch`` the port's fused paths are held against its
-module path and the JAX module path instead. The model is cut to k=16 (2
+``graphnorm_whole_batch`` the fused paths take per-graph statistics and
+the module path whole-batch ones, in both packages. The model is cut to k=16 (2
 to 3 layers) to keep the CPU time small.
 """
 import jax
@@ -129,48 +129,72 @@ def test_fused_apply_matches_jax(variant):
                                        err_msg=name)
 
 
+def _two_pockets_batch():
+    """One complex boxed at 4 and at 6 A: two different graphs, on which
+    per-graph and whole-batch statistics differ."""
+    from pointvs_tpu.data.buckets import pad_graphs_to_batch
+    from pointvs_tpu.data.dataset import PointCloudDataset
+    from tests.setup_and_params import RESOURCES
+    samples = [PointCloudDataset(
+        RESOURCES, radius=radius, polar_hydrogens=False, compact=True,
+        types_fname=RESOURCES / 'test.types', edge_radius=4,
+        estimate_bonds=True, model_task='classification')[0]
+        for radius in (4, 6)]
+    return _pad_nodes(pad_graphs_to_batch(samples, num_graphs=2))
+
+
 @pytest.mark.parametrize('variant', ['softmax_attention', 'sigmoid_attention'])
 def test_whole_batch_graphnorm_fused_matches_module_and_jax(variant):
-    """``graphnorm_whole_batch=True`` (ROADMAP Queue 3): the port's fused
-    forward and ``fused_apply`` equal its module path, and both equal the
-    JAX package's module path (``model.apply``). The JAX fused engines take
-    per-graph statistics under this flag, so they are not the reference
-    here and ENGINE_VARIANTS / TRAIN_VARIANTS leave it out."""
+    """``graphnorm_whole_batch=True``: the fused paths take per-graph
+    GraphNorm statistics, as the JAX fused engines do, and the module path
+    the whole batch's, as JAX's ``model.apply`` does (ROADMAP Queue 3).
+    The port's fused forward and ``fused_apply`` equal JAX's
+    ``fused_forward`` / ``fused_apply``, and its module path JAX's module
+    path, at the gates of the tests above."""
+    from pointvs_tpu.fused_train import fused_apply as jax_fused_apply
+    from pointvs_tpu.inference_engine import fused_forward as jax_fused
     kwargs = dict(SMALL_TRAIN, graphnorm_whole_batch=True,
                   **ENGINE_VARIANTS[variant])
-    batch = _train_batch()
+    batch = _two_pockets_batch()
     model = build_jax_model('egnn', **kwargs)
     params = model.init(jax.random.PRNGKey(3), batch)
 
-    def loss(p, coords):
-        out = model.apply(p, batch._replace(coords=coords))
-        s, w = jax_loss_fn(out, batch, 'classification', 'mse')
-        return s / jnp.maximum(w, 1.0), out
+    def grads_of(apply):
+        def loss(p, coords):
+            out = apply(p, batch._replace(coords=coords))
+            s, w = jax_loss_fn(out, batch, 'classification', 'mse')
+            return s / jnp.maximum(w, 1.0), out
+        (_, out), (g_params, g_coords) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(
+                params, jnp.asarray(batch.coords))
+        return (np.asarray(out), np.asarray(g_coords),
+                state_dict_from_flax(jax.tree.map(np.asarray, g_params)))
 
-    (_, want_out), (g_params, g_coords) = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(batch.coords))
-    want_out, g_coords = np.asarray(want_out), np.asarray(g_coords)
-    want_grads = state_dict_from_flax(jax.tree.map(np.asarray, g_params))
-
+    want = {
+        True: grads_of(lambda p, b: jax_fused_apply(model, p, b,
+                                                    interpret=True)),
+        False: grads_of(model.apply)}
     port = _port_model_from_jax(kwargs, params)
     pb = port_batch(batch)
     assert supports_fusion(port) and supports_fused_training(port, pb)
     with torch.no_grad():
-        fused = fused_forward(port, pb).numpy()
-        module = port(pb).numpy()
-    np.testing.assert_allclose(fused, module, atol=3e-5)
-    out, coord_grad, grads = _port_grads(port, pb, fused=True)
-    m_out, m_coord_grad, m_grads = _port_grads(port, pb, fused=False)
-    for got in (out, m_out):
-        np.testing.assert_allclose(got, want_out, atol=2e-5)
-    for got in (coord_grad, m_coord_grad):
-        np.testing.assert_allclose(got, g_coords, atol=3e-5)
-    assert set(grads) == set(m_grads) == set(want_grads)
-    for name in grads:
-        ref = want_grads[name].numpy()
-        scale = max(1.0, float(np.abs(ref).max()))
-        for got in (grads[name], m_grads[name]):
-            np.testing.assert_allclose(got, ref, atol=3e-5 * scale, rtol=0,
+        np.testing.assert_allclose(
+            fused_forward(port, pb).numpy(),
+            np.asarray(jax_fused(model, params, batch, interpret=True)),
+            atol=3e-5)
+        np.testing.assert_allclose(port(pb).numpy(), want[False][0],
+                                   atol=2e-5)
+    # The two statistics give different logits on this batch.
+    assert np.abs(want[True][0] - want[False][0]).max() > 1e-4
+    for fused in (True, False):
+        out, coord_grad, grads = _port_grads(port, pb, fused=fused)
+        want_out, want_coords, want_grads = want[fused]
+        np.testing.assert_allclose(out, want_out, atol=2e-5)
+        np.testing.assert_allclose(coord_grad, want_coords, atol=3e-5)
+        assert set(grads) == set(want_grads)
+        for name in grads:
+            ref = want_grads[name].numpy()
+            scale = max(1.0, float(np.abs(ref).max()))
+            np.testing.assert_allclose(grads[name], ref,
+                                       atol=3e-5 * scale, rtol=0,
                                        err_msg=name)
-        np.testing.assert_allclose(grads[name], m_grads[name],
-                                   atol=3e-5 * scale, rtol=0, err_msg=name)

@@ -1,14 +1,14 @@
 """Library screening in the port against the JAX package.
 
-``SharedReceptorDataset``: on a library of seeded poses of the test
-ligand in its pocket and the two test complexes, every item of the port's
-dataset has the JAX package's ``SharedReceptorDataset`` node features
-(array-equal), coordinates (within 1e-6), edge multiset and receiver
-permutation, and equals the port's own ``PointCloudDataset`` item in
-every array (the same edges in the same order); its edges are in
-(sender, receiver) lexical order. At the three radii of
-``tests/test_shared_receptor.py`` and through each fallback (pruning, the
-whole-complex rotation, the ``bp`` filter, ``edge_radius < 0``).
+The screen's dataset (the port's ``PointCloudDataset``): on a library of
+seeded poses of the test ligand in its pocket and the two test
+complexes, every item has the JAX package's ``SharedReceptorDataset``
+node features (array-equal), coordinates (within 1e-6), edge multiset
+and receiver permutation, and the JAX ``PointCloudDataset``'s; its edges
+are in (sender, receiver) lexical order. At the three radii of
+``tests/test_shared_receptor.py`` and in each configuration the JAX
+dataset takes its standard pipeline for (pruning, the whole-complex
+rotation, the ``bp`` filter, ``edge_radius < 0``).
 ``_collect_ligands`` on a directory, a glob and one file gives the
 reference's list; ``single_item``'s batches equal the reference's.
 
@@ -17,13 +17,17 @@ The screen: ``pointvs_tpu_torch.screen.screen --device cpu`` against
 library (three poses and two copies of one, so scores tie) at batch 2:
 a pose run and a multitask ``--model_task both`` run (its newest
 checkpoint, the affinity phase's, with the pose head), scores per ligand
-within 1e-5, the CSV's columns and ranks. Each refusal by name.
+within 1e-5, the CSV's columns and ranks; ``--attribute_top`` (the top
+hits' attribution CSVs against the JAX screen's) and a
+``--include_strain_info`` run (scored with dE = 0, as the JAX screen
+does). Each refusal by name.
 """
 import csv
 import shutil
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 import yaml
@@ -35,7 +39,6 @@ from pointvs_tpu.screen import _collect_ligands as jax_collect
 from pointvs_tpu.screen import screen as jax_screen
 from pointvs_tpu_torch import screen as port_screen
 from pointvs_tpu_torch.data.dataset import PointCloudDataset
-from pointvs_tpu_torch.data.shared_receptor import SharedReceptorDataset
 from pointvs_tpu_torch.main import main as port_main
 from tests.setup_and_params import RESOURCES
 from tests.test_torch_multitask import write_affinity_types
@@ -120,20 +123,18 @@ def test_items_match_jax_and_the_standard_pipeline(library, case):
                   model_task='classification', seed=3, **CASES[case])
     common.setdefault('rot', False)
     jax_ds = JaxSharedDataset(lib, types_fname=types, **common)
-    fast = SharedReceptorDataset(lib, types, **common)
-    std = PointCloudDataset(lib, types, **common)
-    assert len(fast) == len(std) == len(jax_ds) == N_POSES + 2
-    for i in range(len(fast)):
-        want, got, plain = jax_ds[i], fast[i], std[i]
-        np.testing.assert_array_equal(got.node_feats,
-                                      np.asarray(want.node_feats))
-        np.testing.assert_allclose(got.coords, np.asarray(want.coords),
-                                   atol=1e-6)
-        assert _edge_multiset(got) == _edge_multiset(want)
-        for name in ('node_feats', 'coords', 'senders', 'receivers',
-                     'edge_attr'):
-            np.testing.assert_array_equal(getattr(got, name),
-                                          getattr(plain, name), name)
+    jax_std = JaxDataset(lib, types_fname=types, **common)
+    port = PointCloudDataset(lib, types, **common)
+    assert len(port) == len(jax_std) == len(jax_ds) == N_POSES + 2
+    for i in range(len(port)):
+        got, wants = port[i], (jax_ds[i], jax_std[i])
+        for want in wants:
+            np.testing.assert_array_equal(got.node_feats,
+                                          np.asarray(want.node_feats))
+            np.testing.assert_allclose(got.coords, np.asarray(want.coords),
+                                       atol=1e-6)
+            assert _edge_multiset(got) == _edge_multiset(want)
+        want = wants[0]
         s, r = got.senders, got.receivers
         if len(s) > 1:
             assert np.all((s[1:] > s[:-1])
@@ -146,9 +147,7 @@ def test_items_match_jax_and_the_standard_pipeline(library, case):
             np.testing.assert_array_equal(batch.recv_perm[:e],
                                           np.asarray(want.recv_perm))
     if case == 'no_edges':
-        assert fast[0].num_edges == 0
-    if case in ('r6_e4', 'r8_e4_bonds', 'r4_e6'):
-        assert SharedReceptorDataset._shared_cache
+        assert port[0].num_edges == 0
 
 
 @pytest.mark.parametrize('kind', ['dir', 'glob', 'file'])
@@ -174,7 +173,7 @@ def test_single_item_batches_match_jax(library, pads):
     lib, types = library
     common = dict(compact=True, polar_hydrogens=False, radius=6,
                   edge_radius=4, model_task='classification')
-    sample = SharedReceptorDataset(lib, types, **common)[1]
+    sample = PointCloudDataset(lib, types, **common)[1]
     jax_sample = JaxDataset(lib, types_fname=types, **common)[1]
     n_pad, e_pad = pads
     pairs = [(get_single_graph_for_inference(sample, n_pad, e_pad),
@@ -272,12 +271,11 @@ def _run_with(runs, tmp_path, **cmd_args):
 
 
 REFUSED = {
-    'attribute_top': (dict(), dict(attribute_top=3), NotImplementedError,
-                      'ROADMAP.md'),
     'num_devices': (dict(), dict(num_devices=2), NotImplementedError,
                     'ROADMAP.md'),
-    'include_strain_info': (dict(include_strain_info=True), {}, ValueError,
-                            '--include_strain_info'),
+    'attribution_method': (dict(), dict(attribute_top=1,
+                                        attribution='nope'), ValueError,
+                           '--attribution must be one of'),
     'extended_atom_types': (dict(extended_atom_types=True), {}, ValueError,
                             '--extended_atom_types'),
     'synthpharm': (dict(synthpharm=True), {}, ValueError, '--synthpharm'),
@@ -304,3 +302,63 @@ def test_cuda_without_a_gpu_raises(runs, library, tmp_path, monkeypatch):
         port_screen.main([str(runs / 'pose'),
                           str(RESOURCES / 'rec_0.parquet'),
                           str(library[0]), '-o', str(tmp_path / 'h.csv')])
+
+
+@pytest.mark.parametrize('method', ['atom_masking', 'bond_masking',
+                                    'edge_attention'])
+def test_attribute_top_matches_jax(runs, library, tmp_path, method):
+    """``--attribute_top 2``: the two best hits' attribution CSVs equal
+    the JAX screen's (the scores within 2e-5, every other column
+    exactly)."""
+    ligands = str(library[0] / 'pose_*.parquet')   # no tied scores
+    for name, fn, extra in (('jax', jax_screen, {}),
+                            ('port', port_screen.screen,
+                             {'device': 'cpu'})):
+        fn(runs / 'pose', RESOURCES / 'rec_0.parquet', ligands,
+           output=str(tmp_path / name / 'hits.csv'), batch_size=2,
+           attribute_top=2, attribution=method, **extra)
+    got_dir, want_dir = (tmp_path / name / 'top_hit_attributions'
+                         for name in ('port', 'jax'))
+    names = sorted(p.name for p in want_dir.iterdir())
+    assert sorted(p.name for p in got_dir.iterdir()) == names
+    assert len(names) == 2 and all(n.endswith(f'_{method}.csv')
+                                   for n in names)
+    for name in names:
+        got, want = (pd.read_csv(d / name) for d in (got_dir, want_dir))
+        assert list(got.columns) == list(want.columns)
+        for col in want.columns:
+            if col == 'attribution':
+                np.testing.assert_allclose(got[col], want[col], atol=2e-5,
+                                           rtol=0)
+            else:
+                np.testing.assert_array_equal(got[col], want[col])
+
+
+@pytest.fixture(scope='module')
+def strain_run(tmp_path_factory):
+    """A run trained by the port's CLI with --include_strain_info."""
+    root = tmp_path_factory.mktemp('screen_strain')
+    types = root / 'strain.types'
+    types.write_text(''.join(
+        f'{i % 2} -1 -1.0 rec_0.parquet lig_0.parquet {3.5 + 4 * i:.1f} '
+        f'0.{i + 1}\n' for i in range(4)))
+    port_main(['egnn', str(root / 'run'), '--train_data_root_pose',
+               str(RESOURCES), '--train_types_pose', str(types),
+               '--include_strain_info'] + POSE_CLI)
+    return root / 'run'
+
+
+def test_strain_run_scores_with_zero_strain_like_jax(strain_run, library,
+                                                     tmp_path):
+    """A --include_strain_info run is scored with dE = 0, as the JAX
+    screen scores it: the same scores within 1e-5."""
+    ligands = str(library[0] / '[pc]o*.parquet')
+    want = jax_screen(strain_run, RESOURCES / 'rec_0.parquet', ligands,
+                      output=str(tmp_path / 'jax.csv'), batch_size=2)
+    got = port_screen.screen(strain_run, RESOURCES / 'rec_0.parquet',
+                             ligands, output=str(tmp_path / 'port.csv'),
+                             batch_size=2, device='cpu')
+    jax_scores = dict(zip(want.ligand, want.score))
+    assert len(got.rows) == len(jax_scores) == 5
+    for row in got.rows:
+        assert abs(row['score'] - jax_scores[row['ligand']]) <= 1e-5

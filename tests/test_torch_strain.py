@@ -14,13 +14,15 @@ features. Held against JAX:
 - 20-step loss trajectories within atol 1e-4 / rtol 1e-5 on the module
   and the fused path;
 - the CLI (``main egnn --include_strain_info``) from the same weights,
-  then the port's serving CLI scoring the run with the types file's dE
-  (its validation rows), and ``resume_training``.
+  then both serving CLIs on the port's run, which score with dE = 0 (the
+  JAX serving CLI leaves the flag out; the port does as it does), and
+  ``resume_training``.
 """
 import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from pointvs_tpu.data.types_files import \
     parse_classification_types as jax_parse
@@ -30,14 +32,14 @@ from pointvs_tpu_torch.data.types_files import parse_classification_types
 from pointvs_tpu_torch.fused_train import fused_apply
 from pointvs_tpu_torch.inference_engine import fused_forward
 from pointvs_tpu_torch.models.registry import build_model
+from pointvs_tpu_torch.resume_training import main as resume_main
 from tests.setup_and_params import ORIGINAL_GRAPH_TWO_ITEMS, RESOURCES
 from tests.test_fused_engine import _pad_nodes
 from tests.test_torch_egnn import jax_batch, port_batch
 from tests.test_torch_lucid import draw_params, port_from_jax, \
     port_trajectory, trajectory_batches
 from tests.test_torch_multitask import _jax_fused_trajectory
-from tests.test_torch_siamese import check_clis_agree, \
-    check_serve_and_resume, epochs, run_clis
+from tests.test_torch_siamese import check_clis_agree, epochs, run_clis
 from tests.test_torch_train_loader import COMPLEXES, assert_same_batch
 from tests.test_train_trajectory import N_BATCHES, _jax_trajectory
 
@@ -219,11 +221,50 @@ def test_cli_matches_jax(strain_runs):
     check_clis_agree(root, jax_trainer, port_trainer)
 
 
+def jax_serving_scores(run, types, data_root, **kwargs):
+    """The scores of the JAX serving CLI's rows (its loader, its
+    ``model.apply``), unrounded: sigmoid of the pose logit."""
+    from pointvs_tpu.inference import get_model_and_test_dl
+    trainer, loader = get_model_and_test_dl(run, types, data_root,
+                                            num_devices=1, **kwargs)
+    scores = []
+    for batch, _ in loader:
+        batch = type(batch)(*[None if a is None else np.asarray(a)[0]
+                              for a in batch])
+        out = np.asarray(trainer.host_model.apply(trainer.params, batch))
+        real = np.asarray(batch.graph_mask) > 0
+        scores.append(1 / (1 + np.exp(-out[real, 0])))
+    return np.concatenate(scores)
+
+
 def test_cli_serves_with_the_strain_column_and_resumes(strain_runs):
-    """Serving reads the run's flag and scores with the types file's dE,
-    as the run's own validation did."""
+    """The serving CLI builds its loader without the run's strain column
+    and scores with dE = 0, as the JAX serving CLI does (ROADMAP.md,
+    Queue 3): both CLIs on the port's run directory write the same rows,
+    the scores within 1e-5, which differ from the run's own validation
+    (read with dE); then ``resume_training`` continues the run."""
+    from pointvs_tpu.inference import main as jax_inference
+    from pointvs_tpu_torch import inference
     root, test, _, port_trainer = strain_runs
-    trainer = check_serve_and_resume(root / 'port', test)
+    run = root / 'port'
+    args = [str(run), str(test), str(RESOURCES)]
+    jax_inference(args + ['--num_devices', '1', '--output_fname',
+                          'jax_served.txt'])
+    want = jax_serving_scores(run, test, RESOURCES)
+    trainer = inference.main(args + ['--device', 'cpu', '--output_fname',
+                                     'served.txt'])
     assert trainer.model.include_strain_info
-    np.testing.assert_array_equal(trainer.val_scores,
-                                  port_trainer.val_scores)
+    np.testing.assert_allclose(trainer.val_scores, want, atol=1e-5, rtol=0)
+    got_rows = (run / 'pose_served.txt').read_text().splitlines()
+    want_rows = (run / 'pose_jax_served.txt').read_text().splitlines()
+    assert len(got_rows) == len(want_rows) == 4
+    for g, w in zip(got_rows, want_rows):
+        g, w = g.split(), w.split()
+        assert g[:2] == w[:2] and g[3:] == w[3:]
+        assert abs(float(g[2]) - float(w[2])) <= 1.1e-3
+    assert np.abs(trainer.val_scores - port_trainer.val_scores).max() > 1e-4
+    args = yaml.safe_load((run / 'cmd_args.yaml').read_text())
+    args['epochs_pose'] = 2
+    (run / 'cmd_args.yaml').write_text(yaml.dump(args))
+    resumed = resume_main([str(run), '--device', 'cpu'])
+    assert resumed.p_epoch == 2 and np.isfinite(resumed.train_losses).all()

@@ -218,11 +218,18 @@ def test_without_compact_both_stop_at_the_first_step(sp_runs, tmp_path):
 
 
 def test_serving_cli_scores_a_synthpharm_run(sp_runs):
-    root, types, _, port_trainer = sp_runs
+    """The JAX serving CLI reads a --synthpharm run's structures as
+    ordinary complexes and stops at its first item (the files have no
+    atomic_number or types column); the port's stops with a ValueError
+    naming the flag, before loading the model (ROADMAP.md, Queue 3)."""
+    from pointvs_tpu.inference import main as jax_inference
+    root, types, _, _ = sp_runs
     run = root / 'port'
-    served = inference.main([str(run), str(types), str(types.parent),
-                             '--device', 'cpu', '--output_fname',
-                             'served.txt'])
-    np.testing.assert_array_equal(served.val_scores, port_trainer.val_scores)
-    assert (run / 'pose_served.txt').read_text() == (
-        run / 'pose_predictions.txt').read_text()
+    args = [str(run), str(types), str(types.parent)]
+    with pytest.raises(Exception, match='atomic_number|types'):
+        jax_inference(args + ['--num_devices', '1', '--output_fname',
+                              'jax_served.txt'])
+    with pytest.raises(ValueError, match='--synthpharm'):
+        inference.main(args + ['--device', 'cpu', '--output_fname',
+                               'served.txt'])
+    assert not (run / 'pose_served.txt').exists()

@@ -174,13 +174,18 @@ def test_module_trajectory_matches_jax():
 
 def test_fused_trajectory_matches_module():
     """The fused training path (plain K3/K4 here) against the module path,
-    from the same weights, over 10 steps."""
+    from the same weights, over 10 steps. With per-graph GraphNorm
+    statistics: under ``graphnorm_whole_batch`` the fused path takes
+    per-graph ones, as the JAX package's does, and the two paths differ
+    by design (``tests/test_torch_fused_engine.py`` holds each against
+    JAX's)."""
+    flags = dict(FLAGS, graphnorm_whole_batch=False)
     batches = _trajectory_batches(12)
     jax_model = build_jax_model('egnn', dim_input=DIM_IN, k=K, dim_output=1,
-                                num_layers=LAYERS, **FLAGS)
+                                num_layers=LAYERS, **flags)
     params = jax.jit(jax_model.init)(jax.random.PRNGKey(1), batches[0])
-    module = _port_trajectory(_port_from_jax(params, **FLAGS), batches, 10)
-    fused = _port_trajectory(_port_from_jax(params, **FLAGS), batches, 10,
+    module = _port_trajectory(_port_from_jax(params, **flags), batches, 10)
+    fused = _port_trajectory(_port_from_jax(params, **flags), batches, 10,
                              use_fused=True)
     np.testing.assert_allclose(fused, module, atol=1e-4, rtol=1e-5)
 
