@@ -173,6 +173,26 @@ on lucid's three site shapes of a real batch (masks, values and
 gradients bit for bit; the node site's mask against the host's threefry),
 on an odd size and a misaligned view, timed against its bound.
 
+After the training CLI, the device-resident dataset
+(``pointvs_tpu_torch/data/device_dataset.py``): the 64-pose store built
+and uploaded (MB, ms); every batch of a validation and a training pass
+collated from item ids on the card and held field by field against the
+host collation moved to the card; the rotation matrices against the
+CPU's within 1e-6; the README model on the module path (K2) and the
+fused path (K3/K4) and ``default_3l`` (K1) trained 3 epochs (6 steps)
+from ids and from the host stream in turns, the trajectories within the
+gate, each kernel of the ids steps held against its plain version on the
+inputs the step gave it (``_first_call_recorder``), step ms by CUDA
+events and the last epoch's host share for both; ``main --device_cache
+on`` against ``off`` with augmented actives (the hybrid tail), scores
+within 1e-5; peak memory. The screen phase also screens the README
+model at batch 32 through the host stream (``POINTVS_SCREEN_DEVICE=0``)
+and the chunked library (``POINTVS_SCREEN_CHUNK_MB=5``: at least 3
+chunks) with exact coordinates, each within 1e-5 of the resident
+store's scores, and with the default codecs (coords16: the worst
+|score difference|, the top-32 overlap and Spearman's rho), then a cold
+and a warm ``--cache_dir`` screen (the warm one loads the cached store).
+
 Then the wall seconds of every phase, one JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -556,6 +576,13 @@ def _to(torch, dev, tree):
                   else move(v)) for key, v in tree.items()}
 
 
+def _as_double(torch, a):
+    """``a`` (a tensor, a dict of tensors or None) in float64."""
+    if isinstance(a, dict):
+        return {key: v.double() for key, v in a.items()}
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
 def k3_work(real, e, n, k, residual):
     """(bytes, flops, product flops) of one K3 call: inputs read once,
     outputs written once, the edge and coordinate MLPs of every real edge;
@@ -615,7 +642,10 @@ def phase_fused_kernels(torch, np):
         args = (c['h'], c['h_dst'], c['extras'], c['mask'], c['senders'],
                 c['prev'], c['params'])
         got = k3.fused_edge_forward(*args, mode, tanh)
-        want = k3.fused_edge_forward_plain(*args, mode, tanh)
+        # The plain version in float64 (its float32 sums add by atomics in
+        # no fixed order and can reach the gate themselves).
+        want = [w.float() for w in k3.fused_edge_forward_plain(
+            *[_as_double(torch, a) for a in args], mode, tanh)]
         again = k3.fused_edge_forward(*args, mode, tanh)
         torch.cuda.synchronize()
         for out, g, w, a in zip(('agg', 'phi', 'att', 'msg'), got, want,
@@ -1241,7 +1271,10 @@ def phase_screen(torch, np, root: Path, card: str):
             sec = result.seconds
             out[name] = {kernel: out.get(name, {}).get(kernel, 0) + count
                          for kernel, count in counts.items()}
-            print(f'screen: {card}: {name} -b {b}: {SCREEN_POSES} poses in '
+            check(result.path == 'resident',
+                  f'screen {name} -b {b}: took the {result.path} path')
+            print(f'screen: {card}: {name} -b {b} ({result.path}): '
+                  f'{SCREEN_POSES} poses in '
                   f'{sec["total"]:.3f} s = {result.poses_per_second:.1f} '
                   f'poses/s (load {sec["load"]:.3f}, featurise '
                   f'{sec["featurise"]:.3f}, score {sec["score"]:.3f} s); '
@@ -1249,7 +1282,125 @@ def phase_screen(torch, np, root: Path, card: str):
                   f'{sec["featurise"] / sec["total"]:.3f}; launches {counts}'
                   f'; max|gpu - cpu| over the first {SCREEN_CPU_POSES} '
                   f'{diff:.2e}')
+            if b == SCREEN_PATH_BATCH and name == SCREEN_PATH_RUN:
+                resident = result
+    for key, counts in screen_paths(torch, np, root, receptor, ligands,
+                                    resident, card).items():
+        out[SCREEN_PATH_RUN] = {k: out[SCREEN_PATH_RUN].get(k, 0) + n
+                                for k, n in counts.items()}
     featurise_native_vs_numpy(np, lib, types)
+    return out
+
+
+SCREEN_PATH_RUN = 'readme_softmax_6l'
+SCREEN_PATH_BATCH = 32
+SCREEN_CHUNK_MB = '5'     # the 256 poses' store is ~20 MB: >= 3 chunks
+SCREEN_TOP = 32
+
+
+def _ranks(np, values):
+    ranks = np.empty(len(values))
+    ranks[np.argsort(values, kind='stable')] = np.arange(len(values))
+    return ranks
+
+
+def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
+                 resident, card: str) -> dict:
+    """The README model's screen at batch 32 on its other paths, against
+    the resident store's scores (``resident``): streaming
+    (``POINTVS_SCREEN_DEVICE=0``) and chunked with exact coordinates
+    within 1e-5; chunked with the default codecs (coords16, lossy): the
+    worst |score difference|, the top-32 overlap and Spearman's rho; then
+    a cold and a warm screen with ``--cache_dir``, the warm one loading the
+    cached store. Each run's launches: K2 6 a batch, one offset
+    computation a batch. Returns the runs' launches by name."""
+    import os
+    from pointvs_tpu_torch import screen as screen_mod
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    exact = {r['ligand']: r['score'] for r in resident.rows}
+    order = sorted(exact)
+    runs = {
+        'streaming': ({'POINTVS_SCREEN_DEVICE': '0'}, 'streaming', None),
+        'chunked_exact': ({'POINTVS_SCREEN_CHUNK_MB': SCREEN_CHUNK_MB,
+                           'POINTVS_CHUNK_COORDS16': '0'}, 'chunked', None),
+        'chunked_coords16': ({'POINTVS_SCREEN_CHUNK_MB': SCREEN_CHUNK_MB},
+                             'chunked', None),
+        'cache_cold': ({}, 'resident', root / 'screen_cache'),
+        'cache_warm': ({}, 'resident', root / 'screen_cache'),
+    }
+    real_plan = screen_mod.plan_chunks
+    plans = []
+
+    def plan_chunks(*args, **kwargs):
+        plans.append(real_plan(*args, **kwargs))
+        return plans[-1]
+
+    screen_mod.plan_chunks = plan_chunks
+    out, results = {}, {}
+    try:
+        for key, (env, path, cache) in runs.items():
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            sk.reset_launch_counts()
+            try:
+                result = screen_mod.screen(
+                    root / SCREEN_PATH_RUN, receptor, ligands,
+                    output=str(root / f'screen_path_{key}.csv'),
+                    batch_size=SCREEN_PATH_BATCH,
+                    cache_dir=None if cache is None else str(cache))
+                torch.cuda.synchronize()
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            counts = sk.launch_counts()
+            check(result.path == path, f'screen {key}: took the '
+                                       f'{result.path} path')
+            check(counts['segment_offsets'] > 0
+                  and counts['softmax_aggregate_sorted']
+                  == 6 * counts['segment_offsets']
+                  and counts['fused_edge_forward'] == 0,
+                  f'screen {key}: launches {counts}')
+            out[key] = counts
+            results[key] = result
+            scores = {r['ligand']: r['score'] for r in result.rows}
+            check(sorted(scores) == order, f'screen {key}: other ligands')
+            got = np.asarray([scores[k] for k in order])
+            want = np.asarray([exact[k] for k in order])
+            worst = float(np.abs(got - want).max())
+            extra = ''
+            if key == 'chunked_coords16':
+                top = len(set(np.argsort(-got)[:SCREEN_TOP])
+                          & set(np.argsort(-want)[:SCREEN_TOP]))
+                rho = float(np.corrcoef(_ranks(np, got),
+                                        _ranks(np, want))[0, 1])
+                extra = (f'; top-{SCREEN_TOP} overlap {top}/{SCREEN_TOP}, '
+                         f'Spearman rho {rho:.6f}')
+            else:
+                check(worst <= 1e-5, f'screen {key}: scores differ from the '
+                                     f'resident store\'s by {worst}')
+            if key.startswith('chunked'):
+                n_chunks = len(plans[-1][0])
+                check(n_chunks >= 3, f'screen {key}: {n_chunks} chunks')
+                extra += f'; {n_chunks} chunks'
+            sec = result.seconds
+            print(f'screen: {card}: {SCREEN_PATH_RUN} -b '
+                  f'{SCREEN_PATH_BATCH} {key} ({result.path}): '
+                  f'{result.poses_per_second:.1f} poses/s, wall '
+                  f'{sec["total"]:.3f} s (featurise {sec["featurise"]:.3f}, '
+                  f'score {sec["score"]:.3f}); max|score - resident| '
+                  f'{worst:.2e}{extra}; launches {counts}')
+    finally:
+        screen_mod.plan_chunks = real_plan
+    cold, warm = results['cache_cold'], results['cache_warm']
+    print(f'screen: {card}: re-screen with --cache_dir: cold '
+          f'{cold.seconds["total"]:.3f} s (featurise '
+          f'{cold.seconds["featurise"]:.3f}), warm '
+          f'{warm.seconds["total"]:.3f} s (store loaded in '
+          f'{warm.seconds["featurise"]:.3f}); resident without the cache '
+          f'{resident.seconds["total"]:.3f} s')
     return out
 
 
@@ -1885,6 +2036,294 @@ def phase_training_cli(torch, np, root: Path, types: Path, card: str):
           f'{serial_ms.round(3).tolist()}; epoch wall s '
           f'{[round(s, 3) for s in serial.epoch_seconds]}')
     return counts
+
+
+# ------------------------------------------------------ device dataset
+DD_CONFIGS = {   # name -> (model flags, fused training)
+    'readme_softmax_6l': (README_6L, False),
+    'readme_softmax_6l_fused': (README_6L, True),
+    'default_3l': (dict(num_layers=3), False),
+}
+DD_EPOCHS = 3    # 2 weighted-sampled steps an epoch over the 64 poses
+DD_FIELDS_RTOL = 1e-5    # main --device_cache on against off, scores
+
+
+def _check_recorded_fused(torch, recorded: dict, label: str) -> dict:
+    """K3 and K4 on the inputs a step gave them, against their plain
+    versions (K3's evaluated in float64); their worst |kernel - plain|."""
+    from pointvs_tpu_torch.ops import fused_egnn as k3
+    from pointvs_tpu_torch.ops import fused_egnn_bwd as k4
+    err = {}
+    if 'fused_edge_forward' in recorded:
+        args, kwargs = recorded['fused_edge_forward']
+        got = k3.fused_edge_forward(*args, **kwargs)
+        want = [w.float() for w in k3.fused_edge_forward_plain(
+            *[_as_double(torch, a) for a in args], **kwargs)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(torch.allclose(g, w, **TOL),
+                  f'{label}: K3 disagrees with plain on the step\'s inputs')
+        err['k3'] = max((g - w).abs().max().item() for g, w in zip(got,
+                                                                    want))
+    if 'fused_edge_backward' in recorded:
+        args, kwargs = recorded['fused_edge_backward']
+        got = k4.fused_edge_backward(*args, **kwargs)
+        want = k4.fused_edge_backward_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, w in zip(got[:4], want[:4]):
+            if w is None:
+                continue
+            check(torch.allclose(g, w, **TOL),
+                  f'{label}: K4 disagrees with plain on the step\'s inputs')
+            worst = max(worst, (g - w).abs().max().item())
+        for p in k3.PARAM_NAMES:
+            g, w = got[4][p], want[4][p]
+            scale = max(1.0, w.abs().max().item())
+            check(torch.allclose(g, w, atol=3e-5 * scale, rtol=0),
+                  f'{label}: K4 d_{p} disagrees with plain')
+            worst = max(worst, (g - w).abs().max().item() / scale)
+        err['k4'] = worst
+    return err
+
+
+def _assert_batches_equal(torch, got, want, label):
+    for field in want._fields:
+        w, g = getattr(want, field), getattr(got, field)
+        if w is None:
+            check(g is None, f'{label}: {field} present on one side only')
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(g, w), f'{label}: {field} differs')
+
+
+def phase_device_dataset(torch, np, root: Path, types: Path, card: str):
+    """The device-resident dataset on the card: the store of the 64-pose
+    set built and uploaded (MB, ms); every batch of a validation and a
+    training pass collated from ids on the card and held field by field
+    against the host collation moved to the card; the rotations against
+    the CPU's; the README model (module path, K2; fused path, K3/K4) and
+    ``default_3l`` (K1) trained ``DD_EPOCHS`` epochs from ids and from
+    the stream in turns, the trajectories within the gate, every kernel
+    of the ids steps held against its plain version on the inputs the
+    step gave it, step ms and an epoch's host share for both; ``main
+    --device_cache on`` against ``off`` with augmented actives (the hybrid
+    tail), predictions within 1e-5; peak memory. Returns the ids paths'
+    launches by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from pointvs_tpu_torch.data import device_dataset as dd
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.data.dataset import PointCloudDataset
+    from pointvs_tpu_torch.data.loader import GraphDataLoader
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import fused_egnn as k3
+    from pointvs_tpu_torch.ops import fused_egnn_bwd as k4
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.training.engine import Trainer
+    dev = torch.device('cuda')
+    torch.cuda.reset_peak_memory_stats()
+    ds = PointCloudDataset(types.parent, types, radius=10, edge_radius=4,
+                           compact=True, polar_hydrogens=False,
+                           model_task='classification')
+    start = time.perf_counter()
+    host = dd.build_host_store(ds)
+    built = time.perf_counter()
+    store = dd.DeviceGraphStore(host, dev)
+    torch.cuda.synchronize()
+    uploaded = time.perf_counter()
+    print(f'device dataset: {card}: store of {len(ds)} poses '
+          f'({int(host.num_nodes.sum())} nodes, {int(host.num_edges.sum())} '
+          f'edges, symmetric={host.symmetric}): {host.nbytes / 1e6:.3f} MB, '
+          f'built in {1e3 * (built - start):.1f} ms (featurisation '
+          f'included), uploaded in {1e3 * (uploaded - built):.1f} ms')
+
+    # Every batch of a validation and a training pass, ids against host.
+    collate_ms, host_ms, n_batches = [], [], 0
+    for mode in ('val', 'train'):
+        stream, ids_dl = (GraphDataLoader(ds, batch_size=32, mode=mode,
+                                          prefetch=0, seed=SEED)
+                          for _ in range(2))
+        ids_dl.enable_device_dataset(store)
+        for (sb, _), (ib, _) in zip(stream, ids_dl):
+            check(ib[0] == 'ids', f'device dataset: a {mode} batch is '
+                                  f'{ib[0]!r}')
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            got = dd.collate_from_ids(store.arrays, ib[1][0], ib[3])
+            t1.record()
+            h0 = time.perf_counter()
+            want = to_device(sb, dev)
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - h0))
+            collate_ms.append(t0.elapsed_time(t1))
+            _assert_batches_equal(torch, got, want,
+                                  f'device dataset {mode} batch')
+            n_batches += 1
+    print(f'device dataset: {card}: {n_batches} batches of 32 collated on '
+          f'the card equal the host collation in every field; collation '
+          f'{statistics.median(collate_ms):.3f} ms a batch by CUDA events '
+          f'(median; the host batch\'s copy to the card '
+          f'{statistics.median(host_ms):.3f} ms by the host clock)')
+
+    ids = np.concatenate([np.arange(30), [-1, -1]]).astype(np.int32)
+    key = dd.rotation_key(SEED, 3)
+    mats = [dd.random_rotations(key, ids, d).cpu()
+            for d in (dev, torch.device('cpu'))]
+    mat_diff = (mats[0] - mats[1]).abs().max().item()
+    check(mat_diff <= 1e-6, f'device dataset: rotations on the card and the '
+                            f'CPU differ by {mat_diff}')
+    spec = dd.DeviceCollateSpec(16384, 262144, 32, host.symmetric, True)
+    coords = [dd.rotate_per_graph(dd.collate_from_ids(
+        dd.DeviceGraphStore(host, d).arrays, ids, spec), key, ids,
+        32).coords.cpu() for d in (dev, torch.device('cpu'))]
+    coord_diff = (coords[0] - coords[1]).abs().max().item()
+    # Each coordinate sums three products with matrix entries held at
+    # 1e-6: relative to the coordinates' scale, within 3e-6.
+    scale = coords[1].abs().max().item()
+    check(coord_diff <= 3e-6 * scale, f'device dataset: rotated coordinates '
+                                      f'differ by {coord_diff} at scale '
+                                      f'{scale}')
+    print(f'device dataset: rotations card against CPU: matrices '
+          f'{mat_diff:.2e}, coordinates {coord_diff:.2e} (up to '
+          f'{scale:.1f} A)')
+
+    launches = {k: 0 for k in ('k1', 'k2', 'k3', 'k4')}
+    kernel_err = {}
+    for name, (flags, fused) in DD_CONFIGS.items():
+        kwargs = dict(MODEL_KWARGS, **flags)
+        trainers, loaders = {}, {}
+        for src in ('stream', 'ids'):
+            trainers[src] = Trainer(
+                'egnn', root / f'dd_{name}_{src}', dev,
+                learning_rate=TRAIN_LR, weight_decay=1e-4, seed=SEED,
+                fused_training=fused, device_cache='off', **kwargs)
+            loaders[src] = GraphDataLoader(ds, batch_size=32, mode='train',
+                                           prefetch=2, seed=SEED)
+        loaders['ids'].enable_device_dataset(store)
+        counts = {}
+        recorded = {}
+        wall, device_s = {}, {}
+        for epoch in range(DD_EPOCHS):
+            for src in ('stream', 'ids'):    # in turns
+                last = epoch == DD_EPOCHS - 1
+                originals = {}
+                if src == 'ids':
+                    sk.reset_launch_counts()
+                    originals = {
+                        (mod, k): _first_call_recorder(mod, k, recorded)
+                        for mod, k in ((sk, 'windowed_segment_sum'),
+                                       (sk, 'fused_softmax_aggregate'),
+                                       (k3, 'fused_edge_forward'),
+                                       (k4, 'fused_edge_backward'))}
+                try:
+                    if last:
+                        with profile(activities=[ProfilerActivity.CUDA]) \
+                                as prof:
+                            trainers[src].train_model(loaders[src],
+                                                      epochs=epoch + 1)
+                            torch.cuda.synchronize()
+                        device_s[src] = sum(
+                            e.self_device_time_total
+                            for e in prof.key_averages()) / 1e6
+                        wall[src] = trainers[src].epoch_seconds[-1]
+                    else:
+                        trainers[src].train_model(loaders[src],
+                                                  epochs=epoch + 1)
+                    torch.cuda.synchronize()
+                    # Read while the recorders are in place: a wrapper
+                    # counts its launches on the name it is called by.
+                    if src == 'ids':
+                        for kernel, n in sk.launch_counts().items():
+                            counts[kernel] = counts.get(kernel, 0) + n
+                finally:
+                    for (mod, k), fn in originals.items():
+                        setattr(mod, k, fn)
+        steps = len(trainers['ids'].train_losses)
+        loss = {src: np.asarray(t.train_losses)
+                for src, t in trainers.items()}
+        diff = float(np.abs(loss['ids'] - loss['stream']).max())
+        check(steps == 2 * DD_EPOCHS and np.isfinite(loss['ids']).all()
+              and np.allclose(loss['ids'], loss['stream'], **TRAJ_TOL),
+              f'device dataset {name}: ids and stream trajectories differ '
+              f'by {diff} ({loss})')
+        layers = flags['num_layers']
+        if fused:
+            ok = (counts['fused_edge_forward'] == layers * steps
+                  and counts['fused_edge_backward'] == layers * steps
+                  and counts['softmax_aggregate_sorted'] == 0)
+        elif flags.get('edge_attention'):
+            ok = (counts['softmax_aggregate_sorted'] == layers * steps
+                  and counts['segment_sum_sorted'] >= layers * steps
+                  and counts['fused_edge_forward'] == 0)
+        else:
+            ok = (counts['segment_sum_sorted'] >= layers * steps
+                  and counts['softmax_aggregate_sorted'] == 0
+                  and counts['fused_edge_forward'] == 0)
+        check(ok and counts['segment_offsets'] <= 2 * steps,
+              f'device dataset {name}: ids steps launched {counts}')
+        launches['k1'] += counts['segment_sum_sorted']
+        launches['k2'] += counts['softmax_aggregate_sorted']
+        launches['k3'] += counts['fused_edge_forward']
+        launches['k4'] += counts['fused_edge_backward']
+        errs = _check_recorded_kernels(torch, sk, recorded,
+                                       f'device dataset {name}')
+        errs.update(_check_recorded_fused(torch, recorded,
+                                          f'device dataset {name}'))
+        for k, v in errs.items():
+            kernel_err[k] = max(kernel_err.get(k, 0.0), v)
+        ms = {src: np.asarray(t.step_ms()) for src, t in trainers.items()}
+        share = {src: 1 - device_s[src] / wall[src] for src in wall}
+        print(f'device dataset: {card}: {name} {steps} steps from ids and '
+              f'from the stream in turns: max|ids - stream| loss {diff:.3e};'
+              f' ids launches {counts}; step ms median ids '
+              f'{np.median(ms["ids"]):.3f} / stream '
+              f'{np.median(ms["stream"]):.3f} (CUDA events; ids '
+              f'{ms["ids"].round(3).tolist()}, stream '
+              f'{ms["stream"].round(3).tolist()}); epoch {DD_EPOCHS} wall '
+              f'ids {wall["ids"]:.3f} s / stream {wall["stream"]:.3f} s, '
+              f'device time {device_s["ids"]:.3f} / '
+              f'{device_s["stream"]:.3f} s, host share ids '
+              f'{share["ids"]:.3f} / stream {share["stream"]:.3f}; kernels '
+              f'on the steps\' inputs against plain {errs}')
+
+    # The training CLI with the hybrid tail, on against off.
+    cli = {}
+    for mode in ('on', 'off'):
+        run = root / f'dd_cli_{mode}'
+        sk.reset_launch_counts()
+        start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cli[mode] = train_main(cli_argv(run, types, 'cuda', extra=[
+                '--device_cache', mode]))
+            torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - start
+        device = sum(e.self_device_time_total
+                     for e in prof.key_averages()) / 1e6
+        stores = cli[mode]._device_stores
+        check((len(stores) == 2) == (mode == 'on'),
+              f'main --device_cache {mode}: {len(stores)} stores')
+        ms = np.asarray(cli[mode].step_ms())
+        print(f'device dataset: {card}: main --device_cache {mode} '
+              f'(augmented actives 1, dropout 0.1, 2 epochs, validation): '
+              f'wall {cli_wall:.3f} s, device time {device:.3f} s, host '
+              f'share of the run {1 - device / cli_wall:.3f}; step ms '
+              f'median {np.median(ms):.3f} {ms.round(3).tolist()}; epoch '
+              f'wall s {[round(s, 3) for s in cli[mode].epoch_seconds]}; '
+              f'launches {sk.launch_counts()}')
+    diff = float(np.abs(cli['on'].val_scores - cli['off'].val_scores).max())
+    loss_diff = float(np.abs(np.subtract(cli['on'].train_losses,
+                                         cli['off'].train_losses)).max())
+    check(len(cli['on'].val_scores) == 64 and diff <= DD_FIELDS_RTOL,
+          f'main --device_cache on and off: scores differ by {diff}')
+    check(np.allclose(cli['on'].train_losses, cli['off'].train_losses,
+                      **TRAJ_TOL),
+          f'main --device_cache on and off: losses differ by {loss_diff}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'device dataset: {card}: main --device_cache on against off: '
+          f'max|score| {diff:.3e}, max|loss| {loss_diff:.3e}; peak memory '
+          f'of the phase {peak:.3f} GiB')
+    return launches, kernel_err
 
 
 # ----------------------------------------------------------------- 8
@@ -2614,6 +3053,11 @@ def main() -> int:
                                    root, types)
             cli_launches = timed('training_cli', phase_training_cli, torch,
                                  np, root, types, card)
+            dd_launches, dd_err = timed('device_dataset',
+                                        phase_device_dataset, torch, np,
+                                        root, types, card)
+            for key, value in dd_err.items():
+                err[key] = max(err[key], value)
             family_launches = timed('family_training',
                                     phase_family_training, torch, np, root,
                                     types, card)
@@ -2653,24 +3097,26 @@ def main() -> int:
         'screen_attribute_top']
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
-              served('segment_sum_sorted'), 'k1', 'k1_36'),
+              served('segment_sum_sorted') + dd_launches['k1'], 'k1',
+              'k1_36'),
         entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
-              served('softmax_aggregate_sorted', softmax_runs), 'softmax',
-              'softmax'),
+              served('softmax_aggregate_sorted', softmax_runs)
+              + dd_launches['k2'], 'softmax', 'softmax'),
         entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', ['sigmoid_3l']),
               'sigmoid', 'sigmoid'),
         entry('fused_edge_forward', K3_SOURCE, K3_REPLACES,
-              train_launches['k3'], 'k3', 'k3'),
+              train_launches['k3'] + dd_launches['k3'], 'k3', 'k3'),
         entry('fused_edge_backward', K4_SOURCE, K4_REPLACES,
-              train_launches['k4'], 'k4', 'k4'),
+              train_launches['k4'] + dd_launches['k4'], 'k4', 'k4'),
         entry('threefry_dropout', DROPOUT_SOURCE, DROPOUT_REPLACES,
               family_launches['lucid_3l_dropout']['threefry_dropout'],
               'dropout', 'dropout_edge'),
     ]
     print(f'launches on the main paths: serving {launches}; training '
           f'(module path K1/K2, fused path K3/K4) {train_launches}; '
-          f'training CLI {cli_launches}; lucid / en_transformer training '
+          f'training CLI {cli_launches}; ids steps of the device-resident '
+          f'dataset {dd_launches}; lucid / en_transformer training '
           f'{family_launches}; multitask CLI {mt_launches}; siamese, '
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '

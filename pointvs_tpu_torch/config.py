@@ -152,8 +152,14 @@ _FLAGS = (
              'segment kernel has none)')),
     ('--device_cache', (), dict(
         default='auto', choices=('auto', 'on', 'off'),
-        help='Device-resident dataset (not in the port: auto and off both '
-             'stream batches from the host)')),
+        help='Device-resident dataset: put the whole featurised dataset on '
+             'the device once and collate each batch there from the sampled '
+             'item ids. auto = when the dataset is eligible (no p_noise or '
+             'p_remove_entity; augmented actives through a per-epoch '
+             'refreshed tail), its estimate is within POINTVS_DD_AUTO_MB '
+             '(default 512) and it fits POINTVS_DD_BUDGET_MB (default '
+             '2048); on = always, or stop naming why not. The per-epoch '
+             'random rotation moves onto the device')),
 )
 
 

@@ -246,6 +246,23 @@ class PointCloudDataset:
         """The epoch that keys the augmented items' rotations."""
         self._aug_epoch = int(epoch)
 
+    def aug_item(self, item: int, epoch: int) -> GraphSample:
+        """Augmented item ``item`` as ``__getitem__`` gives it at ``epoch``
+        without the whole-complex rotation, with no draw from the shared
+        random stream and no cache write (augmented items bypass the
+        caches), so a background thread may featurise the next epoch's
+        items while this one trains (``device_dataset.DeviceGraphStore``).
+        """
+        lig_path, rec_path = self._paths_for(item)
+        struct, rows, cols, attrs = self._aug_draw(item, int(epoch))
+        return GraphSample(
+            node_feats=make_bit_vector(struct['types'], self.n_features,
+                                       self.compact),
+            coords=coords_of(struct).astype(np.float32), senders=rows,
+            receivers=cols, edge_attr=attrs,
+            y=np.float32(0),   # augmented actives are labelled decoy
+            lig_fname=str(lig_path), rec_fname=str(rec_path))
+
     # -- augmented actives ------------------------------------------- #
     def _aug_attempt_rng(self, item: int, epoch: int,
                          attempt: int) -> np.random.RandomState:

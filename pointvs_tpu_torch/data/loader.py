@@ -26,11 +26,21 @@ The batch is the model's input layout:
   raised in the consumer.
 - Deterministic loaders (not training; no rotation, noise or entity
   dropout) keep their collated batches after the first pass.
+- After ``enable_device_dataset(store)`` (a
+  ``device_dataset.DeviceGraphStore`` of this loader's dataset, the
+  graph layout only) the loader yields ``('ids', ids[1, B], store,
+  spec)`` batches: the same index stream and buckets, the item ids of
+  the batch (-1 for an empty slot) and the ``DeviceCollateSpec`` that
+  the step collates them with on the device (``parallel/steps.py``).
+  Each training pass first refreshes the store's augmented tail for its
+  epoch and starts featurising the next epoch's in the background.
 
-Batches stay on the host: the consumer moves each to the device
+Host batches stay on the host: the consumer moves each to the device
 (``data.buckets.to_device``, pinned memory and non-blocking copies on the
-consumer's stream). The reference's TPU window capacity (``meta.cap``),
-its data-parallel split and its device-resident dataset are not here.
+consumer's stream). ``BatchMeta.y`` and ``graph_mask`` are host copies of
+the batch's labels and slot mask ([1, B] for an ids batch, as the
+reference's loader builds them). The reference's TPU window capacity
+(``meta.cap``) and its data-parallel split are not here.
 """
 from __future__ import annotations
 
@@ -106,6 +116,7 @@ class GraphDataLoader:
         # Training passes started; a resumed run's loader counts from 0,
         # as its index stream replays from its seed.
         self._epochs_started = 0
+        self.device_store = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -139,8 +150,51 @@ class GraphDataLoader:
             return SiamesePair(self._pad(samples), self._pad(lig))
         return self._pad(samples)
 
+    def enable_device_dataset(self, store) -> None:
+        """Collate from ``store`` (built from this loader's dataset) on the
+        device from now on."""
+        if self.layout != 'graph':
+            raise ValueError('device-resident datasets need the graph '
+                             'layout')
+        if len(store.host.num_nodes) != len(self.dataset):
+            raise ValueError('store was built from a different dataset')
+        self.device_store = store
+        self._batch_cache = None   # cached host batches are the old form
+
+    def _produce_ids(self, indices) -> Iterator[Tuple[tuple, BatchMeta]]:
+        """('ids', ids[1, B], store, spec) batches."""
+        from pointvs_tpu_torch.data.device_dataset import DeviceCollateSpec
+        store = self.device_store
+        host = store.host
+        rotate = self.mode == 'train' and host.rot
+        y_all = host.arrays.y
+        for start in range(0, len(indices), self.batch_size):
+            chunk = np.asarray(indices[start:start + self.batch_size],
+                               np.int64)
+            if len(chunk) < self.batch_size and self.drop_last:
+                return
+            ids = np.full((1, self.batch_size), -1, np.int32)
+            ids[0, :len(chunk)] = chunk
+            spec = DeviceCollateSpec(
+                n_pad=pick_bucket(max(int(host.num_nodes[chunk].sum()), 1),
+                                  self.node_buckets),
+                e_pad=pick_bucket(max(int(host.num_edges[chunk].sum()), 1),
+                                  self.edge_buckets),
+                num_graphs=self.batch_size, symmetric=host.symmetric,
+                rotate=rotate)
+            y = np.zeros((1, self.batch_size) + y_all.shape[1:], np.float32)
+            y[0, :len(chunk)] = y_all[chunk]
+            graph_mask = np.zeros((1, self.batch_size), np.float32)
+            graph_mask[0, :len(chunk)] = 1.0
+            yield ('ids', ids, store, spec), BatchMeta(
+                [host.lig_fnames[i] for i in chunk],
+                [host.rec_fnames[i] for i in chunk], y, graph_mask)
+
     def _produce(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         indices = self._epoch_indices()
+        if self.device_store is not None:
+            yield from self._produce_ids(indices)
+            return
         for start in range(0, len(indices), self.batch_size):
             chunk = indices[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
@@ -191,8 +245,15 @@ class GraphDataLoader:
         if self.mode == 'train':
             # The ligand side of a pair keeps epoch 0, as in the
             # reference, whose loader sets the receptor dataset's alone.
-            self.dataset.set_epoch(self._epochs_started)
+            epoch = self._epochs_started
             self._epochs_started += 1
+            self.dataset.set_epoch(epoch)
+            if self.device_store is not None:
+                # The augmented tail for this epoch before the producer
+                # reads the store's sizes; the next epoch's graphs are
+                # featurised while this one trains.
+                self.device_store.refresh(self.dataset, epoch)
+                self.device_store.prefetch_refresh(self.dataset, epoch + 1)
         if self._batch_cache is not None:
             yield from self._batch_cache
             return

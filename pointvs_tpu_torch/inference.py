@@ -19,7 +19,10 @@ either task for a multitask run, as in the reference; ``--model_task``
 picks the task, and with it a multitask model's head (``both`` serves as
 ``classification``). Runs on the GPU unless ``--device cpu`` is given.
 ``--num_devices`` is the reference's flag: None or 1 runs on the one
-device; more is refused until data parallelism is ported.
+device; more is refused until data parallelism is ported. Under the
+run's ``--device_cache`` (``auto`` where the run has none) the test set
+goes to the device once and ``Trainer.val`` collates each batch there
+(``data/device_dataset.py``), as the reference's serving CLI does.
 
 Usage:
     python -m pointvs_tpu_torch.inference <run_dir_or_ckpt> <test_types> \

@@ -20,6 +20,10 @@ the reference); ``--double`` trains in float64 on the CPU only
 reference's ``main`` refuses any backend but the CPU); ``--synthpharm``
 reads the data with ``SynthPharmDataset``. ``--synth_pharm`` / ``-p`` is
 recorded in ``cmd_args.yaml`` and drives nothing, as in the reference.
+``--device_cache auto|on|off`` is the reference's device-resident dataset
+(``training/engine.py``): ``on`` stops with a ``ValueError`` where the
+reference's does (the pair and dense layouts, ``--p_remove_entity``,
+``--p_noise``).
 
 Writes the reference's run directory: ``cmd_args.yaml`` (with
 ``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
@@ -58,8 +62,6 @@ def refuse_unported(args) -> None:
         (args.multihost, '--multihost', 'multi-host training'),
         (args.graph_shard > 1, f'--graph_shard {args.graph_shard}',
          'edge parallelism'),
-        (args.device_cache == 'on', '--device_cache on',
-         'the device-resident dataset'),
         (args.scatter_cap is not None, '--scatter_cap',
          "the TPU kernels' window capacity (the port's segment kernel "
          'has none)'),
@@ -202,7 +204,8 @@ def main(argv=None):
         regression_loss=args.regression_loss, seed=args.seed,
         wandb_project=args.wandb_project, wandb_run=args.wandb_run,
         wandb_dir=args.wandb_dir, profile=args.profile,
-        num_devices=args.num_devices, double=args.double, **model_kwargs)
+        num_devices=args.num_devices, double=args.double,
+        device_cache=args.device_cache, **model_kwargs)
     if args.load_weights is not None:
         trainer.load_weights(args.load_weights)
     if args.import_torch_weights:

@@ -66,6 +66,10 @@ def load_model(weights_path, device, init_path: bool = False):
     trunk serves both heads (the caller's task picks the head). A
     ``--double`` run loads as float64, on the CPU only.
 
+    The Trainer keeps the run's ``--device_cache`` (``auto`` where the
+    run has none), so serving through ``Trainer.val`` takes the
+    device-resident dataset as the reference's does.
+
     The Trainer takes the reference's default seed (2), not the run's
     ``--seed``: the reference's ``load_model`` passes none, so a resumed
     run's dropout keys restart from ``PRNGKey(2)`` at step 0 in both
@@ -105,6 +109,7 @@ def load_model(weights_path, device, init_path: bool = False):
         only_save_best_models=cmd_args.get('only_save_best_models', False),
         regression_loss=cmd_args.get('regression_loss', 'mse'),
         silent=not init_path,
-        double=cmd_args.get('double', False), **model_kwargs)
+        double=cmd_args.get('double', False),
+        device_cache=cmd_args.get('device_cache', 'auto'), **model_kwargs)
     trainer.load_weights(ckpt)
     return trainer, model_kwargs, cmd_args

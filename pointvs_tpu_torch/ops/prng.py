@@ -17,15 +17,21 @@ on the versions the reference runs with: jax 0.9.0 with
   in uint32 arithmetic, wrap-around included.
 - ``uniform`` and ``bernoulli``: ``jax.random.uniform`` / ``bernoulli``
   in float32 (23 mantissa bits of each word) or float64 (52 bits of the
-  64-bit draw).
+  64-bit draw); ``normal``: ``jax.random.normal`` in float32, a uniform
+  draw on (nextafter(-1, 0), 1) mapped by ``sqrt(2) * erfinv``, with
+  XLA's float32 inverse error function (Giles' two polynomials of
+  degree 8), so the draws agree with JAX's within an ulp or two.
+- ``fold_in`` and ``normal`` take a stack of keys ([..., 2]) as well as
+  one key: each row is drawn under its own key.
 - ``make_rng(key, path)``: flax's ``Module.make_rng``: its ``LazyRng``
   folds the scope path's names and the scope's call counter into the key
   through the first 4 bytes of their SHA-1 (``flax/core/scope.py``
   ``_fold_in_static``; no separators, flax's default).
 
-``step_key`` is the reference Trainer's key for one training step on one
-device; ``egnn_edge_dropout_seed`` and ``lucid_site_key`` derive from it
-the keys that the reference's EGNN and lucid models draw their masks
+``step_rng`` is the reference Trainer's key for one training step and
+``step_key`` its fold with one device's index; ``egnn_edge_dropout_seed``
+and ``lucid_site_key`` derive from it the keys that the reference's EGNN
+and lucid models draw their masks
 from. All of it is numpy uint32 work, once a step; the lucid masks
 themselves are drawn on the device (``ops/dropout.py``).
 """
@@ -84,10 +90,20 @@ def split(key: Key, num: int = 2) -> np.ndarray:
     return np.stack([b0, b1], axis=1)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)`` (data taken mod 2**32)."""
-    b0, b1 = threefry2x32(key, _u32([0]), _u32([int(data) & 0xFFFFFFFF]))
-    return np.concatenate([b0, b1])
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)`` (data taken mod 2**32). A key
+    stack [..., 2] folds ``data`` into each key; an int array ``data``
+    [n] under one key gives the [n, 2] keys."""
+    key = _u32(key)
+    data = np.asarray(data, dtype=np.int64)
+    if key.ndim == 1 and data.ndim == 0:
+        b0, b1 = threefry2x32(key, _u32([0]),
+                              _u32([int(data) & 0xFFFFFFFF]))
+        return np.concatenate([b0, b1])
+    words = (data & 0xFFFFFFFF).astype(np.uint32)
+    b0, b1 = threefry2x32((key[..., 0], key[..., 1]),
+                          np.zeros_like(words), words)
+    return np.stack([b0, b1], axis=-1)
 
 
 def random_bits(key: Key, shape: Sequence[int] = ()) -> np.ndarray:
@@ -132,6 +148,54 @@ def uniform(key: Key, shape: Sequence[int] = (),
     raise ValueError(f'uniform takes float32 or float64, got {dtype}')
 
 
+# XLA's float32 erfinv: Giles, "Approximating the erfinv function" (2010),
+# for w = -log1p(-x^2) below 5 and at or above it.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """The inverse error function in float32, as XLA computes it on
+    (-1, 1)."""
+    x = np.asarray(x, np.float32)
+    w = -np.log1p(-x * x)
+    small = w < np.float32(5.0)
+    w = np.where(small, w - np.float32(2.5),
+                 np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+    p = np.where(small, np.float32(_ERFINV_W_LT_5[0]),
+                 np.float32(_ERFINV_W_GE_5[0])).astype(np.float32)
+    for lt5, ge5 in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        p = (np.where(small, np.float32(lt5), np.float32(ge5))
+             + p * w).astype(np.float32)
+    return p * x
+
+
+def normal(key: Key, shape: Sequence[int] = ()) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32. ``key`` may be a stack
+    [n, 2]: row i of the [n, *shape] result is drawn under key i."""
+    key = _u32(key)
+    stacked = key.ndim == 2
+    count = int(np.prod(shape, dtype=np.int64))
+    hi, lo = _counters(count)
+    if stacked:
+        b0, b1 = threefry2x32((key[:, :1], key[:, 1:]), hi, lo)
+        out_shape = (key.shape[0],) + tuple(shape)
+    else:
+        b0, b1 = threefry2x32(key, hi, lo)
+        out_shape = tuple(shape)
+    bits = ((b0 ^ b1) >> np.uint32(9)) | _u32(0x3F800000)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    low = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    uniform_draw = np.maximum(
+        low, floats * (np.float32(1.0) - low) + low).astype(np.float32)
+    return (np.float32(np.sqrt(2.0)) * erfinv_f32(uniform_draw)).reshape(
+        out_shape)
+
+
 def bernoulli(key: Key, p: float, shape: Sequence[int],
               dtype=np.float32) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)`` with p of ``dtype``."""
@@ -158,11 +222,16 @@ def make_rng(key: Key, path: Sequence[str] = (), counter: int = 1) -> Key:
     return fold_in(key, _static_hash(tuple(path) + (int(counter),)))
 
 
+def step_rng(seed: int, global_iter: int) -> Key:
+    """The reference Trainer's key for one step, before the step folds in
+    the device index: ``fold_in(split(PRNGKey(seed))[1], global_iter)``."""
+    return fold_in(split(prng_key(seed), 2)[1], global_iter)
+
+
 def step_key(seed: int, global_iter: int, device_index: int = 0) -> Key:
     """The reference Trainer's dropout key for one step on one device:
-    ``fold_in(fold_in(split(PRNGKey(seed))[1], global_iter), axis)``."""
-    trainer_rng = split(prng_key(seed), 2)[1]
-    return fold_in(fold_in(trainer_rng, global_iter), device_index)
+    ``fold_in(step_rng(seed, global_iter), axis)``."""
+    return fold_in(step_rng(seed, global_iter), device_index)
 
 
 def egnn_edge_dropout_seed(key: Key) -> int:

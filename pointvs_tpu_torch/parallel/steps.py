@@ -14,9 +14,16 @@ float64 model (``--double``) takes its batch in float64: both steps cast
 the batch's floating tensors at the model's entry (f32 -> f64 is exact;
 the reference promotes the f32 batch op by op). Its learning rate is
 rounded to float32 first, as the reference's Trainer passes it to its
-step (``jnp.float32(lr)``) in every mode. The
-reference's wire, packed and device-id batch forms and its ('dp',) mesh
-are not in the port yet (ROADMAP.md, Queue 1).
+step (``jnp.float32(lr)``) in every mode.
+
+Both steps also take the device-resident dataset's batch, ``('ids',
+ids[1, B], store, spec)`` (``data/loader.py``): the step collates it on
+the store's device (``device_dataset.collate_from_ids``) and, in a
+training step whose ``spec.rotate`` is set, rotates each graph under
+``rot_key`` (the reference's ``fold_in(step rng, 0x526f7461)``), then
+runs the same module or fused core. Evaluation never rotates. The
+reference's wire and packed batch forms and its ('dp',) mesh are not in
+the port yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -51,6 +58,31 @@ def pred_metrics(logits, batch, model_task: str) -> torch.Tensor:
                         dec.sum()])
 
 
+def is_ids_batch(batch) -> bool:
+    """Whether ``batch`` is a device-resident dataset's ids batch."""
+    return type(batch) is tuple and batch[0] == 'ids'
+
+
+def graph_batch(batch, rot_key=None, rotate: bool = True):
+    """The model input of ``batch``: an ids batch collated on its store's
+    device (the store a ``DeviceGraphStore`` or an expanded chunk's
+    arrays; with ``rotate``, rotated under ``rot_key`` when its spec says
+    so); any other batch as it is."""
+    if not is_ids_batch(batch):
+        return batch
+    from pointvs_tpu_torch.data.device_dataset import (collate_from_ids,
+                                                       rotate_per_graph)
+    _, ids, store, spec = batch
+    ids = ids[0]
+    out = collate_from_ids(getattr(store, 'arrays', store), ids, spec)
+    if rotate and spec.rotate:
+        if rot_key is None:
+            raise ValueError('a rotating ids batch needs the step\'s '
+                             'rot_key')
+        out = rotate_per_graph(out, rot_key, ids, spec.num_graphs)
+    return out
+
+
 def _is_double(model) -> bool:
     return next(model.parameters()).dtype == torch.float64
 
@@ -68,13 +100,14 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
                     with_metrics: bool = False,
                     use_fused: bool = False,
                     multitask: bool = False) -> Callable:
-    """Returns ``step(batch, lr, dropout_rng=None)``: one optimiser step
-    on a batch of tensors on the model's device, with the model's dropout
-    drawn under ``dropout_rng`` (the step's raw JAX key, uint32[2]: what
-    the reference's step passes as ``rngs={'dropout': ...}``, after its
-    fold of the device index). It returns the loss (a 0-d tensor, left on the device) or, with
-    ``with_metrics``, the 5-vector ``[loss, act_sum, act_cnt, dec_sum,
-    dec_cnt]``.
+    """Returns ``step(batch, lr, dropout_rng=None, rot_key=None)``: one
+    optimiser step on a batch of tensors on the model's device (or an ids
+    batch, collated there and rotated under ``rot_key``), with the model's
+    dropout drawn under ``dropout_rng`` (the step's raw JAX key,
+    uint32[2]: what the reference's step passes as ``rngs={'dropout':
+    ...}``, after its fold of the device index). It returns the loss (a
+    0-d tensor, left on the device) or, with ``with_metrics``, the
+    5-vector ``[loss, act_sum, act_cnt, dec_sum, dec_cnt]``.
 
     ``use_fused`` runs the forward through ``fused_train.fused_apply``
     (kernels K3 forward, K4 backward), which computes the same function as
@@ -91,9 +124,10 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
         return model(batch, train=True, dropout_rng=dropout_rng,
                      **apply_kwargs)
 
-    def step(batch, lr: float, dropout_rng=None) -> torch.Tensor:
+    def step(batch, lr: float, dropout_rng=None,
+             rot_key=None) -> torch.Tensor:
         model.train()
-        batch = model_input(batch)
+        batch = model_input(graph_batch(batch, rot_key))
         logits = forward(batch, dropout_rng)
         loss_sum, weight = loss_fn(logits, batch, model_task,
                                    regression_loss)
@@ -116,7 +150,8 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 def make_eval_step(model, model_task: Optional[str] = None,
                    use_fused: bool = False,
                    multitask: bool = False) -> Callable:
-    """Returns ``step(batch) -> logits``; it never drops edges.
+    """Returns ``step(batch) -> logits``; it never drops edges, and an
+    ids batch is collated without rotation.
 
     The fused engine (``inference_engine.fused_forward``, kernel K3) is
     taken under the reference's gate: ``use_fused``, at least 6 layers and
@@ -134,7 +169,7 @@ def make_eval_step(model, model_task: Optional[str] = None,
     @torch.no_grad()
     def step(batch) -> torch.Tensor:
         model.eval()
-        batch = model_input(batch)
+        batch = model_input(graph_batch(batch, rotate=False))
         if fuse and batch.node_feats.device.type == 'cuda':
             return fused_forward(model, batch, **apply_kwargs)
         return model(batch, **apply_kwargs)

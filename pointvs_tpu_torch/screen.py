@@ -1,6 +1,5 @@
 """Library screening: rank a ligand library against one receptor with a
-trained model (counterpart of ``pointvs_tpu/screen.py``, its host-streamed
-scoring path).
+trained model (counterpart of ``pointvs_tpu/screen.py``).
 
 The library (a directory searched for ``*.parquet``, a glob or one file)
 is sorted by file size, so that batches hold poses of similar size, and
@@ -9,13 +8,34 @@ output. The run directory's model serves with the run's own graph flags
 (``cmd_args.yaml``) through the standard pipeline (``PointCloudDataset``;
 the reference's ``SharedReceptorDataset`` gives the same graphs, and the
 port's native graph builder takes less time a pose than its shared
-receptor grid, PERF.md). One pass over the library pins one node
-and one edge bucket for the whole screen (every batch then has one
-shape); the serving eval step (the module path: K2 with attention, K1
-without) scores every batch, the logits stay on the device until the last
-batch is dispatched and come back in one copy. Scores are the sigmoid of
-the pose logit (classification) or the mean of the outputs (regression),
-written ranked as ``ligand,score,rank``.
+receptor grid, PERF.md). The serving eval step (the module path: K2 with
+attention, K1 without) scores every batch, the logits stay on the device
+until the last batch is dispatched and come back in one copy. Scores are
+the sigmoid of the pose logit (classification) or the mean of the
+outputs (regression), written ranked as ``ligand,score,rank``. Rows come
+in library order before the ranking sort, on every path.
+
+How the library reaches the device (the reference's store decision):
+
+- **Resident** (the default, ``POINTVS_SCREEN_DEVICE=1``): the library is
+  featurised once into a device-resident store
+  (``data/device_dataset.py``), one node and one edge bucket are pinned
+  for the whole screen from the store's size arrays, and each batch is
+  collated on the device from its item ids. With ``--cache_dir`` the
+  built store is cached there, keyed by the manifest, each input file's
+  (size, mtime_ns) and the graph flags, so a re-screen skips
+  featurisation and a rewritten pose invalidates it.
+- **Chunked**: a store past ``POINTVS_DD_BUDGET_MB`` (default 2048), or
+  any store when ``POINTVS_SCREEN_CHUNK_MB`` is set, goes to the device
+  in item ranges of that many MB (``plan_chunks``, ``pack_chunk``,
+  ``expand_chunk``; the codecs ``POINTVS_CHUNK_DEGREES``, ``_COORDS16``,
+  ``_RPERM12`` and ``_DEG8``, all on by default; coords16 is lossy within
+  half a fixed-point step). Each chunk's poses are scored in budget
+  batches: contiguous poses until ``POINTVS_SCREEN_EDGE_BUDGET`` edges
+  (default 131072) or ``POINTVS_SCREEN_MAX_BS`` poses (default four
+  batches) fill one fixed (nodes, edges) shape.
+- **Streaming** (``POINTVS_SCREEN_DEVICE=0``): the host collates every
+  batch, after one sizing pass over the library.
 
 With ``--attribute_top N`` the N best hits are attributed with the method
 ``--attribution`` names (``attribution.score_atoms``, the run's radius and
@@ -25,13 +45,14 @@ dE = 0, as the reference's screen scores it (its loader carries no strain
 column; ROADMAP.md, Queue 3).
 
 Refused by name, as a missing feature (``NotImplementedError`` naming
-ROADMAP.md): ``--num_devices`` above 1 (data parallelism). Refused as
-runs the reference's screen stops on (``ValueError`` naming the flag):
+ROADMAP.md): ``--num_devices`` above 1 (data parallelism) and
+``POINTVS_SCREEN_CHUNK_RAW=0`` (the symmetric-half chunk codec). Refused
+as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
-and dense layouts. The reference's resident,
-chunked, grouped and one-shot scoring programs (its ``POINTVS_SCREEN_*``
-and ``POINTVS_DD_*`` variables) give the scores of this path; the port
-reads none of them.
+and dense layouts. The reference's grouped, scanned and one-shot scoring
+programs (``POINTVS_SCREEN_GROUP``, ``_SCAN``, ``_ONESHOT``,
+``_REPEAT``) give the scores of these paths; the port reads none of
+them.
 
 Usage:
     python -m pointvs_tpu_torch.screen <run_dir> <receptor.parquet> \\
@@ -44,6 +65,7 @@ from __future__ import annotations
 import argparse
 import csv
 import glob
+import hashlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -53,11 +75,15 @@ import numpy as np
 import torch
 
 from pointvs_tpu_torch.data.buckets import pick_bucket, to_device
-from pointvs_tpu_torch.data.loader import get_data_loader
+from pointvs_tpu_torch.data.device_dataset import (
+    STORE_FORMAT, DeviceCollateSpec, DeviceGraphStore, build_host_store,
+    expand_chunk, load_host_store, pack_chunk, plan_chunks,
+    save_host_store, upload_chunk)
+from pointvs_tpu_torch.data.loader import BatchMeta, get_data_loader
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.models.registry import model_input_kind
-from pointvs_tpu_torch.parallel.steps import make_eval_step
+from pointvs_tpu_torch.parallel.steps import is_ids_batch, make_eval_step
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
 LOG = get_logger()
@@ -69,14 +95,17 @@ UNSERVED_FLAGS = ('extended_atom_types', 'synthpharm')
 
 @dataclass
 class ScreenResult:
-    """The ranked rows (``ligand``, ``score``, ``rank``, best first) and
-    the screen's wall seconds by part: ``load`` (model), ``featurise``
-    (the sizing pass, which builds and caches every graph), ``score``
-    (collation, copies, the eval steps and the drain) and ``total``; with
+    """The ranked rows (``ligand``, ``score``, ``rank``, best first), the
+    screen's wall seconds by part: ``load`` (model), ``featurise`` (the
+    store's build or its load from the cache, or the streaming path's
+    sizing pass, which builds and caches every graph), ``score``
+    (uploads, collation, the eval steps and the drain) and ``total``; with
     ``--attribute_top``, ``attribute`` (the top hits' attributions, after
-    ``total``)."""
+    ``total``); and the ``path`` the library took: ``resident``,
+    ``chunked`` or ``streaming``."""
     rows: list
     seconds: dict = field(default_factory=dict)
+    path: str = 'streaming'
 
     @property
     def poses_per_second(self) -> float:
@@ -121,6 +150,107 @@ def _file_size(path) -> int:
         return 0
 
 
+def _store_cache_path(cache_dir, manifest: Path, receptor, lig_files,
+                      cmd_args: dict, defaults: dict) -> Path:
+    """The store's file under ``cache_dir``: a digest of the manifest,
+    each input file's (size, mtime_ns) (a pose rewritten at its path
+    invalidates it) and the graph flags."""
+    def fingerprint(path):
+        try:
+            st = os.stat(path)
+            return st.st_size, st.st_mtime_ns
+        except OSError:
+            return 0, 0
+
+    params = (manifest.read_text(),
+              [fingerprint(p) for p in [receptor] + list(lig_files)],
+              cmd_args.get('compact', True),
+              cmd_args.get('radius', defaults['radius']),
+              cmd_args.get('edge_radius', defaults['edge_radius']),
+              cmd_args.get('estimate_bonds', defaults['estimate_bonds']),
+              cmd_args.get('prune', False),
+              cmd_args.get('use_atomic_numbers', False),
+              cmd_args.get('hydrogens', False), STORE_FORMAT)
+    digest = hashlib.sha1(repr(params).encode()).hexdigest()[:24]
+    return Path(cache_dir) / f'torch_store_{digest}.bin'
+
+
+def _host_store(dataset, store_path):
+    """The library's host store, loaded from ``store_path`` where it was
+    cached, else built (and cached there)."""
+    if store_path is not None:
+        host = load_host_store(store_path)
+        if host is not None:
+            LOG.info(f'Host store loaded from {store_path} '
+                     f'({host.nbytes / 1e6:.0f} MB)')
+            return host
+    host = build_host_store(dataset)
+    if store_path is not None:
+        save_host_store(host, store_path)
+        LOG.info(f'Host store cached to {store_path}')
+    return host
+
+
+def _budget_batches(host, lo: int, hi: int, n_bud: int, e_bud: int,
+                    max_bs: int) -> list:
+    """Contiguous item spans of [lo, hi) that each fill at most ``n_bud``
+    nodes, ``e_bud`` edges and ``max_bs`` poses (a single larger pose is
+    a span of its own)."""
+    spans, i = [], lo
+    while i < hi:
+        n = e = 0
+        j = i
+        while (j < hi and j - i < max_bs
+               and n + host.num_nodes[j] <= n_bud
+               and e + host.num_edges[j] <= e_bud):
+            n += int(host.num_nodes[j])
+            e += int(host.num_edges[j])
+            j += 1
+        spans.append((i, max(j, i + 1)))
+        i = max(j, i + 1)
+    return spans
+
+
+def _score_chunked(host, chunk_budget: float, eval_fn, device,
+                   batch_size: int):
+    """Score the library through device-resident chunks: pack a range of
+    items on the host, upload and expand it on the device, score its
+    budget batches. Returns (logits, metas) in library order."""
+    ranges, cspec = plan_chunks(host, chunk_budget)
+    LOG.info(f'Chunked screen: {len(ranges)} chunks of <= {cspec.items} '
+             f'poses ({cspec.n_fix} nodes x {cspec.eh_fix} edge slots)')
+    nn, ne = host.num_nodes, host.num_edges
+    max_bs = int(os.environ.get('POINTVS_SCREEN_MAX_BS',
+                                str(batch_size * 4)))
+    e_bud = max(int(os.environ.get('POINTVS_SCREEN_EDGE_BUDGET', '131072')),
+                int(ne.max(initial=1)))
+    n_bud = max(int(e_bud * (nn.sum() / max(ne.sum(), 1)) * 1.4),
+                int(nn.max(initial=1)))
+    n_bud, e_bud = -(-n_bud // 256) * 256, -(-e_bud // 256) * 256
+    spans = {r: _budget_batches(host, *r, n_bud, e_bud, max_bs)
+             for r in ranges}
+    num_graphs = max(j - i for chunk in spans.values() for i, j in chunk)
+    spec = DeviceCollateSpec(n_pad=n_bud, e_pad=e_bud,
+                             num_graphs=num_graphs,
+                             symmetric=host.symmetric, rotate=False)
+    LOG.info(f'Chunked screen: {sum(map(len, spans.values()))} budget '
+             f'batches of <= {num_graphs} poses ({n_bud} nodes x {e_bud} '
+             f'edges)')
+    logits, metas = [], []
+    for lo, hi in ranges:
+        arrays = expand_chunk(upload_chunk(pack_chunk(host, lo, hi, cspec),
+                                           device), cspec)
+        for b_lo, b_hi in spans[(lo, hi)]:
+            ids = np.full((1, num_graphs), -1, np.int32)
+            ids[0, :b_hi - b_lo] = np.arange(b_lo - lo, b_hi - lo)
+            logits.append(eval_fn(('ids', ids, arrays, spec)))
+            graph_mask = (ids >= 0).astype(np.float32)
+            metas.append(BatchMeta(host.lig_fnames[b_lo:b_hi],
+                                   host.rec_fnames[b_lo:b_hi], None,
+                                   graph_mask))
+    return logits, metas
+
+
 def screen(model_path, receptor, ligands, output='screen_results.csv',
            batch_size: int = 256, radius: float = 10,
            edge_radius: float = 4, estimate_bonds: bool = False,
@@ -140,6 +270,10 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
         raise NotImplementedError(
             f'--num_devices {num_devices}: data parallelism is not in the '
             f'port yet (see ROADMAP.md, Queue 1, item 7)')
+    if os.environ.get('POINTVS_SCREEN_CHUNK_RAW', '1') != '1':
+        raise NotImplementedError(
+            'POINTVS_SCREEN_CHUNK_RAW=0: the symmetric-half chunk codec is '
+            'not in the port (see ROADMAP.md, Queue 1)')
     saved = run_args(model_path)
     refuse_unserved(saved)
     refuse_double_on_cuda(saved.get('double', False), device)
@@ -175,16 +309,34 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
         estimate_bonds=cmd_args.get('estimate_bonds', estimate_bonds),
         prune=cmd_args.get('prune', False), cache_dir=cache_dir)
 
-    # One pass over the library pins one bucket for the whole screen; it
-    # also builds every graph into the dataset's memory cache.
     dataset = loader.dataset
-    sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
-             for i in range(len(dataset))]
-    max_n = max_e = 1
-    for lo in range(0, len(sizes), batch_size):
-        chunk = sizes[lo:lo + batch_size]
-        max_n = max(max_n, sum(s[0] for s in chunk))
-        max_e = max(max_e, sum(s[1] for s in chunk))
+    host = None
+    if os.environ.get('POINTVS_SCREEN_DEVICE', '1') == '1':
+        store_path = None
+        if cache_dir is not None:
+            store_path = _store_cache_path(
+                cache_dir, manifest, receptor, lig_files, cmd_args,
+                dict(radius=radius, edge_radius=edge_radius,
+                     estimate_bonds=estimate_bonds))
+        host = _host_store(dataset, store_path)
+    if host is not None:
+        # Batch sizing from the store's size arrays.
+        nn = np.concatenate([[0], np.cumsum(host.num_nodes)])
+        ne = np.concatenate([[0], np.cumsum(host.num_edges)])
+        bounds = np.minimum(np.arange(0, len(host.num_nodes) + batch_size,
+                                      batch_size), len(host.num_nodes))
+        max_n = int(np.max(np.diff(nn[bounds]), initial=1))
+        max_e = int(np.max(np.diff(ne[bounds]), initial=1))
+    else:
+        # One pass over the library pins one bucket for the whole screen;
+        # it also builds every graph into the dataset's memory cache.
+        sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
+                 for i in range(len(dataset))]
+        max_n = max_e = 1
+        for lo in range(0, len(sizes), batch_size):
+            chunk = sizes[lo:lo + batch_size]
+            max_n = max(max_n, sum(s[0] for s in chunk))
+            max_e = max(max_e, sum(s[1] for s in chunk))
     loader.node_buckets = [pick_bucket(max_n, loader.node_buckets)]
     loader.edge_buckets = [pick_bucket(max_e, loader.edge_buckets)]
     LOG.info(f'Screen bucket: {loader.node_buckets[0]} nodes x '
@@ -193,10 +345,26 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
 
     eval_fn = make_eval_step(trainer.model, trainer.model_task,
                              multitask=trainer.multitask)
-    logits, metas = [], []
-    for batch, meta in loader:
-        logits.append(eval_fn(to_device(batch, torch_device)))
-        metas.append(meta)
+    path = 'streaming'
+    if host is not None:
+        budget = float(os.environ.get('POINTVS_DD_BUDGET_MB', '2048')) * 1e6
+        chunk_mb = float(os.environ.get('POINTVS_SCREEN_CHUNK_MB', '0'))
+        if host.nbytes <= budget and not chunk_mb:
+            loader.enable_device_dataset(DeviceGraphStore(host,
+                                                          torch_device))
+            path = 'resident'
+        else:
+            path = 'chunked'
+    if path == 'chunked':
+        logits, metas = _score_chunked(host, chunk_mb * 1e6 or budget,
+                                       eval_fn, torch_device, batch_size)
+    else:
+        logits, metas = [], []
+        for batch, meta in loader:
+            if not is_ids_batch(batch):
+                batch = to_device(batch, torch_device)
+            logits.append(eval_fn(batch))
+            metas.append(meta)
     # One copy back, after every batch is dispatched.
     drained = torch.stack(logits).float().cpu().numpy()
     rows = []
@@ -220,10 +388,10 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     end = time.perf_counter()
     result = ScreenResult(rows, {
         'load': loaded - start, 'featurise': featurised - loaded,
-        'score': scored - featurised, 'total': end - start})
-    LOG.info(f'Scored {len(rows)} poses in {result.seconds["total"]:.1f}s '
-             f'({result.poses_per_second:.0f} poses/s end to end); ranked '
-             f'results written to {output}')
+        'score': scored - featurised, 'total': end - start}, path)
+    LOG.info(f'Scored {len(rows)} poses ({path}) in '
+             f'{result.seconds["total"]:.1f}s ({result.poses_per_second:.0f} '
+             f'poses/s end to end); ranked results written to {output}')
     if attribute_top > 0:
         _attribute_top_hits(trainer, receptor, rows[:attribute_top],
                             ATTRIBUTION_FNS[attribution], attribution,

@@ -32,6 +32,22 @@ the reference's does. A ``fused_training`` Trainer whose model
 ``supports_fusion`` rejects (a bf16 or float64 model among them) raises
 ``ValueError`` at its first step, from ``fused_train.fused_apply``.
 
+``device_cache`` (``auto``, ``on`` or ``off``; the CLI's
+``--device_cache``) is the reference's device-resident dataset: where a
+``GraphDataLoader``'s dataset is eligible (``device_dataset.
+store_eligibility``: no label noise, no entity dropout, augmented actives
+only through the hybrid tail) and fits the budget, ``train_model`` and
+``val`` build its store once (kept per dataset), put it on the Trainer's
+device and switch the loader to ids batches, collated on the device in
+the step. ``auto`` takes it under the reference's estimates and
+thresholds (``POINTVS_DD_BUDGET_MB``, default 2048, and
+``POINTVS_DD_AUTO_MB``, default 512) and otherwise streams, logging why;
+``on`` takes it past both and raises ``ValueError`` where the store
+cannot serve (another layout, an ineligible dataset);
+``POINTVS_DEVICE_DATASET=0`` turns it off. A rotating dataset's
+rotation moves into the step, keyed by the step's JAX key
+(``device_dataset.rotate_per_graph``).
+
 ``train_model`` takes any loader that yields ``(batch, meta)`` and has a
 ``len()``; the batch is the model's input kind (``input_kind``: a
 ``GraphBatch``, a ``SiamesePair`` or a ``DenseBatch``), whose ``y`` and
@@ -41,6 +57,7 @@ side's), and ``meta`` names each slot's files.
 from __future__ import annotations
 
 import math
+import os
 import time
 from pathlib import Path
 from typing import Optional
@@ -54,9 +71,10 @@ from pointvs_tpu_torch.models.layers import init_parameters
 from pointvs_tpu_torch.models.params import load_reference_checkpoint
 from pointvs_tpu_torch.models.registry import build_model, \
     model_input_kind
+from pointvs_tpu_torch.data.device_dataset import rotation_key
 from pointvs_tpu_torch.ops.prng import step_key
-from pointvs_tpu_torch.parallel.steps import make_eval_step, \
-    make_train_step
+from pointvs_tpu_torch.parallel.steps import is_ids_batch, \
+    make_eval_step, make_train_step
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
     save_checkpoint
 from pointvs_tpu_torch.training.metrics_logger import MetricsLogger
@@ -69,6 +87,13 @@ LOG = get_logger()
 
 VALID_TASKS = ('classification', 'regression', 'multi_regression')
 PROFILE_STEPS = (3, 8)   # first epoch's traced batches: [start, stop)
+
+
+def _slots(batch) -> int:
+    """Graph slots of a batch (an ids batch's from its spec)."""
+    if is_ids_batch(batch):
+        return batch[3].num_graphs
+    return batch.graph_mask.shape[0]
 
 
 class Trainer:
@@ -86,7 +111,7 @@ class Trainer:
                  wandb_run: Optional[str] = None, wandb_dir=None,
                  silent: bool = False, profile: bool = False,
                  num_devices: Optional[int] = None, double: bool = False,
-                 **model_kwargs):
+                 device_cache: str = 'auto', **model_kwargs):
         if use_1cycle and warm_restarts:
             raise ValueError('1cycle and warm restarts are mutually '
                              'exclusive')
@@ -97,6 +122,13 @@ class Trainer:
         if double and device.type != 'cpu':
             raise ValueError('double=True (float64) runs on the CPU only, '
                              'as in the reference package')
+        if device_cache not in ('auto', 'on', 'off'):
+            raise ValueError(f'device_cache must be auto/on/off, got '
+                             f'{device_cache!r}')
+        self.device_cache = device_cache
+        # id(dataset) -> (dataset, DeviceGraphStore); the dataset is held
+        # so that its id cannot be reused while the entry lives.
+        self._device_stores: dict = {}
         self.save_path = expand_path(save_path)
         self.device = device
         self.double = double
@@ -174,6 +206,85 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         return [a.elapsed_time(b) for a, b in self._step_events]
 
+    def _to_device(self, batch):
+        """A host batch on the Trainer's device; an ids batch as it is (its
+        step collates it from the store on the store's device)."""
+        if is_ids_batch(batch):
+            return batch
+        return to_device(batch, self.device)
+
+    def _maybe_enable_device_dataset(self, loader) -> None:
+        """Switch ``loader`` to the device-resident dataset where
+        ``device_cache`` and the dataset allow it (the reference's rules,
+        ``pointvs_tpu/training/engine.py``)."""
+        from pointvs_tpu_torch.data import device_dataset as dd
+        from pointvs_tpu_torch.data.loader import GraphDataLoader
+        if (self.device_cache == 'off'
+                or os.environ.get('POINTVS_DEVICE_DATASET', '1') == '0'):
+            return
+        demanded = self.device_cache == 'on'
+        if not isinstance(loader, GraphDataLoader) or \
+                loader.layout != 'graph':
+            if demanded:
+                raise ValueError('--device_cache on requires the graph '
+                                 'layout')
+            return
+        if loader.device_store is not None:
+            return
+        reason = dd.store_eligibility(loader.dataset)
+        if reason is not None:
+            if demanded:
+                raise ValueError(f'--device_cache on: {reason}')
+            LOG.info(f'Device-resident dataset disabled: {reason}')
+            return
+        hit = self._device_stores.get(id(loader.dataset))
+        if hit is None:
+            store = self._build_device_store(loader.dataset, demanded)
+            if store is None:
+                return
+            self._device_stores[id(loader.dataset)] = (loader.dataset,
+                                                       store)
+        else:
+            store = hit[1]
+        loader.enable_device_dataset(store)
+
+    def _build_device_store(self, dataset, demanded: bool):
+        """The dataset's ``DeviceGraphStore`` on the Trainer's device, or
+        None where ``auto`` streams instead."""
+        from pointvs_tpu_torch.data import device_dataset as dd
+        budget = float(os.environ.get('POINTVS_DD_BUDGET_MB', '2048')) * 1e6
+        # Estimate the upload from up to 32 items before the full pass
+        # (the items are cached, so the build reuses the work), with the
+        # rotation off so that the probe draws nothing from the dataset's
+        # rotation stream.
+        n = len(dataset)
+        probe = [dd._norot_getitem(dataset, i)
+                 for i in range(0, n, max(1, n // 32))[:32]]
+        per_item = (sum(s.node_feats.nbytes // 4 + s.coords.nbytes
+                        + 7 * s.num_edges for s in probe)
+                    / max(1, len(probe)))
+        estimate = per_item * n
+        if estimate > budget and not demanded:
+            LOG.info(f'Device-resident dataset disabled: estimated '
+                     f'{estimate / 1e6:.0f} MB exceeds the '
+                     f'{budget / 1e6:.0f} MB budget (POINTVS_DD_BUDGET_MB)')
+            return None
+        # The 'auto' preference, apart from the hard budget: above it the
+        # reference measured streaming faster. --device_cache on forces
+        # the store.
+        auto_mb = float(os.environ.get('POINTVS_DD_AUTO_MB', '512'))
+        if estimate > auto_mb * 1e6 and not demanded:
+            LOG.info(f'Device-resident dataset not auto-enabled: estimated '
+                     f'{estimate / 1e6:.0f} MB > {auto_mb:.0f} MB '
+                     f'(POINTVS_DD_AUTO_MB); --device_cache on overrides')
+            return None
+        host = dd.build_host_store(dataset)
+        if host.nbytes > budget and not demanded:
+            LOG.info(f'Device-resident dataset disabled: '
+                     f'{host.nbytes / 1e6:.0f} MB exceeds the budget')
+            return None
+        return dd.DeviceGraphStore(host, self.device)
+
     # ------------------------------------------------------------------ #
     def training_setup(self, data_loader, epochs: int,
                        model_task: Optional[str] = None):
@@ -239,6 +350,7 @@ class Trainer:
                     top1_on_end: bool = False):
         """Epoch/batch loop (ref ``train_model``)."""
         init_epoch, start = self.training_setup(data_loader, epochs)
+        self._maybe_enable_device_dataset(data_loader)
         step_fn = make_train_step(self.model, self.optimiser,
                                   self.model_task, self.regression_loss,
                                   with_metrics=True,
@@ -257,12 +369,15 @@ class Trainer:
                 prof = self._profiler(epoch_idx, init_epoch, batch_idx, prof)
                 lr_now = self.scheduler(sched_step)
                 dropout_rng = step_key(self.seed, self.global_iter)
-                batch = to_device(batch, self.device)
+                rot_key = (rotation_key(self.seed, self.global_iter)
+                           if is_ids_batch(batch) and batch[3].rotate
+                           else None)
+                batch = self._to_device(batch)
                 if timed:
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                     events[0].record()
-                stats = step_fn(batch, lr_now, dropout_rng)
+                stats = step_fn(batch, lr_now, dropout_rng, rot_key)
                 if timed:
                     events[1].record()
                     self._step_events.append(events)
@@ -295,7 +410,7 @@ class Trainer:
                            * (total_steps - done_steps))
                     self._log_step(epoch_idx, batch_idx, steps_per_epoch,
                                    epochs, losses[-1], lr_now,
-                                   batch.graph_mask.shape[0], eta)
+                                   _slots(batch), eta)
             if prof is not None:   # an epoch shorter than the window
                 prof = self._stop_profiler(prof)
             self.epoch_seconds.append(time.time() - epoch_start)
@@ -379,11 +494,12 @@ class Trainer:
         predictions_file = predictions_file.parent / (
             f'{self.model_task_for_fnames}_{predictions_file.name}')
         mkdir(predictions_file.parent)
+        self._maybe_enable_device_dataset(data_loader)
         eval_fn = make_eval_step(self.model, self.model_task, use_fused,
                                  multitask=self.multitask)
         rows, scores = [], []
         for batch, meta in data_loader:
-            logits = eval_fn(to_device(batch, self.device))
+            logits = eval_fn(self._to_device(batch))
             logits = logits.float().cpu().numpy()
             real = meta.graph_mask.reshape(-1) > 0
             y_true = meta.y.reshape(len(real), -1)[real]

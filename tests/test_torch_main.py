@@ -184,7 +184,6 @@ REFUSED = {
     'num_devices': ['--num_devices', '2'],
     'multihost': ['--multihost'],
     'graph_shard': ['--graph_shard', '2'],
-    'device_cache_on': ['--device_cache', 'on'],
     'scatter_cap': ['--scatter_cap', '64'],
 }
 

@@ -248,6 +248,7 @@ def test_screen_matches_jax(runs, library, tmp_path, run):
     assert len(set(by_ligand.values())) == N_POSES
     assert (tmp_path / 'port.types').read_text().count('\n') == 5
     assert set(got.seconds) == {'load', 'featurise', 'score', 'total'}
+    assert got.path == 'resident'
 
 
 def test_screen_cli_writes_the_ranked_csv(runs, library, tmp_path):
@@ -281,12 +282,17 @@ REFUSED = {
     'synthpharm': (dict(synthpharm=True), {}, ValueError, '--synthpharm'),
     'pair_layout': (dict(model='siamese'), {}, ValueError, 'siamese'),
     'dense_layout': (dict(model='lie_conv'), {}, ValueError, 'lie_conv'),
+    # An environment variable, not a run flag: the symmetric-half codec.
+    'chunk_raw_0': (dict(), {}, NotImplementedError,
+                    'POINTVS_SCREEN_CHUNK_RAW=0.*ROADMAP.md'),
 }
 
 
 @pytest.mark.parametrize('name', sorted(REFUSED))
-def test_refusals_by_name(runs, library, tmp_path, name):
+def test_refusals_by_name(runs, library, tmp_path, monkeypatch, name):
     saved, kwargs, error, match = REFUSED[name]
+    if name == 'chunk_raw_0':
+        monkeypatch.setenv('POINTVS_SCREEN_CHUNK_RAW', '0')
     run = _run_with(runs, tmp_path, **saved)
     out = tmp_path / 'hits.csv'
     with pytest.raises(error, match=match):
@@ -362,3 +368,84 @@ def test_strain_run_scores_with_zero_strain_like_jax(strain_run, library,
     assert len(got.rows) == len(jax_scores) == 5
     for row in got.rows:
         assert abs(row['score'] - jax_scores[row['ligand']]) <= 1e-5
+
+
+def _scores(result):
+    return {r['ligand']: r['score'] for r in result.rows}
+
+
+SCREEN_PATHS = {
+    'streaming': (dict(POINTVS_SCREEN_DEVICE='0'), 'streaming'),
+    'chunked_exact': (dict(POINTVS_SCREEN_CHUNK_MB='0.02',
+                           POINTVS_CHUNK_COORDS16='0'), 'chunked'),
+    'chunked_coords16': (dict(POINTVS_SCREEN_CHUNK_MB='0.02'), 'chunked'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(SCREEN_PATHS))
+def test_screen_paths_match_jax(runs, library, tmp_path, monkeypatch, name):
+    """The streaming and chunked paths of the port give the JAX screen's
+    scores within 1e-5: the JAX package's resident scores, and with
+    coords16 (lossy) its own chunked scores under the same variables. At
+    0.02 MB the five poses go to the device in at least 3 chunks, scored
+    in budget batches of at most 2 poses."""
+    env, path = SCREEN_PATHS[name]
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setenv('POINTVS_SCREEN_MAX_BS', '2')
+    plans = []
+
+    def plan_chunks(*args, **kwargs):
+        plans.append(real_plan(*args, **kwargs))
+        return plans[-1]
+
+    real_plan = port_screen.plan_chunks
+    monkeypatch.setattr(port_screen, 'plan_chunks', plan_chunks)
+    ligands = str(library[0] / '[pc]o*.parquet')
+    got = port_screen.screen(runs / 'pose', RESOURCES / 'rec_0.parquet',
+                             ligands, output=str(tmp_path / 'port.csv'),
+                             batch_size=2, device='cpu')
+    assert got.path == path and len(got.rows) == 5
+    assert len(plans) == (path == 'chunked')
+    assert all(len(ranges) >= 3 for ranges, _ in plans)
+    if name != 'chunked_coords16':
+        monkeypatch.delenv('POINTVS_SCREEN_CHUNK_MB', raising=False)
+        monkeypatch.delenv('POINTVS_SCREEN_DEVICE', raising=False)
+    want = jax_screen(runs / 'pose', RESOURCES / 'rec_0.parquet', ligands,
+                      output=str(tmp_path / 'jax.csv'), batch_size=2)
+    jax_scores = dict(zip(want.ligand, want.score))
+    scores = _scores(got)
+    assert sorted(scores) == sorted(jax_scores)
+    for lig, score in scores.items():
+        assert abs(score - jax_scores[lig]) <= 1e-5, lig
+
+
+def test_store_cache_reloads_and_invalidates(runs, tmp_path):
+    """``--cache_dir`` keeps the built store: a second screen loads it
+    (same scores, no new file), and a ligand rewritten at its path gives a
+    new store and another score."""
+    import pandas as pd
+    lib = tmp_path / 'lib'
+    lib.mkdir()
+    shutil.copy(RESOURCES / 'lig_0.parquet', lib / 'lig.parquet')
+    cache = tmp_path / 'cache'
+
+    def run(tag):
+        return port_screen.screen(
+            runs / 'pose', RESOURCES / 'rec_0.parquet', str(lib),
+            output=str(tmp_path / f'{tag}.csv'), batch_size=2,
+            cache_dir=str(cache), device='cpu')
+
+    first = run('a')
+    stores = set(cache.glob('torch_store_*.bin'))
+    assert len(stores) == 1 and first.path == 'resident'
+    again = run('b')
+    assert _scores(again) == _scores(first)
+    assert set(cache.glob('torch_store_*.bin')) == stores
+    frame = pd.read_parquet(lib / 'lig.parquet')
+    # Not rigid: a rigid move would not change an E(3)-invariant score.
+    frame['x'] = frame['x'] + np.linspace(0, 2.0, len(frame))
+    frame.to_parquet(lib / 'lig.parquet')
+    changed = run('c')
+    assert len(set(cache.glob('torch_store_*.bin'))) == 2
+    assert _scores(changed) != _scores(first)
