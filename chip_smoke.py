@@ -167,7 +167,20 @@ runs, on the card against a ``--device cpu`` run of the same call within
 1e-4 (a method the model has no values for stops on both); atom masking
 timed by CUDA events (masked variants a second, ms a 32-copy chunk) with
 K2 6 / K1 3 launches a chunk and K1/K2 on a chunk's own inputs against
-their plain versions; ``screen --attribute_top 4``. After the K1
+their plain versions; ``screen --attribute_top 4``. Then the attribution
+tail, each entry point against a ``--device cpu`` run of the same call
+within 1e-4: the hotspot CLI (``pointvs_tpu_torch.attribution.hotspot``)
+on four seeded rigid copies of the 7zzp ligand with the README model (K2)
+and ``default_3l`` (K1), its CSVs and SDFs (rows that no near tie moves),
+its K1/K2 launches counted and held against one forward per fragment and
+chunk, K1/K2 on a masking chunk's own inputs against their plain
+versions; ``constrained_attribution`` with the 7zzp ligand as the core;
+``score_and_colour_pdb`` on the PDB's own NHE and 2OP sites (B-factor
+PDBs line for line but for the two-decimal rounding step); the AP
+statistics of a labelled synthetic-pharmacophore copy of the pose set;
+pose selection (``parse_results``, TopN) of the serving phase's
+predictions against a plain TopN; hotspot seconds a fragment, masked
+variants a second and ``process_pdb`` ms a site. After the K1
 receiver check, the dropout mask kernel (``ops/csrc/threefry_dropout.cu``) against its plain version
 on lucid's three site shapes of a real batch (masks, values and
 gradients bit for bit; the node site's mask against the host's threefry),
@@ -1418,13 +1431,15 @@ RANK_TIE_TOL = 1e-6
 ATTRIBUTE_TOP = 4
 
 
-def _first_call_recorder(module, name: str, store: dict):
-    """Replace ``module.name`` by a wrapper that keeps its first call's
-    arguments in ``store[name]``; returns the original."""
+def _first_call_recorder(module, name: str, store: dict, keep=None):
+    """Replace ``module.name`` by a wrapper that keeps in ``store[name]``
+    the arguments of its first call (of its first call for which
+    ``keep(args)`` holds, where given); returns the original."""
     original = getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        store.setdefault(name, (args, kwargs))
+        if keep is None or keep(args):
+            store.setdefault(name, (args, kwargs))
         return original(*args, **kwargs)
     # The wrapped function counts its launches on the module's name.
     wrapper.launches = 0
@@ -1652,6 +1667,466 @@ def phase_attribution(torch, np, root: Path, card: str):
           f'{SCREEN_POSES} poses (readme_softmax_6l, -b 32): screen '
           f'{result.seconds["total"]:.3f} s, attributions '
           f'{result.seconds["attribute"]:.3f} s; launches {counts}')
+    return launches, err
+
+
+# --------------------------------------------------- attribution tail
+TAIL_FRAGMENTS = 4
+TAIL_MAX_DEG = 10.0      # each fragment rotated about its centroid
+TAIL_MAX_SHIFT = 0.5     # and shifted (A)
+TAIL_RUNS = ('readme_softmax_6l', 'default_3l')   # hotspot: K2, K1
+TAIL_CORE_RUN = 'default_3l'
+TAIL_CORE_FRAGMENTS = 2   # of the four, for constrained_attribution
+TAIL_SITE_RUN = 'default_3l'
+# process_pdb: NHE (one copy, 13 heavy atoms) and the first 2OP site,
+# which holds the heavy atoms of all three 2OP copies (the reference's
+# merged sites).
+TAIL_SITES = ('NHE', '2OP:A')
+TAIL_SITE_RADIUS = 8     # the merged 2OP site spans three chains: its
+#                          pocket at the default 12 A holds 1,485 atoms
+TAIL_AP_RUN = 'default_3l'
+TAIL_AP_LIGANDS = 2      # labelled complexes of the synthetic set
+TAIL_AP_ATOMS = (3, 4)   # labelled ligand and receptor atoms of each
+
+
+def write_fragments(np, out: Path, n: int = TAIL_FRAGMENTS) -> list:
+    """``n`` seeded rigid copies of the 7zzp ligand (9 heavy atoms), each
+    rotated by up to TAIL_MAX_DEG about its centroid and shifted by up to
+    TAIL_MAX_SHIFT A, written as SDFs by rewriting the atom block."""
+    rng = np.random.default_rng(SEED + 14)
+    lines = LIG_7ZZP.read_text().splitlines()
+    n_atoms = int(lines[3][:3])
+    block = lines[4:4 + n_atoms]
+    xyz = np.array([[float(line[c:c + 10]) for c in (0, 10, 20)]
+                    for line in block])
+    centre = xyz.mean(axis=0)
+    out.mkdir(parents=True)
+    frags = []
+    for i in range(n):
+        rot = _rotation(np, rng, TAIL_MAX_DEG)
+        shift = rng.standard_normal(3)
+        shift *= rng.uniform(0, TAIL_MAX_SHIFT) / np.linalg.norm(shift)
+        new = (xyz - centre) @ rot.T + centre + shift
+        atoms = [f'{x:10.4f}{y:10.4f}{z:10.4f}{line[30:]}'
+                 for (x, y, z), line in zip(new, block)]
+        path = out / f'frag_{i}.sdf'
+        path.write_text('\n'.join(lines[:4] + atoms + lines[4 + n_atoms:])
+                        + '\n')
+        frags.append(path)
+    return frags
+
+
+def _ranked_frames_agree(np, got, want, score: str, label: str) -> float:
+    """Two rankings (frames sorted best first) from the card and the CPU:
+    the same columns and rows; each side's i-th score within
+    ATTRIBUTION_GATE of the other's (near ties may swap rows); by
+    position, every row's score within the gate and its other columns
+    equal. Returns the worst |score difference|."""
+    check(list(got.columns) == list(want.columns) and len(got) == len(want)
+          and len(want) > 0, f'{label}: {len(got)} rows against '
+                             f'{len(want)}')
+    worst = 0.0
+    others = [c for c in want.columns if c not in (score, 'rank')]
+    by_position = [f.sort_values(others, kind='mergesort')
+                   for f in (got, want)]
+    for g, w in ((got[score], want[score]),
+                 (by_position[0][score], by_position[1][score])):
+        g, w = g.to_numpy(float), w.to_numpy(float)
+        finite = np.isfinite(w)
+        check((np.isfinite(g) == finite).all()
+              and (g[~finite] == w[~finite]).all(),
+              f'{label}: the card and the CPU score other atoms')
+        diff = np.abs(g[finite] - w[finite])
+        worst = max(worst, float(diff.max(initial=0.0)))
+        check((diff <= ATTRIBUTION_GATE).all(),
+              f'{label}: {score} differs by {worst}')
+    for col in others:
+        check((by_position[0][col].to_numpy()
+               == by_position[1][col].to_numpy()).all(),
+              f'{label}: column {col} differs')
+    return worst
+
+
+def _swap_tol(worst: float) -> float:
+    """Two scores may come in either order on the card and the CPU only
+    when they lie within twice the worst |card - CPU| of each other."""
+    return 2 * worst
+
+
+def _sdf_rows_agree(np, got: Path, want: Path, scores, tol: float,
+                    label: str):
+    """An SDF of positioned atoms written from the card's and the CPU's
+    rankings: the same header, atom count and trailer, and the same atom
+    line in every row whose CPU score (``scores``: the candidates the rows
+    were taken from, best first) has no other within ``tol``. Returns
+    (rows compared, rows equal, rows)."""
+    g = got.read_text().splitlines()
+    w = want.read_text().splitlines()
+    n = int(w[3][:3])
+    ties = _near_ties(np, np.asarray(scores, float), tol)
+    same = [i for i in range(n) if ties[i] == 0]
+    check(len(g) == len(w) and g[:4] == w[:4] and g[4 + n:] == w[4 + n:]
+          and all(g[4 + i] == w[4 + i] for i in same),
+          f'{label}: the card\'s and the CPU\'s files differ')
+    return len(same), sum(g[4 + i] == w[4 + i] for i in range(n)), n
+
+
+def _bfactor_pdbs_agree(got: Path, want: Path, label: str) -> int:
+    """B-factor PDBs of the card's and the CPU's scores: line for line,
+    but for atoms whose two scores (within ATTRIBUTION_GATE) round to
+    neighbouring steps of the two-decimal B-factor column. Returns the
+    number of such lines."""
+    g = got.read_text().splitlines()
+    w = want.read_text().splitlines()
+    check(len(g) == len(w), f'{label}: {len(g)} lines against {len(w)}')
+    stepped = 0
+    for a, b in zip(g, w):
+        if a != b:
+            check(a[:60] == b[:60] and a[66:] == b[66:]
+                  and abs(float(a[60:66]) - float(b[60:66])) < 0.0101,
+                  f'{label}: lines differ: {a!r} / {b!r}')
+            stepped += 1
+    return stepped
+
+
+def _top_n_plain(np, scores, rmsds, n: int, threshold: float = 2.0):
+    """Whether a pose within ``threshold`` is among the ``n`` best-scored
+    (stable order), computed apart from ``Ranking``."""
+    order = np.argsort(-np.asarray(scores), kind='stable')
+    return float((np.asarray(rmsds)[order[:n]] <= threshold).any())
+
+
+def write_labelled_synthpharm(np, root: Path, data: Path, types: Path):
+    """The synthetic-pharmacophore copy of the pose set in ``root/data``
+    with each ligand renamed ``lig<NN>.parquet`` (the AP statistics take
+    a ligand's index from the digits after 'lig'), ``labels.yaml``
+    marking TAIL_AP_LIGANDS seeded ligands and ``atomic_labels.yaml``
+    with TAIL_AP_ATOMS seeded ligand and receptor atoms of each, as
+    ``coords_to_string`` keys of the item's coordinates. Returns (types
+    file, {labelled index: (receptor flags, labels) of its atoms})."""
+    from pointvs_tpu_torch.data.dataset import SynthPharmDataset
+    from pointvs_tpu_torch.utils import coords_to_string, save_yaml
+    rng = np.random.default_rng(SEED + 15)
+    sp_types = write_synthpharm_set(np, data, types, out=root / 'data')
+    lines = []
+    for line in sp_types.read_text().splitlines():
+        lig = line.split()[-1]
+        renamed = lig.replace('lig_', 'lig')
+        (root / 'data' / lig).rename(root / 'data' / renamed)
+        lines.append(line[:-len(lig)] + renamed)
+    sp_types.write_text('\n'.join(lines) + '\n')
+    labelled = sorted(rng.choice(len(lines), TAIL_AP_LIGANDS,
+                                 replace=False).tolist())
+    ds = SynthPharmDataset(root / 'data', sp_types, compact=True,
+                           polar_hydrogens=False)
+    atomic, atoms = {}, {}
+    for i in labelled:
+        item = ds[i]
+        bp = item.node_feats[:, :3].sum(axis=1) > 0
+        picks = np.r_[rng.choice(np.flatnonzero(~bp), TAIL_AP_ATOMS[0],
+                                 replace=False),
+                      rng.choice(np.flatnonzero(bp), TAIL_AP_ATOMS[1],
+                                 replace=False)]
+        atomic[i] = [coords_to_string(item.coords[j]) for j in picks]
+        atoms[i] = (bp, np.isin(np.arange(len(bp)), picks))
+    save_yaml({i: int(i in labelled) for i in range(len(lines))},
+              root / 'labels.yaml')
+    save_yaml(atomic, root / 'atomic_labels.yaml')
+    return sp_types, atoms
+
+
+def _mixed_near_tie(np, scores, labels, tol: float) -> bool:
+    """Whether a labelled and an unlabelled atom score within ``tol`` of
+    each other: only such a pair can change an average precision or a
+    first-hit rank when the card and the CPU order it differently."""
+    pos, neg = scores[labels], scores[~labels]
+    return bool((np.abs(pos[:, None] - neg[None, :]) <= tol).any())
+
+
+def phase_attribution_tail(torch, np, root: Path, types: Path, card: str):
+    """The attribution and analysis tail on the card, each entry point
+    against a ``--device cpu`` run of the same call within
+    ATTRIBUTION_GATE: the hotspot CLI on four seeded fragments of the 7zzp
+    ligand with both runs (K2 / K1), its launches counted and K1/K2 on a
+    masking chunk's own inputs against their plain versions;
+    ``constrained_attribution`` with the 7zzp ligand as the core;
+    ``score_and_colour_pdb`` on the PDB's own NHE and 2OP sites; the AP
+    statistics (``get_stats_from_dir``) of a labelled synthetic-
+    pharmacophore copy of the pose set; ``parse_results`` and TopN of the
+    serving phase's predictions. Returns (launches by entry point, worst
+    kernel errors)."""
+    import pandas as pd
+    from pointvs_tpu_torch.analysis.pose_selection import parse_results
+    from pointvs_tpu_torch.analysis.synthpharm_atomic_auc import \
+        get_stats_from_dir
+    from pointvs_tpu_torch.attribution import attribution_fns as fns
+    from pointvs_tpu_torch.attribution import hotspot
+    from pointvs_tpu_torch.attribution.attribution import model_batch, \
+        pocket_graph
+    from pointvs_tpu_torch.attribution.constrained_attribution import \
+        constrained_attribution
+    from pointvs_tpu_torch.attribution.process_pdb import \
+        score_and_colour_pdb
+    from pointvs_tpu_torch.models.load_model import load_model
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    dev = torch.device('cuda')
+    tail = root / 'attribution_tail'
+    frags = write_fragments(np, tail / 'fragments')
+    sizes = [pocket_graph(REC_7ZZP, f, radius=12, edge_radius=4)[3]
+             for f in frags]
+    n_real = [s.num_nodes for s in sizes]
+    forwards = sum(-(-n // fns._CHUNK) + 1 for n in n_real)
+    edges_one = max(s.num_edges for s in sizes)
+    launches, err = {}, {'k1': 0.0, 'softmax': 0.0}
+    part_s = {}
+
+    # 1. the hotspot CLI, each run on the card and the CPU
+    for name in TAIL_RUNS:
+        part = time.perf_counter()
+        per_forward = ATTRIBUTION_RUNS[name]
+        out = {d: tail / f'hotspot_{name}_{d}' for d in ('cuda', 'cpu')}
+        argv = [str(root / name), str(REC_7ZZP)] + [str(f) for f in frags] \
+            + ['--apo_protein', str(REC_7ZZP)]
+        recorded = {}
+        originals = {k: _first_call_recorder(
+            sk, k, recorded,
+            keep=lambda args: args[0].shape[0] > 8 * edges_one)
+            for k in ('windowed_segment_sum', 'fused_softmax_aggregate')}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            wall = time.perf_counter()
+            start.record()
+            hotspot.main(argv + ['-o', str(out['cuda'])])
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall
+            # Read while the recorders stand: they hold the counts.
+            counts = sk.launch_counts()
+        finally:
+            for k, fn in originals.items():
+                setattr(sk, k, fn)
+        ms = start.elapsed_time(end)
+        for kernel, count in counts.items():
+            expect = forwards * (1 if kernel == 'segment_offsets'
+                                 else per_forward.get(kernel, 0))
+            check(count == expect, f'hotspot {name}: {kernel} launched '
+                                   f'{count}, expected {expect}')
+        launches[f'hotspot_{name}'] = counts
+        check(set(recorded) == ({'fused_softmax_aggregate'}
+                                if 'softmax_aggregate_sorted' in per_forward
+                                else {'windowed_segment_sum'}),
+              f'hotspot {name}: a chunk called {sorted(recorded)}')
+        chunk_err = _check_recorded_kernels(torch, sk, recorded,
+                                            f'hotspot {name}')
+        for key, value in chunk_err.items():
+            err[key] = max(err[key], value)
+        # The masking alone of the first fragment, by CUDA events.
+        model, batch = model_batch(load_model(root / name, dev)[0],
+                                   sizes[0])
+        fns.atom_masking(model, batch)
+        torch.cuda.synchronize()
+        start.record()
+        fns.atom_masking(model, batch)
+        end.record()
+        torch.cuda.synchronize()
+        mask_ms = start.elapsed_time(end)
+        cpu_wall = time.perf_counter()
+        hotspot.main(argv + ['-o', str(out['cpu']), '--device', 'cpu'])
+        cpu_wall = time.perf_counter() - cpu_wall
+
+        got = {d: {f: pd.read_csv(out[d] / f) for f in (
+            'hotspot_ranks.csv', 'pharmacophores.csv',
+            'typed_pharmacophores.csv')} for d in out}
+        worst = {f: _ranked_frames_agree(
+            np, got['cuda'][f], got['cpu'][f],
+            'score' if f.startswith('typed') else 'mean_attribution',
+            f'hotspot {name} {f}') for f in got['cpu']}
+        ranks, typed = (got['cpu']['hotspot_ranks.csv'],
+                        got['cpu']['typed_pharmacophores.csv'])
+        # Pocket atoms outside the standard residues are not typed.
+        check(len(ranks) > 300 and (ranks.n_complexes == TAIL_FRAGMENTS)
+              .sum() > 100 and 300 < np.isfinite(typed.score).sum()
+              <= len(ranks), f'hotspot {name}: {len(ranks)} ranked atoms, '
+                             f'{np.isfinite(typed.score).sum()} typed')
+        compared = {}
+        rank_tol = _swap_tol(worst['hotspot_ranks.csv'])
+        typed_tol = _swap_tol(worst['typed_pharmacophores.csv'])
+        for fname, scores, tol in (
+                ('hotspots.sdf', ranks.mean_attribution[
+                    ranks.n_complexes >= 2], rank_tol),
+                ('hba.sdf', typed.score[typed.pharmacophore == 'hba'],
+                 typed_tol),
+                ('hbd.sdf', typed.score[typed.pharmacophore == 'hbd'],
+                 typed_tol)):
+            compared[fname] = _sdf_rows_agree(
+                np, out['cuda'] / fname, out['cpu'] / fname, scores, tol,
+                f'hotspot {name} {fname}')
+        check(compared['hotspots.sdf'][2] == 20
+              and compared['hba.sdf'][2] == 7,
+              f'hotspot {name}: SDF rows {compared}')
+        part_s[f'hotspot_{name}'] = time.perf_counter() - part
+        print(f'attribution tail: {card}: hotspot {name}: '
+              f'{TAIL_FRAGMENTS} fragments (pockets at 12 A of {n_real} '
+              f'atoms; {forwards} forwards of up to {fns._CHUNK} copies): '
+              f'wall {wall:.3f} s = {wall / TAIL_FRAGMENTS:.3f} s a fragment '
+              f'on the card (CPU {cpu_wall / TAIL_FRAGMENTS:.3f} s); '
+              f'{ms:.3f} ms by CUDA events = {sum(n_real) / ms * 1e3:.1f} '
+              f'masked variants/s (the masking of fragment 0 alone: '
+              f'{mask_ms:.3f} ms = {n_real[0] / mask_ms * 1e3:.1f}/s); '
+              f'launches {counts}, per fragment '
+              f'{ {k: v / TAIL_FRAGMENTS for k, v in counts.items() if v} }; '
+              f'{len(ranks)} ranked atoms, card against CPU max |diff| '
+              f'{max(worst.values()):.2e}; SDF rows compared (no other '
+              f'score within twice that) / equal / written '
+              f'{compared}; K1/K2 on a chunk\'s inputs against plain '
+              f'{chunk_err}')
+
+    # 2. constrained attribution with the 7zzp ligand as the core
+    part = time.perf_counter()
+    frames = {}
+    for device in ('cuda', 'cpu'):
+        sk.reset_launch_counts()
+        frames[device] = constrained_attribution(
+            root / TAIL_CORE_RUN, REC_7ZZP, frags[:TAIL_CORE_FRAGMENTS],
+            core_lig=LIG_7ZZP, device=device)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            launches['constrained_attribution'] = sk.launch_counts()
+    gpu, cpu = frames['cuda'], frames['cpu']
+    diff = float(np.abs(gpu.attribution - cpu.attribution).max())
+    check(len(gpu) == 9 * TAIL_CORE_FRAGMENTS and (gpu.bp == 0).all()
+          and diff <= ATTRIBUTION_GATE
+          and (gpu.core_distance == cpu.core_distance).all()
+          and gpu.core_distance.between(0, TAIL_MAX_SHIFT + 1.0).all(),
+          f'constrained_attribution: {len(gpu)} rows, |diff| {diff}')
+    print(f'attribution tail: {card}: constrained_attribution '
+          f'({TAIL_CORE_RUN}, {TAIL_CORE_FRAGMENTS} fragments, core = the 7zzp '
+          f'ligand): {len(gpu)} ligand atoms, core distances '
+          f'{gpu.core_distance.min():.3f}-{gpu.core_distance.max():.3f} A '
+          f'(equal on both), max |card - CPU| {diff:.2e}; launches '
+          f'{launches["constrained_attribution"]}')
+    part_s['constrained_attribution'] = time.perf_counter() - part
+
+    # 3. the PDB's own ligand sites
+    part = time.perf_counter()
+    site_ms = {}
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        trainer = load_model(root / TAIL_SITE_RUN, torch.device(device))[0]
+        outs[device] = tail / f'sites_{device}'
+        for site in TAIL_SITES:
+            sk.reset_launch_counts()
+            start = time.perf_counter()
+            written = score_and_colour_pdb(
+                trainer, fns.atom_masking, REC_7ZZP, outs[device],
+                radius=TAIL_SITE_RADIUS, only_process=site)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                site_ms[site] = (time.perf_counter() - start) * 1e3
+                launches[f'process_pdb_{site}'] = sk.launch_counts()
+            check(len(written) == 1, f'process_pdb {site}: {written}')
+    parts = []
+    for csv in sorted(outs['cpu'].glob('*_scores.csv')):
+        site = csv.name[:-len('_scores.csv')]
+        g = pd.read_csv(outs['cuda'] / csv.name)
+        c = pd.read_csv(csv)
+        diff = float(np.abs(g.attribution - c.attribution).max())
+        check(list(g.columns) == list(c.columns) and len(g) == len(c)
+              and diff <= ATTRIBUTION_GATE and (g.drop(columns='attribution')
+                                                == c.drop(columns=
+                                                          'attribution'))
+              .all().all(), f'process_pdb {site}: |diff| {diff}')
+        stepped = _bfactor_pdbs_agree(outs['cuda'] / f'{site}_scored.pdb',
+                                      outs['cpu'] / f'{site}_scored.pdb',
+                                      f'process_pdb {site}')
+        parts.append(f'{site}: {(c.bp == 0).sum()} ligand + '
+                     f'{(c.bp == 1).sum()} pocket atoms, max |card - CPU| '
+                     f'{diff:.2e}, B-factor lines on the next 0.01 step '
+                     f'{stepped}')
+    check(len(parts) == len(TAIL_SITES), f'process_pdb wrote {parts}')
+    print(f'attribution tail: {card}: process_pdb score_and_colour_pdb '
+          f'({TAIL_SITE_RUN}, {TAIL_SITE_RADIUS} A): {"; ".join(parts)}; '
+          f'ms a site on the card '
+          f'{json.dumps({k: round(v, 1) for k, v in site_ms.items()})}; '
+          f'launches '
+          f'{ {k: v for k, v in launches.items() if "process" in k} }')
+    part_s['process_pdb'] = time.perf_counter() - part
+
+    # 4. AP statistics of a labelled synthetic-pharmacophore set
+    part = time.perf_counter()
+    sp_types, atoms = write_labelled_synthpharm(
+        np, tail / 'synthpharm', types.parent, types)
+    labelled = sorted(atoms)
+    stats, scores = {}, {}
+    for device in ('cuda', 'cpu'):
+        scores[device] = []
+
+        def recorded(model, batch, task=None, _to=scores[device]):
+            _to.append(fns.atom_masking(model, batch, task=task))
+            return _to[-1]
+        sk.reset_launch_counts()
+        stats[device] = get_stats_from_dir(
+            root / TAIL_AP_RUN, sp_types.parent, sp_types, recorded,
+            device=device)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            launches['synthpharm_ap'] = sk.launch_counts()
+    gpu, cpu = stats['cuda'], stats['cpu']
+    check(len(cpu[1]) == len(cpu[3]) == TAIL_AP_LIGANDS
+          and gpu[0] == cpu[0] and gpu[2] == cpu[2],
+          f'synthpharm AP: {len(cpu[1])} ligand APs, baselines differ')
+    untied = []
+    for i, (g_s, c_s) in enumerate(zip(scores['cuda'], scores['cpu'])):
+        diff = float(np.abs(g_s - c_s).max())
+        check(diff <= ATTRIBUTION_GATE,
+              f'synthpharm AP: complex {i} scores differ by {diff}')
+        bp, labels = atoms[labelled[i]]
+        # (side, its AP list, its first-hit list) in the statistics
+        for side, ap, first in (('ligand', 1, 4), ('receptor', 3, 5)):
+            atom_side = bp if side == 'receptor' else ~bp
+            if not _mixed_near_tie(np, c_s[atom_side], labels[atom_side],
+                                   _swap_tol(diff)):
+                untied.append(f'{labelled[i]} {side}')
+                check(gpu[ap][i] == cpu[ap][i]
+                      and gpu[first][i] == cpu[first][i],
+                      f'synthpharm AP: complex {labelled[i]} {side} '
+                      f'differs with no near tie')
+    print(f'attribution tail: {card}: synthpharm AP ({TAIL_AP_RUN}, '
+          f'complexes {labelled} labelled): ligand AP '
+          f'{np.round(gpu[1], 6).tolist()} (random '
+          f'{np.round(gpu[0], 4).tolist()}), receptor AP '
+          f'{np.round(gpu[3], 6).tolist()} (random '
+          f'{np.round(gpu[2], 4).tolist()}); first-hit ranks '
+          f'{[int(r) for r in gpu[4]]} / {[int(r) for r in gpu[5]]}; '
+          f'equal to the CPU\'s on the sides without a labelled-unlabelled '
+          f'near tie: {untied}; launches {launches["synthpharm_ap"]}')
+
+    part_s['synthpharm_ap'] = time.perf_counter() - part
+
+    # 5. pose selection on the serving phase's predictions
+    rows = [line.split() for line in types.read_text().splitlines()]
+    rmsd = {int(r[4].split('_')[-1].split('.')[0]): float(r[2])
+            for r in rows}
+    info = {'rec_0': {'docked_wrt_crystal': rmsd}}
+    preds = root / 'readme_softmax_6l' / 'pose_gpu.txt'
+    ranking = parse_results(preds, rmsd_info=info)
+    served = [line.split() for line in preds.read_text().splitlines()]
+    pred_scores = [float(r[2]) for r in served]
+    pred_rmsds = [rmsd[int(Path(r[4]).stem.split('_')[-1])] for r in served]
+    top = [ranking.get_top_n(n) for n in range(1, 11)]
+    check(len(ranking.sorted_scores_and_rmsds) == 1
+          and len(ranking.sorted_scores_and_rmsds[0]) == len(rows)
+          and top == [_top_n_plain(np, pred_scores, pred_rmsds, n)
+                      for n in range(1, 11)],
+          f'pose selection: TopN {top}')
+    print(f'attribution tail: pose selection of {preds.name} ({len(served)} '
+          f'poses, readme_softmax_6l): TopN(1..10) at 2 A {top}; mean RMSD '
+          f'of the top pose {ranking.get_mean_top_ranked_rmsd():.3f} A')
+    print(f'attribution tail: wall seconds by part (card and CPU runs) '
+          f'{json.dumps({k: round(v, 1) for k, v in part_s.items()})}')
     return launches, err
 
 
@@ -2830,16 +3305,18 @@ def phase_bf16(torch, np, root: Path, types: Path, n_poses: int,
 SYNTH_PHARM_ATOMIC_NUMBERS = (6, 7, 8, 9, 15, 16, 17, 35, 53)
 
 
-def write_synthpharm_set(np, data: Path, types: Path) -> Path:
-    """A synthetic-pharmacophore copy of the pose set: every pose's ligand
-    with a ``type`` drawn from the nine atomic numbers, and the pocket
-    (receptor atoms within 10 A of the test ligand, the box the pose set
-    is featurised with) with a ``type`` of 0, 1 or 2, from the seed."""
+def write_synthpharm_set(np, data: Path, types: Path,
+                         out: Path = None) -> Path:
+    """A synthetic-pharmacophore copy of the pose set (in ``out``, by
+    default ``synthpharm`` beside ``data``): every pose's ligand with a
+    ``type`` drawn from the nine atomic numbers, and the pocket (receptor
+    atoms within 10 A of the test ligand, the box the pose set is
+    featurised with) with a ``type`` of 0, 1 or 2, from the seed."""
     import pyarrow as pa
     import pyarrow.parquet as pq
     rng = np.random.default_rng(SEED + 4)
-    out = data.parent / 'synthpharm'
-    out.mkdir()
+    out = out or data.parent / 'synthpharm'
+    out.mkdir(parents=True)
 
     def xyz(table):
         return np.stack([table.column(c).to_numpy() for c in 'xyz'], 1)
@@ -3040,6 +3517,11 @@ def main() -> int:
                                             torch, np, root, card)
             err['k1'] = max(err['k1'], attr_err['k1'])
             err['softmax'] = max(err['softmax'], attr_err['softmax'])
+            tail_launches, tail_err = timed(
+                'attribution_tail', phase_attribution_tail, torch, np, root,
+                types, card)
+            for key, value in tail_err.items():
+                err[key] = max(err[key], value)
             recv_err, recv_timings = timed(
                 'receiver_sorted', phase_receiver_sorted, torch, np, root,
                 types)
@@ -3087,14 +3569,15 @@ def main() -> int:
 
     def served(kernel, names=None):
         """Launches of ``kernel`` over the serving runs (or ``names``),
-        the screens and the attributions."""
+        the screens, the attributions and the attribution tail."""
         return sum(counts.get(kernel, 0) for name, counts in
                    list(launches.items()) + list(screen_launches.items())
                    + list(attr_launches.items())
+                   + list(tail_launches.items())
                    if names is None or name in names)
 
     softmax_runs = [name for name in SERVING if name != 'sigmoid_3l'] + [
-        'screen_attribute_top']
+        'screen_attribute_top'] + list(tail_launches)
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
               served('segment_sum_sorted') + dd_launches['k1'], 'k1',
@@ -3121,7 +3604,7 @@ def main() -> int:
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
           f'synthpharm CLI {sp_launches}; screens {screen_launches}; '
-          f'attribution {attr_launches}')
+          f'attribution {attr_launches}; attribution tail {tail_launches}')
     print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))

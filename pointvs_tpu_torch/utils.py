@@ -1,5 +1,5 @@
 """Host helpers: paths, yaml sidecars, checkpoint lookup, timers,
-coordinate keys (``PositionDict``) and a process fan-out.
+coordinate keys (``PositionDict``), a process fan-out and a shell call.
 
 Own copies of the helpers the port needs from the reference's
 ``pointvs_tpu/utils.py``; ``get_logger`` is ``logging.get_logger``.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 import os
+import subprocess
 import time
 from pathlib import Path
 from typing import Any
@@ -186,3 +187,17 @@ def no_return_parallelise(func, *args, cpus: int | None = None) -> None:
         return
     with mp.Pool(processes=min(cpus, n)) as pool:
         pool.starmap(func, calls)
+
+
+def execute_cmd(cmd: str, raise_exceptions: bool = True,
+                silent: bool = False) -> subprocess.CompletedProcess:
+    """Run a shell command with its output captured; raise
+    ``CalledProcessError`` when it writes to stderr (unless
+    ``raise_exceptions`` is off) and log its stdout (unless ``silent``)."""
+    proc = subprocess.run(cmd, shell=True, capture_output=True)
+    if proc.stderr and raise_exceptions:
+        raise subprocess.CalledProcessError(
+            returncode=proc.returncode, cmd=cmd, stderr=proc.stderr)
+    if proc.stdout and not silent:
+        get_logger().warning(proc.stdout.decode('utf-8'))
+    return proc

@@ -97,8 +97,8 @@ def test_orbax_run_dir_is_refused(tmp_path):
         resolve_run(tmp_path)
 
 
-# Modules of the training slice, the model families and the screen that
-# the walk below must reach.
+# Modules of the training slice, the model families, the screen and the
+# attribution tail that the walk below must reach.
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
@@ -111,7 +111,11 @@ TRAINING_MODULES = (
     'dataset_generation.types_to_parquet', 'attribution.attribution_fns',
     'attribution.attribution', 'attribution.interaction_parser',
     'attribution.plip_subclasses', 'attribution.multiple_ligands',
-    'scripts.for_steph')
+    'scripts.for_steph', 'attribution.hotspot',
+    'attribution.constrained_attribution', 'attribution.process_pdb',
+    'attribution.gromacs', 'attribution.md_gnn_correlation',
+    'analysis.synthpharm_atomic_auc', 'analysis.pose_selection',
+    'analysis.ranking', 'constants')
 
 
 def test_port_imports_no_jax():
@@ -153,6 +157,12 @@ def test_port_sources_name_no_jax_module():
             'attribution/interaction_parser.py',
             'attribution/plip_subclasses.py',
             'attribution/multiple_ligands.py',
-            'scripts/for_steph.py'} <= names
+            'scripts/for_steph.py', 'attribution/hotspot.py',
+            'attribution/constrained_attribution.py',
+            'attribution/process_pdb.py', 'attribution/gromacs.py',
+            'attribution/md_gnn_correlation.py',
+            'analysis/synthpharm_atomic_auc.py',
+            'analysis/pose_selection.py', 'analysis/ranking.py',
+            'constants.py'} <= names
     offenders = [str(p) for p in scanned if pattern.search(p.read_text())]
     assert not offenders
