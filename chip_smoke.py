@@ -206,9 +206,26 @@ store's scores, and with the default codecs (coords16: the worst
 |score difference|, the top-32 overlap and Spearman's rho), then a cold
 and a warm ``--cache_dir`` screen (the warm one loads the cached store).
 
+Last, scale-out (``parallel/``): ``main`` with the README CLI flags
+without dropout (one epoch: 64 poses and 32 augmented actives, 3 steps
+at batch 32, then 2 validation batches) at ``--num_devices 1`` in
+process, then ``--num_devices 2`` (2 spawned ranks sharing the card over
+gloo, 16 graphs a rank a step) and ``--num_devices 2 --graph_shard 2``
+(one batch's edges over 2 ranks), each rank's losses within the
+trajectory gate and its validation scores within 5e-4 of one device's,
+and ``--multihost`` as the one rank of a launcher's job over NCCL (in
+process). Each rank's launches come back in its report: K2 6 a step and
+a validation forward on the dp ranks, K2 never and K1 in every layer on
+the edge-shard ranks. K1 on rank 0's edge shard of a real batch against
+its plain version in float64. Each rank's step ms and gradient
+all-reduce ms a step (pack, all-reduce, unpack) by CUDA events.
+
 Then the wall seconds of every phase, one JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --scale-out-cards N`` instead builds the kernels
+and runs the scale_out phase alone with N ranks, each on a card of its
+own (NCCL between them); it needs N cards.
 ``python3 chip_smoke.py --lucid-step ROOT`` instead times the lucid
 3-layer ``--dropout 0.1`` Trainer step of the port under ROOT (any
 checkout of this repository) and prints one JSON line: run it for two
@@ -3382,6 +3399,174 @@ def phase_synthpharm(torch, np, root: Path, types: Path, card: str):
     return counts
 
 
+# ------------------------------------------------------------ scale-out
+# The README model's CLI flags without dropout (the masks depend on which
+# graphs a rank holds) for one epoch: 64 poses and 32 augmented actives,
+# 3 steps at batch 32, then the 64 poses scored at batch 32.
+SCALE_OUT_FLAGS = list(CLI_FLAGS) + ['--dropout', '0', '-ep', '1']
+SCALE_OUT_STEPS, SCALE_OUT_VAL = 3, 2   # steps and validation batches
+SCALE_OUT_LAYERS = 6
+SCALE_OUT_PRED_TOL = 5e-4   # tests/test_graph_shard.py's CLI bound
+
+
+def _launch_sums(reports, kernel) -> list:
+    return [r['launch_counts'][kernel] for r in reports]
+
+
+def phase_scale_out(torch, np, root: Path, types: Path, card: str,
+                    ranks: int = 2):
+    """Scale-out (``parallel/``): ``main --num_devices 1`` in process;
+    ``--num_devices ranks`` (spawned ranks, each a stripe of 32 / ranks
+    graphs a step: on the one card 2 ranks share cuda:0 over gloo, on
+    ``ranks`` cards each has its own over NCCL) and ``--num_devices ranks
+    --graph_shard 2`` (ranks / 2 dp rows, each row's edges over 2 ranks)
+    against it, per step losses within the trajectory gate and validation
+    scores within 5e-4; ``--multihost`` as the one rank of a launcher's job (RANK 0,
+    WORLD_SIZE 1) over NCCL, in process. K1/K2 launches per rank: on the
+    dp ranks K2 6 a step and validation forward, as on one device; on the
+    edge-shard ranks K2 never and K1 in every layer. Then K1 on a rank's
+    shard of a real batch against its plain version in float64. Prints
+    each rank's step ms and all-reduce ms a step (CUDA events). Returns
+    (K1 and K2 launches of the driven runs, K1's worst error)."""
+    import os
+    from pointvs_tpu_torch.data.loader import get_data_loader
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.parallel.launch import free_port
+
+    def argv(name, extra):
+        return cli_argv(root / name, types, 'cuda', extra=(
+            SCALE_OUT_FLAGS + ['--prefetch', '0'] + extra))
+
+    layers, steps, val = SCALE_OUT_LAYERS, SCALE_OUT_STEPS, SCALE_OUT_VAL
+    sk.reset_launch_counts()
+    one = train_main(argv('so_one', ['--num_devices', '1']))
+    torch.cuda.synchronize()
+    one_counts = sk.launch_counts()
+    check(len(one.train_losses) == steps,
+          f'scale-out: {len(one.train_losses)} steps on one device')
+    check(one_counts['softmax_aggregate_sorted'] == layers * (steps + val),
+          f'scale-out one device: launches {one_counts}')
+
+    start = time.perf_counter()
+    dp = train_main(argv('so_dp', ['--num_devices', str(ranks)]))
+    dp_wall = time.perf_counter() - start
+    start = time.perf_counter()
+    gs = train_main(argv('so_gs', ['--num_devices', str(ranks),
+                                   '--graph_shard', '2']))
+    gs_wall = time.perf_counter() - start
+    for label, reports in (('dp', dp), ('graph_shard', gs)):
+        check([r['rank'] for r in reports] == list(range(ranks)),
+              f'scale-out {label}: reports {[r["rank"] for r in reports]}')
+        for r in reports:
+            check(np.allclose(r['train_losses'], one.train_losses,
+                              **TRAJ_TOL),
+                  f'scale-out {label} rank {r["rank"]}: losses '
+                  f'{r["train_losses"]} against one device\'s '
+                  f'{one.train_losses}')
+            diff = float(np.abs(r['val_scores'] - one.val_scores).max())
+            check(r['val_scores'].shape == one.val_scores.shape
+                  and diff <= SCALE_OUT_PRED_TOL,
+                  f'scale-out {label} rank {r["rank"]}: validation scores '
+                  f'differ by {diff}')
+            check(len(r['allreduce_ms']) == steps,
+                  f'scale-out {label}: {len(r["allreduce_ms"])} timed '
+                  f'all-reduces for {steps} steps')
+    # dp ranks: each scores half of every batch, one K2 a layer.
+    for r in dp:
+        c = r['launch_counts']
+        check(c['softmax_aggregate_sorted'] == layers * (steps + val)
+              and c['segment_sum_sorted'] >= layers * steps
+              and c['fused_edge_forward'] == c['fused_edge_backward'] == 0,
+              f'scale-out dp rank {r["rank"]}: launches {c}')
+    # Edge-shard ranks: never K2 (the reference's Pallas path is off when
+    # edge-sharded), K1 in every layer's softmax aggregation.
+    for r in gs:
+        c = r['launch_counts']
+        check(c['softmax_aggregate_sorted'] == 0
+              and c['segment_sum_sorted'] >= layers * (steps + val),
+              f'scale-out graph_shard rank {r["rank"]}: launches {c}')
+
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               LOCAL_WORLD_SIZE='1', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    sk.reset_launch_counts()
+    try:
+        mh = train_main(argv('so_mh', ['--multihost', '--node_bucket',
+                                       '16384', '--edge_bucket', '262144']))
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    mh_counts = sk.launch_counts()
+    check(mh.mesh.backend == 'nccl' and mh.num_devices == 1,
+          f'scale-out --multihost: backend {mh.mesh.backend}, '
+          f'{mh.num_devices} rank(s)')
+    check(np.allclose(mh.train_losses, one.train_losses, **TRAJ_TOL)
+          and float(np.abs(mh.val_scores - one.val_scores).max())
+          <= SCALE_OUT_PRED_TOL,
+          f'scale-out --multihost: losses {mh.train_losses} against '
+          f'{one.train_losses}')
+    check(mh_counts['softmax_aggregate_sorted'] == layers * (steps + val),
+          f'scale-out --multihost: launches {mh_counts}')
+
+    # K1 on rank 0's edge shard of the first validation batch (the
+    # sharded softmax's packed width, 32 + 5), against float64.
+    loader = get_data_loader(
+        types.parent, types, batch_size=32, compact=True, radius=10,
+        edge_radius=4, polar_hydrogens=False, prefetch=0, graph_shard=2,
+        gp_index=0)
+    shard = to_device(next(iter(loader))[0], torch.device('cuda'))
+    n = shard.node_feats.shape[0]
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    data = torch.randn(shard.senders.shape[0], 37, device='cuda',
+                       generator=gen)
+    got = sk.windowed_segment_sum(data, shard.senders, n)
+    want = sk.windowed_segment_sum_plain(data.double(), shard.senders,
+                                         n).float()
+    torch.cuda.synchronize()
+    k1_err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, **TOL),
+          f'scale-out: K1 on an edge shard disagrees with plain by {k1_err}')
+
+    def ms(values):
+        return (f'median {np.median(values):.3f} p90 '
+                f'{np.percentile(values, 90):.3f}' if len(values) else '-')
+    print(f'scale-out: {card}: one device step_ms {ms(one.step_ms())}; '
+          f'launches {one_counts}')
+    for label, reports, wall in ((f'dp {ranks} x gp 1', dp, dp_wall),
+                                 (f'dp {ranks // 2} x gp 2', gs, gs_wall)):
+        for r in reports:
+            print(f'scale-out: {card}: {label} rank {r["rank"]} '
+                  f'({r["backend"]}, {r["device"]}): step_ms '
+                  f'{ms(r["step_ms"])} '
+                  f'{np.round(r["step_ms"], 3).tolist()}; all-reduce ms a '
+                  f'step {ms(r["allreduce_ms"])} '
+                  f'{np.round(r["allreduce_ms"], 3).tolist()}; launches '
+                  f'{r["launch_counts"]}')
+        print(f'scale-out: {card}: {label} CLI wall {wall:.3f} s ({ranks} '
+              f'processes started, featurisation, {steps} steps, '
+              f'validation); losses {reports[0]["train_losses"]} vs one '
+              f'device {one.train_losses}')
+    print(f'scale-out: {card}: --multihost (nccl, 1 rank) step_ms '
+          f'{ms(mh.step_ms())}; all-reduce ms a step '
+          f'{ms(mh.allreduce_ms())}; launches {mh_counts}; K1 on an edge '
+          f'shard max|kernel - plain| {k1_err:.3e}')
+    launches = {'k1': one_counts['segment_sum_sorted']
+                + mh_counts['segment_sum_sorted']
+                + sum(_launch_sums(dp + gs, 'segment_sum_sorted')),
+                'k2': one_counts['softmax_aggregate_sorted']
+                + mh_counts['softmax_aggregate_sorted']
+                + sum(_launch_sums(dp + gs, 'softmax_aggregate_sorted'))}
+    return launches, k1_err
+
+
 # ---------------------------------------------------------------- 14
 def phase_double_refused(root: Path, types: Path):
     run = root / 'double_cuda'
@@ -3553,6 +3738,9 @@ def main() -> int:
                                   types, n_poses, card)
             sp_launches = timed('synthpharm', phase_synthpharm, torch, np,
                                 root, types, card)
+            so_launches, so_err = timed('scale_out', phase_scale_out, torch,
+                                        np, root, types, card)
+            err['k1'] = max(err['k1'], so_err)
             timed('double_refused', phase_double_refused, root, types)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
@@ -3580,11 +3768,12 @@ def main() -> int:
         'screen_attribute_top'] + list(tail_launches)
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
-              served('segment_sum_sorted') + dd_launches['k1'], 'k1',
-              'k1_36'),
+              served('segment_sum_sorted') + dd_launches['k1']
+              + so_launches['k1'], 'k1', 'k1_36'),
         entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', softmax_runs)
-              + dd_launches['k2'], 'softmax', 'softmax'),
+              + dd_launches['k2'] + so_launches['k2'], 'softmax',
+              'softmax'),
         entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', ['sigmoid_3l']),
               'sigmoid', 'sigmoid'),
@@ -3604,7 +3793,8 @@ def main() -> int:
           f'strain and dense CLIs {input_launches}; strain Trainer on the '
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
           f'synthpharm CLI {sp_launches}; screens {screen_launches}; '
-          f'attribution {attr_launches}; attribution tail {tail_launches}')
+          f'attribution {attr_launches}; attribution tail {tail_launches}; '
+          f'scale-out (every rank) {so_launches}')
     print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))
@@ -3614,7 +3804,34 @@ def main() -> int:
     return 0
 
 
+def scale_out_cards(ranks: int) -> int:
+    """``--scale-out-cards N``: the build and the scale_out phase with N
+    ranks, each on a card of its own (NCCL); needs N cards. Exits 0 when
+    the phase passes."""
+    try:
+        import numpy as np
+        import torch
+        card = phase_device(torch)
+        check(torch.cuda.device_count() >= ranks,
+              f'{ranks} ranks need {ranks} cards, '
+              f'{torch.cuda.device_count()} visible')
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            types, _ = write_pose_set(np, root / 'data')
+            start = time.perf_counter()
+            phase_scale_out(torch, np, root, types, card, ranks)
+            print(f'scale_out phase {time.perf_counter() - start:.1f} s')
+    except Exception:
+        traceback.print_exc()
+        print('chip_smoke --scale-out-cards: FAILED', file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--scale-out-cards':
+        sys.exit(scale_out_cards(int(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == '--lucid-step':
         sys.exit(lucid_step_ms(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--featurise':

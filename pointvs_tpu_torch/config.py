@@ -109,7 +109,9 @@ _FLAGS = (
     ('--edge_attention_first_only', (), _STORE_TRUE),
     # The reference's additions to the original PointVS flag set.
     ('--num_devices', (), dict(type=int, default=None,
-                               help='Data-parallel devices (the port: 1)')),
+                               help='Data-parallel ranks, one process '
+                                    'each (default: the visible cards; 1 '
+                                    'on the CPU)')),
     ('--cache_dir', (), dict(type=str, default=None,
                              help='On-disk cache for preprocessed graphs')),
     ('--prefetch', (), dict(type=int, default=2,
@@ -136,10 +138,15 @@ _FLAGS = (
         action='store_true',
         help='Recompute each EGNN layer in backward '
              '(torch.utils.checkpoint): activation memory O(depth)')),
-    ('--graph_shard', (), dict(type=int, default=1,
-                               help='Edge parallelism (not in the port)')),
-    ('--multihost', (), dict(action='store_true',
-                             help='Multi-host training (not in the port)')),
+    ('--graph_shard', (), dict(
+        type=int, default=1,
+        help='Split each batch\'s edges over this many ranks (edge '
+             'parallelism); --num_devices must be a multiple')),
+    ('--multihost', (), dict(
+        action='store_true',
+        help='Run as one rank of a launcher\'s job (RANK, WORLD_SIZE, '
+             'LOCAL_RANK, MASTER_ADDR, MASTER_PORT, as torchrun sets '
+             'them); needs --node_bucket and --edge_bucket')),
     ('--node_bucket', (), dict(
         type=int, default=None,
         help='Pin the padded node count per batch to one size')),

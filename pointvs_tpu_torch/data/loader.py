@@ -1,5 +1,5 @@
 """Batched, prefetching graph loader (counterpart of
-``pointvs_tpu/data/loader.py`` on one device).
+``pointvs_tpu/data/loader.py``).
 
 Yields ``(batch, BatchMeta)`` with ``batch_size`` graph slots per batch;
 a short last batch leaves its spare slots empty (``graph_mask == 0``).
@@ -39,8 +39,21 @@ Host batches stay on the host: the consumer moves each to the device
 (``data.buckets.to_device``, pinned memory and non-blocking copies on the
 consumer's stream). ``BatchMeta.y`` and ``graph_mask`` are host copies of
 the batch's labels and slot mask ([1, B] for an ids batch, as the
-reference's loader builds them). The reference's TPU window capacity
-(``meta.cap``) and its data-parallel split are not here.
+reference's loader builds them); ``BatchMeta.items`` holds the dataset
+indices of the real slots. The reference's TPU window capacity
+(``meta.cap``) is not here.
+
+Scale-out, as the reference's multi-process loader: with ``num_shards``
+> 1 the loader is one data-parallel rank's. Every rank draws the same
+seeded index stream and keeps its stripe ``idx[shard_index::num_shards]``
+(weighted samples included), at ``batch_size`` = the global batch / the
+dp ranks, so the union of the ranks' batch k is the one-rank batch k.
+Every rank yields ``len(self)`` batches: a stripe that runs out first
+yields batches with no real slot. With ``graph_shard`` > 1 (the graph
+layout only) each batch is padded as one row and split into
+``graph_shard`` edge shards, of which the loader yields shard
+``gp_index`` (``parallel/graph_shard.py``); the node and graph arrays are
+the row's, on every gp rank alike.
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from pointvs_tpu_torch.data.buckets import (
     DEFAULT_EDGE_BUCKETS,
     DEFAULT_NODE_BUCKETS,
     AnyBatch,
+    GraphBatch,
     SiamesePair,
     bucket_sizes,
     pad_graphs_to_batch,
@@ -71,14 +85,15 @@ LAYOUTS = ('graph', 'pair', 'dense')
 class BatchMeta:
     """Host metadata for one batch; filenames line up with graph slots."""
 
-    __slots__ = ('lig_fnames', 'rec_fnames', 'y', 'graph_mask')
+    __slots__ = ('lig_fnames', 'rec_fnames', 'y', 'graph_mask', 'items')
 
     def __init__(self, lig_fnames: List[str], rec_fnames: List[str], y,
-                 graph_mask):
+                 graph_mask, items=None):
         self.lig_fnames = lig_fnames
         self.rec_fnames = rec_fnames
         self.y = y
         self.graph_mask = graph_mask
+        self.items = items
 
 
 class GraphDataLoader:
@@ -89,12 +104,20 @@ class GraphDataLoader:
                  prefetch: int = 2, seed: int = 0,
                  node_buckets=DEFAULT_NODE_BUCKETS,
                  edge_buckets=DEFAULT_EDGE_BUCKETS, layout: str = 'graph',
-                 paired_dataset: PointCloudDataset = None):
+                 paired_dataset: PointCloudDataset = None,
+                 shard_index: int = 0, num_shards: int = 1,
+                 graph_shard: int = 1, gp_index: int = 0):
         if layout not in LAYOUTS:
             raise ValueError(f'unknown layout {layout!r}')
         if (layout == 'pair') != (paired_dataset is not None):
             raise ValueError("layout='pair' takes the ligand-side dataset "
                              'as paired_dataset, and only it does')
+        if graph_shard > 1 and layout != 'graph':
+            raise ValueError('--graph_shard requires the graph layout')
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.graph_shard = graph_shard
+        self.gp_index = gp_index
         self.layout = layout
         self.paired_dataset = paired_dataset
         self.dataset = dataset
@@ -119,7 +142,7 @@ class GraphDataLoader:
         self.device_store = None
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = -(-len(self.dataset) // self.num_shards)   # the longest stripe
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -128,19 +151,55 @@ class GraphDataLoader:
         n = len(self.dataset)
         if self.use_weighted_sampler:
             weights = np.asarray(self.dataset.sample_weights, np.float64)
-            return self.rng.choice(n, size=n, replace=True,
-                                   p=weights / weights.sum())
-        idx = np.arange(n)
-        if self.shuffle:
-            self.rng.shuffle(idx)
+            idx = self.rng.choice(n, size=n, replace=True,
+                                  p=weights / weights.sum())
+        else:
+            idx = np.arange(n)
+            if self.shuffle:
+                self.rng.shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_index::self.num_shards]
         return idx
+
+    def _chunks(self, indices):
+        """The ``len(self)`` index chunks of an epoch; a stripe that runs
+        out yields empty ones."""
+        for j in range(len(self)):
+            chunk = np.asarray(indices[j * self.batch_size:
+                                       (j + 1) * self.batch_size], np.int64)
+            if len(chunk) < self.batch_size and self.drop_last:
+                return
+            yield chunk
 
     def _pad(self, samples):
         return pad_graphs_to_batch(samples, num_graphs=self.batch_size,
                                    node_buckets=self.node_buckets,
                                    edge_buckets=self.edge_buckets)
 
+    def _empty(self, batch):
+        """A collated placeholder with no real slot, node or edge (nothing
+        of it enters a loss or a whole-batch statistic)."""
+        if isinstance(batch, SiamesePair):
+            return SiamesePair(self._empty(batch.rec), self._empty(batch.lig))
+        blank = dict(y=np.zeros_like(batch.y),
+                     graph_mask=np.zeros_like(batch.graph_mask))
+        if isinstance(batch, GraphBatch):
+            blank.update(node_mask=np.zeros_like(batch.node_mask),
+                         edge_mask=np.zeros_like(batch.edge_mask),
+                         graph_id=np.full_like(batch.graph_id,
+                                               batch.graph_mask.shape[0]))
+        else:   # DenseBatch
+            blank.update(m=np.zeros_like(batch.m))
+        return batch._replace(**blank)
+
+    def placeholder(self) -> AnyBatch:
+        """A batch of this loader's layout and sizes with no real slot,
+        node or edge: what a stripe past its end yields."""
+        return self._empty(self._collate([0], [self.dataset[0]]))
+
     def _collate(self, chunk, samples) -> AnyBatch:
+        if not len(chunk):   # a stripe past its end
+            return self.placeholder()
         if self.layout == 'dense':
             max_len = pick_bucket(max(s.num_nodes for s in samples),
                                   DENSE_NODE_BUCKETS)
@@ -148,14 +207,18 @@ class GraphDataLoader:
         if self.layout == 'pair':
             lig = [self.paired_dataset[int(i)] for i in chunk]
             return SiamesePair(self._pad(samples), self._pad(lig))
+        if self.graph_shard > 1:
+            from pointvs_tpu_torch.parallel.graph_shard import split_edges
+            return split_edges(self._pad(samples),
+                               self.graph_shard)[self.gp_index]
         return self._pad(samples)
 
     def enable_device_dataset(self, store) -> None:
         """Collate from ``store`` (built from this loader's dataset) on the
         device from now on."""
-        if self.layout != 'graph':
+        if self.layout != 'graph' or self.graph_shard > 1:
             raise ValueError('device-resident datasets need the graph '
-                             'layout')
+                             'layout without graph sharding')
         if len(store.host.num_nodes) != len(self.dataset):
             raise ValueError('store was built from a different dataset')
         self.device_store = store
@@ -168,11 +231,7 @@ class GraphDataLoader:
         host = store.host
         rotate = self.mode == 'train' and host.rot
         y_all = host.arrays.y
-        for start in range(0, len(indices), self.batch_size):
-            chunk = np.asarray(indices[start:start + self.batch_size],
-                               np.int64)
-            if len(chunk) < self.batch_size and self.drop_last:
-                return
+        for chunk in self._chunks(indices):
             ids = np.full((1, self.batch_size), -1, np.int32)
             ids[0, :len(chunk)] = chunk
             spec = DeviceCollateSpec(
@@ -188,22 +247,19 @@ class GraphDataLoader:
             graph_mask[0, :len(chunk)] = 1.0
             yield ('ids', ids, store, spec), BatchMeta(
                 [host.lig_fnames[i] for i in chunk],
-                [host.rec_fnames[i] for i in chunk], y, graph_mask)
+                [host.rec_fnames[i] for i in chunk], y, graph_mask, chunk)
 
     def _produce(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         indices = self._epoch_indices()
         if self.device_store is not None:
             yield from self._produce_ids(indices)
             return
-        for start in range(0, len(indices), self.batch_size):
-            chunk = indices[start:start + self.batch_size]
-            if len(chunk) < self.batch_size and self.drop_last:
-                return
+        for chunk in self._chunks(indices):
             samples = [self.dataset[int(i)] for i in chunk]
             batch = self._collate(chunk, samples)
             yield batch, BatchMeta([s.lig_fname for s in samples],
                                    [s.rec_fname for s in samples],
-                                   batch.y, batch.graph_mask)
+                                   batch.y, batch.graph_mask, chunk)
 
     def _prefetched(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -285,7 +341,9 @@ def get_data_loader(
         edge_buckets=DEFAULT_EDGE_BUCKETS, bp=None,
         include_strain_info: bool = False,
         layout: str = 'graph',
-        dataset_class=PointCloudDataset) -> GraphDataLoader:
+        dataset_class=PointCloudDataset, shard_index: int = 0,
+        num_shards: int = 1, graph_shard: int = 1,
+        gp_index: int = 0) -> GraphDataLoader:
     """Dataset + loader with the reference's keywords. Unlike the
     reference, ``rot`` defaults to False (the scoring loader's setting) and
     ``mode`` to ``'val'``. Structures are parquet, PDB, SDF or MOL2 files,
@@ -294,7 +352,10 @@ def get_data_loader(
     file; the port always reads a types file). ``layout='pair'``
     builds two datasets of the same types file and seed, the receptor's
     atoms (bp 1) and the ligand's (bp 0). ``dataset_class`` is
-    ``PointCloudDataset`` or ``SynthPharmDataset`` (``--synthpharm``)."""
+    ``PointCloudDataset`` or ``SynthPharmDataset`` (``--synthpharm``).
+    ``shard_index`` / ``num_shards`` / ``graph_shard`` / ``gp_index``
+    place the loader on one rank of a mesh (see the module's
+    docstring)."""
     del fname_suffix
 
     def make_dataset(bp_filter):
@@ -323,4 +384,6 @@ def get_data_loader(
                            prefetch=prefetch, seed=seed,
                            node_buckets=node_buckets,
                            edge_buckets=edge_buckets, layout=layout,
-                           paired_dataset=paired)
+                           paired_dataset=paired, shard_index=shard_index,
+                           num_shards=num_shards, graph_shard=graph_shard,
+                           gp_index=gp_index)

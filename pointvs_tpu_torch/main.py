@@ -32,6 +32,19 @@ Writes the reference's run directory: ``cmd_args.yaml`` (with
 on the GPU unless ``--device cpu`` is given. Flags whose feature the port
 does not have raise ``NotImplementedError`` naming ROADMAP.md
 (``refuse_unported``).
+
+Scale-out (``parallel/launch.py``): ``--num_devices D`` (default: the
+visible cards, 1 on the CPU) trains on D ranks, one process each,
+spawned here; ``--multihost`` makes this process one rank of a
+launcher's job; ``--graph_shard G`` splits each dp row's edges over G
+ranks (D / G dp rows; the egnn, lucid, en_transformer and multitask
+models). Each rank builds its own loaders (its stripe of every epoch,
+``batch_size / (D / G)`` graphs a step) and Trainer; rank 0 writes the
+run directory, which equals a one-device run's. Spawned, ``main``
+returns the ranks' reports (``launch.rank_report``), not a Trainer.
+The reference's checks stop the CLI first: the batch size divisible by
+the dp rows, ``--num_devices`` by ``--graph_shard``, ``--multihost``
+with ``--node_bucket`` and ``--edge_bucket``.
 """
 from __future__ import annotations
 
@@ -50,35 +63,51 @@ from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.logging import get_logger
 from pointvs_tpu_torch.models.registry import MODEL_REGISTRY, \
     model_input_kind
+from pointvs_tpu_torch.parallel.launch import default_num_devices, \
+    launcher_env, run_multihost, spawn
+from pointvs_tpu_torch.parallel.mesh import Mesh
 from pointvs_tpu_torch.training.engine import Trainer
 from pointvs_tpu_torch.utils import load_yaml, mkdir, save_yaml
+
+GRAPH_SHARD_MODELS = ('egnn', 'lucid', 'en_transformer', 'multitask')
 
 
 def refuse_unported(args) -> None:
     """Raise for the first flag whose feature is not in the port."""
-    refusals = (
-        (args.num_devices not in (None, 1),
-         f'--num_devices {args.num_devices}', 'data parallelism'),
-        (args.multihost, '--multihost', 'multi-host training'),
-        (args.graph_shard > 1, f'--graph_shard {args.graph_shard}',
-         'edge parallelism'),
-        (args.scatter_cap is not None, '--scatter_cap',
-         "the TPU kernels' window capacity (the port's segment kernel "
-         'has none)'),
-    )
-    for refused, flag, feature in refusals:
-        if refused:
-            raise NotImplementedError(
-                f'{flag}: {feature} is not in the port (see ROADMAP.md, '
-                f'Queue 1)')
+    if args.scatter_cap is not None:
+        raise NotImplementedError(
+            "--scatter_cap: the TPU kernels' window capacity (the port's "
+            'segment kernel has none) is not in the port (see ROADMAP.md, '
+            'Queue 1)')
 
 
-def build_loaders(args):
+def check_scale_out(args, world: int) -> None:
+    """The reference's checks of a scale-out command line for ``world``
+    ranks (``main`` checks ``--multihost``'s buckets first);
+    ``SystemExit`` naming the flags."""
+    graph_shard = max(1, args.graph_shard)
+    if world % graph_shard:
+        raise SystemExit(f'--num_devices {world} must be divisible by '
+                         f'--graph_shard {graph_shard}')
+    if graph_shard > 1 and args.model not in GRAPH_SHARD_MODELS:
+        raise SystemExit(f'--graph_shard supports the '
+                         f'{", ".join(GRAPH_SHARD_MODELS)} models')
+    if args.batch_size % (world // graph_shard):
+        raise SystemExit(f'--batch_size {args.batch_size} must be divisible '
+                         f'by the {world // graph_shard} data-parallel '
+                         f'rows (--num_devices / --graph_shard)')
+
+
+def build_loaders(args, mesh: Mesh = None):
     """(train_pose, train_affinity, test_pose, test_affinity,
-    regression_task) from the flags, as the reference builds them."""
+    regression_task) from the flags, as the reference builds them; on a
+    ``mesh``, this rank's loaders."""
     regression_task = regression_task_of(args)
+    mesh = mesh or Mesh()
     dl_kwargs = dict(
-        batch_size=args.batch_size, compact=args.compact,
+        batch_size=args.batch_size // mesh.n_dp,
+        shard_index=mesh.dp_rank, num_shards=mesh.n_dp,
+        graph_shard=mesh.n_gp, gp_index=mesh.gp_rank, compact=args.compact,
         radius=args.radius, use_atomic_numbers=args.use_atomic_numbers,
         rot=False, polar_hydrogens=args.hydrogens,
         fname_suffix=args.input_suffix, edge_radius=args.edge_radius,
@@ -147,8 +176,42 @@ def run_phases(trainer, args, loaders) -> None:
         (trainer.save_path / '_FINISHED').write_text('')
 
 
+def _train_rank(device, args, save_path):
+    """The CLI's work on one rank (or the one device); returns its
+    Trainer."""
+    mesh = Mesh(args.graph_shard)
+    log = (get_logger(log_path=save_path) if mesh.chief
+           else get_logger(level='WARNING'))
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    loaders = build_loaders(args, mesh)
+    datasets = [dl.dataset for dl in loaders[:4] if dl is not None]
+    if not datasets:
+        raise SystemExit('No datasets specified — nothing to do.')
+    model_kwargs = model_kwargs_from_args(args, datasets[0].feature_dim)
+    if args.model_task == 'both':
+        model_kwargs['model_task'] = 'classification'
+    trainer = Trainer(
+        args.model, save_path, device, learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay, optimiser=args.optimiser,
+        use_1cycle=args.use_1cycle, warm_restarts=args.warm_restarts,
+        only_save_best_models=args.only_save_best_models,
+        regression_loss=args.regression_loss, seed=args.seed,
+        wandb_project=args.wandb_project, wandb_run=args.wandb_run,
+        wandb_dir=args.wandb_dir, profile=args.profile,
+        num_devices=mesh.world, double=args.double,
+        device_cache=args.device_cache, mesh=mesh, **model_kwargs)
+    if args.load_weights is not None:
+        trainer.load_weights(args.load_weights)
+    if args.import_torch_weights:
+        trainer.import_torch_weights(args.import_torch_weights)
+    run_phases(trainer, args, loaders)
+    log.info('Done.')
+    return trainer
+
+
 def main(argv=None):
-    """Run the CLI; returns the Trainer."""
+    """Run the CLI; returns the Trainer (spawned ranks: their reports)."""
     args = parse_args(argv)
     if args.load_args is not None:
         for key, value in load_yaml(args.load_args).items():
@@ -172,8 +235,6 @@ def main(argv=None):
                              f'set')
     refuse_double_on_cuda(args.double, args.device)
     device = resolve_device(args.device)
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
 
     if args.wandb_project is None:
         save_path = Path(args.save_path).expanduser()
@@ -183,36 +244,27 @@ def main(argv=None):
     else:
         save_path = Path(args.save_path, args.wandb_project,
                          args.wandb_run).expanduser()
+    if args.multihost:
+        if not (args.node_bucket and args.edge_bucket):
+            raise SystemExit('--multihost requires --node_bucket and '
+                             '--edge_bucket: processes pad independently and '
+                             'must agree on static shapes')
+        info = launcher_env()
+        world, chief = info.world, info.rank == 0
+    else:
+        world, chief = (args.num_devices
+                        or default_num_devices(args.device)), True
+    check_scale_out(args, world)
     save_path = mkdir(save_path)
-    log = get_logger(log_path=save_path)
     args.hostname = socket.gethostname()
     args.slurm_jobid = os.getenv('SLURM_JOBID')
-    save_yaml(vars(args), save_path / 'cmd_args.yaml')
-
-    loaders = build_loaders(args)
-    datasets = [dl.dataset for dl in loaders[:4] if dl is not None]
-    if not datasets:
-        raise SystemExit('No datasets specified — nothing to do.')
-    model_kwargs = model_kwargs_from_args(args, datasets[0].feature_dim)
-    if args.model_task == 'both':
-        model_kwargs['model_task'] = 'classification'
-    trainer = Trainer(
-        args.model, save_path, device, learning_rate=args.learning_rate,
-        weight_decay=args.weight_decay, optimiser=args.optimiser,
-        use_1cycle=args.use_1cycle, warm_restarts=args.warm_restarts,
-        only_save_best_models=args.only_save_best_models,
-        regression_loss=args.regression_loss, seed=args.seed,
-        wandb_project=args.wandb_project, wandb_run=args.wandb_run,
-        wandb_dir=args.wandb_dir, profile=args.profile,
-        num_devices=args.num_devices, double=args.double,
-        device_cache=args.device_cache, **model_kwargs)
-    if args.load_weights is not None:
-        trainer.load_weights(args.load_weights)
-    if args.import_torch_weights:
-        trainer.import_torch_weights(args.import_torch_weights)
-    run_phases(trainer, args, loaders)
-    log.info('Done.')
-    return trainer
+    if chief:
+        save_yaml(vars(args), save_path / 'cmd_args.yaml')
+    if args.multihost:
+        return run_multihost(_train_rank, args.device, args, save_path)
+    if world > 1:
+        return spawn(_train_rank, world, args.device, args, save_path)
+    return _train_rank(device, args, save_path)
 
 
 if __name__ == '__main__':

@@ -41,6 +41,13 @@ draws from the step's JAX key (``dropout_rng``:
 model's root scope and ``randint`` to int32 max) or by an explicit
 ``dropout_seed``; ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``nn.remat``.
+
+Scale-out (``parallel/``): ``edge_shard_axis`` is the process group a
+batch's edge list is split over (each rank holds one shard and the
+replicated nodes; every aggregation sums over the group), and
+``batch_shard_axis`` the data-parallel group the strict GraphNorm's
+whole-batch statistics sum over. The Trainer sets both and keeps them out
+of ``model_kwargs.yaml``, so a run trained sharded loads on one device.
 """
 from __future__ import annotations
 
@@ -56,7 +63,6 @@ from pointvs_tpu_torch.ops.graphnorm import GraphNorm
 from pointvs_tpu_torch.ops.prng import egnn_edge_dropout_seed
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
-_ROADMAP = 'see ROADMAP.md, Queue 1'
 EPSILON = 1e-8   # added to the detached norm when normalising coord_diff
 
 
@@ -74,7 +80,8 @@ class EGNNLayer(nn.Module):
                  attention_activation_fn: str = 'sigmoid',
                  gated_residual: bool = False, rezero: bool = False,
                  softmax_attention: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 batch_shard_axis=None):
         super().__init__()
         if gated_residual and rezero:
             raise ValueError('gated_residual and rezero are incompatible')
@@ -97,7 +104,8 @@ class EGNNLayer(nn.Module):
         self.edge_mlp = mlp(edge_in, (k, k), (act, act), dtype=dtype)
         self.node_mlp = nn.Sequential(
             Linear(2 * k, k, dtype=dtype),
-            GraphNorm(k, whole_batch=graphnorm_whole_batch) if graphnorm
+            GraphNorm(k, whole_batch=graphnorm_whole_batch,
+                      batch_axis=batch_shard_axis) if graphnorm
             else nn.Identity(),
             activation(act),
             Linear(k, k, dtype=dtype))
@@ -264,16 +272,14 @@ class SartorrasEGNN(nn.Module):
                  include_strain_info: bool = False,
                  final_softplus: bool = False,
                  softmax_attention: bool = False,
-                 edge_shard_axis: str | None = None, remat: bool = False,
-                 bf16: bool = False, scan_layers: bool = False):
+                 edge_shard_axis=None, batch_shard_axis=None,
+                 remat: bool = False, bf16: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         # scan_layers only changes the JAX parameter layout; the port's
         # state_dict is per-layer either way (models/params.py carries both).
         del scan_layers, model_task
-        if edge_shard_axis is not None:
-            raise NotImplementedError(
-                f'edge_shard_axis is not in the port yet (scale-out; '
-                f'{_ROADMAP})')
+        self.edge_shard_axis = edge_shard_axis
         self.bf16 = bf16
         dtype = torch.bfloat16 if bf16 else None
         self.num_layers = num_layers
@@ -293,7 +299,8 @@ class SartorrasEGNN(nn.Module):
             node_attention=node_attention,
             attention_activation_fn=attention_activation_fn,
             gated_residual=gated_residual, rezero=rezero,
-            softmax_attention=softmax_attention, dtype=dtype)
+            softmax_attention=softmax_attention, dtype=dtype,
+            batch_shard_axis=batch_shard_axis)
         self.layer_kwargs = layer_kwargs
         self.layers = nn.ModuleList(
             [InputEmbedding(dim_input, k, dtype)]
@@ -341,7 +348,8 @@ class SartorrasEGNN(nn.Module):
         agg = EdgeAggregator(batch.senders, batch.receivers,
                              batch.edge_mask, num_nodes=h.shape[0],
                              recv_perm=batch.recv_perm,
-                             inv_recv_perm=batch.inv_recv_perm)
+                             inv_recv_perm=batch.inv_recv_perm,
+                             axis=self.edge_shard_axis)
         num_graphs = batch.graph_mask.shape[0]
         edge_messages = None
         remat = (self.remat and torch.is_grad_enabled()

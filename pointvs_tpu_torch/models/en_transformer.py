@@ -34,8 +34,6 @@ from pointvs_tpu_torch.models.layers import mlp
 from pointvs_tpu_torch.ops.aggregate import EdgeAggregator
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
-_ROADMAP = 'see ROADMAP.md, Queue 1'
-
 
 class LayerNorm(nn.Module):
     """Per-row LayerNorm over the channels (biased variance, eps 1e-5)."""
@@ -123,16 +121,13 @@ class EnTransformer(nn.Module):
                  update_coords: bool = True, tanh: bool = True,
                  model_task: str = 'classification',
                  final_softplus: bool = False,
-                 edge_shard_axis: str | None = None,
-                 scan_layers: bool = False):
+                 edge_shard_axis=None, scan_layers: bool = False):
         super().__init__()
         # scan_layers only changes the JAX parameter layout (models/params.py
         # reads both); model_task does not change the network.
         del scan_layers, model_task
-        if edge_shard_axis is not None:
-            raise NotImplementedError(
-                f'edge_shard_axis is not in the port yet (scale-out; '
-                f'{_ROADMAP})')
+        # The process group the edges are split over (models/egnn.py).
+        self.edge_shard_axis = edge_shard_axis
         self.num_layers = num_layers
         self.input_embed = nn.Linear(dim_input, k)
         for i in range(num_layers):
@@ -154,7 +149,8 @@ class EnTransformer(nn.Module):
         coord = batch.coords
         agg = EdgeAggregator(batch.senders, batch.receivers,
                              batch.edge_mask, num_nodes=h.shape[0],
-                             recv_perm=batch.recv_perm)
+                             recv_perm=batch.recv_perm,
+                             axis=self.edge_shard_axis)
         layers = []
         for layer in self.tf_layers():
             aux = {} if capture_aux else None

@@ -53,7 +53,7 @@ def run_args(weights_path) -> dict:
     return _sidecar(root / 'cmd_args.yaml')
 
 
-def load_model(weights_path, device, init_path: bool = False):
+def load_model(weights_path, device, init_path: bool = False, mesh=None):
     """Returns (trainer, model_kwargs, cmd_args).
 
     ``init_path`` reopens the run directory for continued training: the
@@ -69,6 +69,10 @@ def load_model(weights_path, device, init_path: bool = False):
     The Trainer keeps the run's ``--device_cache`` (``auto`` where the
     run has none), so serving through ``Trainer.val`` takes the
     device-resident dataset as the reference's does.
+
+    ``mesh`` (``parallel/mesh.Mesh``) makes the Trainer one rank of a
+    scale-out run (``--num_devices``); without it the Trainer has one
+    device, whatever mesh the run was trained on.
 
     The Trainer takes the reference's default seed (2), not the run's
     ``--seed``: the reference's ``load_model`` passes none, so a resumed
@@ -110,6 +114,7 @@ def load_model(weights_path, device, init_path: bool = False):
         regression_loss=cmd_args.get('regression_loss', 'mse'),
         silent=not init_path,
         double=cmd_args.get('double', False),
-        device_cache=cmd_args.get('device_cache', 'auto'), **model_kwargs)
+        device_cache=cmd_args.get('device_cache', 'auto'), mesh=mesh,
+        **model_kwargs)
     trainer.load_weights(ckpt)
     return trainer, model_kwargs, cmd_args

@@ -52,7 +52,6 @@ from pointvs_tpu_torch.ops.graphnorm import (GraphNorm, _masked_graph_mean,
 from pointvs_tpu_torch.ops.prng import LUCID_SITES, lucid_site_key
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
 
-_ROADMAP = 'see ROADMAP.md, Queue 1'
 
 
 class GraphLayerNorm(nn.Module):
@@ -95,7 +94,7 @@ class LucidEGNNLayer(nn.Module):
                  dropout: float = 0.0, tanh: bool = True,
                  thin_mlps: bool = False, graphnorm: bool = False,
                  graphnorm_whole_batch: bool = False,
-                 node_final_act: bool = False):
+                 node_final_act: bool = False, batch_shard_axis=None):
         super().__init__()
         self.fourier_features = fourier_features
         self.soft_edge = soft_edge
@@ -119,7 +118,8 @@ class LucidEGNNLayer(nn.Module):
         if norm_coors and update_coors:   # the JAX layer's parameters
             self.coors_norm = CoorsNorm()
         width = k if thin_mlps else 2 * k
-        norm = (GraphNorm(width, whole_batch=graphnorm_whole_batch)
+        norm = (GraphNorm(width, whole_batch=graphnorm_whole_batch,
+                          batch_axis=batch_shard_axis)
                 if graphnorm else nn.Identity())
         last = nn.SiLU() if node_final_act else nn.Identity()
         if thin_mlps:
@@ -208,7 +208,7 @@ class LucidEGNN(nn.Module):
                  graphnorm_whole_batch: bool = False,
                  thin_mlps: bool = False, node_final_act: bool = False,
                  model_task: str = 'classification',
-                 edge_shard_axis: str | None = None,
+                 edge_shard_axis=None, batch_shard_axis=None,
                  scan_layers: bool = False):
         super().__init__()
         # scan_layers changes the JAX parameter layout (models/params.py
@@ -216,10 +216,8 @@ class LucidEGNN(nn.Module):
         # change the network.
         del model_task
         self.scan_layers = scan_layers
-        if edge_shard_axis is not None:
-            raise NotImplementedError(
-                f'edge_shard_axis is not in the port yet (scale-out; '
-                f'{_ROADMAP})')
+        # Scale-out process groups (see models/egnn.py).
+        self.edge_shard_axis = edge_shard_axis
         self.num_layers = num_layers
         self.dropout = dropout
         self.layers = nn.ModuleList([LucidEmbedding(dim_input, k)] + [
@@ -230,7 +228,8 @@ class LucidEGNN(nn.Module):
                 dropout=dropout, tanh=tanh, thin_mlps=thin_mlps,
                 graphnorm=graphnorm,
                 graphnorm_whole_batch=graphnorm_whole_batch,
-                node_final_act=node_final_act)
+                node_final_act=node_final_act,
+                batch_shard_axis=batch_shard_axis)
             for _ in range(num_layers)])
         self.feats_linear_layers = nn.Sequential(
             XavierNormalLinear(k, dim_output))
@@ -255,7 +254,8 @@ class LucidEGNN(nn.Module):
         agg = EdgeAggregator(batch.senders, batch.receivers,
                              batch.edge_mask, num_nodes=h.shape[0],
                              recv_perm=batch.recv_perm,
-                             inv_recv_perm=batch.inv_recv_perm)
+                             inv_recv_perm=batch.inv_recv_perm,
+                             axis=self.edge_shard_axis)
         num_graphs = batch.graph_mask.shape[0]
         layers = []
         for i, layer in enumerate(self.layers[1:]):

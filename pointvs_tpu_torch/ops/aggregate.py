@@ -12,10 +12,25 @@ whose gradient splits ties 0.5/0.5 like ``jnp.maximum``
 the aggregator is built, and those of ``receivers_sorted`` at their first
 use (a gather whose backward sums over them, or a sum to the receivers);
 every kernel launch takes them.
+
+Edge-parallel ("graph-sharded") aggregation, the reference's
+``axis_name``: with ``axis`` a ``torch.distributed`` process group, the
+edge list is this rank's shard of one batch's edges and the node arrays
+are replicated over the group. Every aggregation then sums its partial
+node sums over the group (``_psum``, an all-reduce whose backward is an
+all-reduce, the transpose of ``psum``), and a softmax's per-node max is
+an all-reduce MAX without gradient (the reference stops the gradient
+through the shift). Sharded, the aggregator ignores ``inv_recv_perm``
+(shards break the edge list's symmetry) and never uses K2, as the
+reference takes its Pallas path only when ``axis_name`` is None: the
+softmax runs masked segment max, all-reduce MAX, exp, the packed
+``[expd * m | trans | expd | mask]`` sum through K1 and an all-reduce SUM,
+and the sigmoid, sum and mean aggregations each one K1 and one all-reduce.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from pointvs_tpu_torch.ops import segment_kernels
 from pointvs_tpu_torch.ops.sorted_segment import (
@@ -201,27 +216,62 @@ class _SegmentSumToDst(torch.autograd.Function):
                 None, None, None)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the backward sums the cotangents over the
+    group too (``psum`` transposes to ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of ``x`` over ``group``."""
+    return _AllReduceSum.apply(x, group)
+
+
 class EdgeAggregator:
-    """Bound to one batch's edge layout; holds no model parameters."""
+    """Bound to one batch's edge layout; holds no model parameters. With
+    ``axis`` (a process group) the edges are this rank's shard."""
 
     def __init__(self, senders: torch.Tensor, receivers: torch.Tensor,
                  edge_mask: torch.Tensor | None, num_nodes: int,
                  recv_perm: torch.Tensor | None = None,
-                 inv_recv_perm: torch.Tensor | None = None):
+                 inv_recv_perm: torch.Tensor | None = None, axis=None):
         self.senders = senders
         self.receivers = receivers
         self.edge_mask = edge_mask
         self.num_nodes = num_nodes
+        self.axis = axis
         if recv_perm is None:
             recv_perm = torch.argsort(receivers, stable=True)
         self.recv_perm = recv_perm.long()
         self.receivers_sorted = receivers.index_select(0, self.recv_perm)
         # Present only for verified-symmetric edge lists: then
-        # h[receivers] == h[senders][inv_recv_perm].
-        self.inv_recv_perm = inv_recv_perm
+        # h[receivers] == h[senders][inv_recv_perm]. Shards are not
+        # symmetric (an edge's pair may lie on another rank).
+        self.inv_recv_perm = inv_recv_perm if axis is None else None
         self.src_offsets = segment_kernels.segment_offsets(senders,
                                                            num_nodes)
         self.dst_offsets = None   # receivers_sorted's, found when needed
+
+    def _psum(self, x):
+        return x if self.axis is None else all_reduce_sum(x, self.axis)
+
+    def _pmax(self, x):
+        """Per-node max over the group's shards, without gradient."""
+        if self.axis is None:
+            return x
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.axis)
+        return x
 
     def receiver_offsets(self) -> torch.Tensor:
         """``dst_offsets``, the row offsets of ``receivers_sorted``: found
@@ -263,31 +313,59 @@ class EdgeAggregator:
         return data * (mask[:, None] if data.dim() > 1 else mask)
 
     def sum_to_src(self, data, mask=None):
-        return windowed_segment_sum(self._masked(data, mask), self.senders,
-                                    self.num_nodes, self.src_offsets)
+        return self._psum(windowed_segment_sum(
+            self._masked(data, mask), self.senders, self.num_nodes,
+            self.src_offsets))
 
-    def _fused(self, fn, edge_feat, logits, trans, mask):
+    def _flat_mask(self, edge_feat, logits, mask):
+        """(logits as [E], the edge mask in the features' dtype)."""
         mask = self._mask(mask)
         flat = logits[:, 0] if (logits.dim() == 2
                                 and logits.shape[-1] == 1) else logits
         if mask is None:
             mask = torch.ones_like(flat)
-        return fn.apply(edge_feat, flat, trans.to(edge_feat.dtype),
-                        mask.to(edge_feat.dtype), self.senders,
-                        self.num_nodes, self.src_offsets)
+        return flat, mask.to(edge_feat.dtype)
+
+    def _fused(self, fn, edge_feat, logits, trans, mask):
+        flat, mask = self._flat_mask(edge_feat, logits, mask)
+        return fn.apply(edge_feat, flat, trans.to(edge_feat.dtype), mask,
+                        self.senders, self.num_nodes, self.src_offsets)
 
     def fused_softmax_aggregate(self, edge_feat, logits, trans, mask=None):
         """(sum_e softmax_e * feat_e, mean_e trans_e) per destination.
 
         sum softmax*m == (sum expd*m) / (sum expd): the normalised per-edge
         attention is never formed. Division as the reference's ``_fsp_fwd``.
+        Sharded: the reference's composable form, through K1.
         """
-        return self._fused(_FusedSoftmax, edge_feat, logits, trans, mask)
+        if self.axis is None:
+            return self._fused(_FusedSoftmax, edge_feat, logits, trans, mask)
+        flat, mask = self._flat_mask(edge_feat, logits, mask)
+        k = edge_feat.shape[1]
+        guarded = torch.where(mask > 0, flat, flat.new_tensor(-1e30))
+        seg_max = self._pmax(windowed_segment_max(guarded, self.senders,
+                                                  self.num_nodes))
+        seg_max = torch.where(seg_max > -1e29, seg_max, seg_max.new_zeros(()))
+        shift = seg_max[self.senders.clamp(max=self.num_nodes - 1)]
+        expd = torch.exp(flat - shift) * mask
+        packed = torch.cat([edge_feat * expd[:, None],
+                            trans.to(edge_feat.dtype) * mask[:, None],
+                            expd[:, None], mask[:, None]], dim=1)
+        out = self._psum(windowed_segment_sum(
+            packed, self.senders, self.num_nodes, self.src_offsets))
+        denom = torch.maximum(out[:, k + 3:k + 4], out.new_tensor(1e-16))
+        counts = torch.maximum(out[:, k + 4:k + 5], out.new_tensor(1.0))
+        return out[:, :k] / denom, out[:, k:k + 3] / counts
 
     def fused_sigmoid_aggregate(self, edge_feat, logits, trans, mask=None):
         """(sum sigmoid(logits)*feat, mean trans) per destination; division
-        as the reference's ``_fsg_fwd``."""
-        return self._fused(_FusedSigmoid, edge_feat, logits, trans, mask)
+        as the reference's ``_fsg_fwd``. Sharded: the sigmoid-weighted
+        messages through ``fused_sum_mean_to_src`` (one K1)."""
+        if self.axis is None:
+            return self._fused(_FusedSigmoid, edge_feat, logits, trans, mask)
+        flat, _ = self._flat_mask(edge_feat, logits, mask)
+        return self.fused_sum_mean_to_src(
+            torch.sigmoid(flat)[:, None] * edge_feat, trans, mask=mask)
 
     def fused_sum_mean_to_src(self, messages, trans, mask=None):
         """(segment_sum(messages), segment_mean(trans)) in one kernel launch
@@ -299,8 +377,8 @@ class EdgeAggregator:
         packed = torch.cat([self._masked(messages, mask),
                             self._masked(trans.to(messages.dtype), mask),
                             ones], dim=1)
-        out = windowed_segment_sum(packed, self.senders, self.num_nodes,
-                                   self.src_offsets)
+        out = self._psum(windowed_segment_sum(
+            packed, self.senders, self.num_nodes, self.src_offsets))
         counts = torch.maximum(out[:, k + 3:k + 4], out.new_tensor(1.0))
         return out[:, :k], out[:, k:k + 3] / counts
 
@@ -312,8 +390,19 @@ class EdgeAggregator:
         cols = data[:, None] if squeeze else data
         mask = (cols.new_ones(cols.shape[0]) if mask is None
                 else mask.to(cols.dtype))
-        mean = _SegmentMean.apply(cols, mask, ids, perm, sorted_ids,
-                                  self.num_nodes, offsets)
+        if self.axis is None:
+            mean = _SegmentMean.apply(cols, mask, ids, perm, sorted_ids,
+                                      self.num_nodes, offsets)
+        else:
+            # The shards' sums and counts are summed before the division.
+            k = cols.shape[1]
+            packed = torch.cat([cols * mask[:, None], mask[:, None]], dim=1)
+            if perm is not None:
+                packed = packed.index_select(0, perm)
+            out = self._psum(windowed_segment_sum(
+                packed, sorted_ids, self.num_nodes, offsets))
+            mean = out[:, :k] / torch.maximum(out[:, k:],
+                                              out.new_tensor(1.0))
         return mean[:, 0] if squeeze else mean
 
     def mean_to_src(self, data, mask=None):
@@ -334,14 +423,15 @@ class EdgeAggregator:
         col_mask = None if mask is None else mask.to(flat.dtype)[:, None]
         guarded = (torch.where(col_mask > 0, flat, flat.new_tensor(-1e30))
                    if mask is not None else flat)
-        seg_max = windowed_segment_max(guarded, self.senders, self.num_nodes)
+        seg_max = self._pmax(windowed_segment_max(guarded, self.senders,
+                                                  self.num_nodes))
         seg_max = torch.where(seg_max > -1e29, seg_max, seg_max.new_zeros(()))
         shift = seg_max[self.senders.clamp(max=self.num_nodes - 1)]
         expd = torch.exp(flat - shift)
         if mask is not None:
             expd = expd * col_mask
-        denom = windowed_segment_sum(expd, self.senders, self.num_nodes,
-                                     self.src_offsets)
+        denom = self._psum(windowed_segment_sum(
+            expd, self.senders, self.num_nodes, self.src_offsets))
         denom_e = gather_by_sorted_ids(
             torch.maximum(denom, denom.new_tensor(1e-16)), self.senders,
             self.num_nodes, self.src_offsets)
@@ -354,10 +444,10 @@ class EdgeAggregator:
         ``receivers_sorted``."""
         squeeze = data.dim() == 1
         data = self._masked(data, mask)
-        out = _SegmentSumToDst.apply(
+        out = self._psum(_SegmentSumToDst.apply(
             data[:, None] if squeeze else data, self.receivers,
             self.recv_perm, self.receivers_sorted, self.num_nodes,
-            self.receiver_offsets())
+            self.receiver_offsets()))
         return out[:, 0] if squeeze else out
 
     def mean_to_dst(self, data, mask=None):

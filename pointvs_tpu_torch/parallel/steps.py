@@ -1,11 +1,26 @@
-"""Single-device train and eval steps.
+"""Train and eval steps, on one device or one rank of a mesh.
 
 Counterpart of ``pointvs_tpu/parallel/steps.py`` (``make_train_step``,
-``make_eval_step``) on one device. The loss is ``loss_sum / max(weight,
-1)``, so the gradient equals the reference's psum'd gradient divided by the
-global weight; the optimiser then clips by value, adds the coupled weight
-decay and steps at the learning rate the caller passes in (computed on the
-host from a schedule, as the reference passes it into its step).
+``make_eval_step``) and of the steps of ``parallel/graph_shard.py``. On
+one device the loss is ``loss_sum / max(weight, 1)``, so the gradient
+equals the reference's psum'd gradient divided by the global weight; the
+optimiser then clips by value, adds the coupled weight decay and steps at
+the learning rate the caller passes in (computed on the host from a
+schedule, as the reference passes it into its step).
+
+On a rank of a distributed ``Mesh`` (``parallel/mesh.py``) the training
+step is the reference's SPMD step from one rank's view: the gradient of
+the rank's local ``loss_sum``, then one all-reduce (SUM over every rank)
+of the flattened gradients with ``loss_sum``, ``weight`` and the four
+metric sums, each scaled by ``1 / n_gp`` first. Over a gp row that is the
+reference's ``pmean`` (an edge-path gradient is n_gp times its partial,
+a node-path gradient is already the full one; both average to the full
+graph's gradient), over the dp rows its ``psum``. The gradients are then
+divided by ``max(weight, 1)`` and the optimiser steps, on every rank
+alike. The caller folds the rank's index into the dropout key (the
+reference's ``fold_in(key, axis_index)``); the model's own groups
+(``edge_shard_axis``, ``batch_shard_axis``) reduce inside the forward.
+On a GPU the all-reduce is timed by CUDA events (``step.allreduce_ms``).
 
 Both steps take any of the model inputs (``GraphBatch``, ``SiamesePair``,
 ``DenseBatch``); the loss and metrics read ``batch.y`` and
@@ -22,14 +37,15 @@ the store's device (``device_dataset.collate_from_ids``) and, in a
 training step whose ``spec.rotate`` is set, rotates each graph under
 ``rot_key`` (the reference's ``fold_in(step rng, 0x526f7461)``), then
 runs the same module or fused core. Evaluation never rotates. The
-reference's wire and packed batch forms and its ('dp',) mesh are not in
-the port yet (ROADMAP.md, Queue 1).
+reference's wire and packed batch forms are not in the port (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from pointvs_tpu_torch.data.buckets import cast_floats
 from pointvs_tpu_torch.fused_train import fused_apply
@@ -95,11 +111,28 @@ def _model_input(model) -> Callable:
     return lambda batch: batch
 
 
+def _reduce_over_mesh(mesh, params, stats: torch.Tensor) -> torch.Tensor:
+    """One all-reduce (SUM over every rank) of the parameters' gradients
+    and ``stats``, each scaled by 1 / n_gp (gp mean, dp sum); the
+    gradients are written back in place. Returns the reduced ``stats``."""
+    scale = 1.0 / mesh.n_gp
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [stats])
+    if scale != 1.0:
+        flat = flat * scale
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+    return flat[offset:]
+
+
 def make_train_step(model, optimiser: torch.optim.Optimizer,
                     model_task: str, regression_loss: str = 'mse',
                     with_metrics: bool = False,
                     use_fused: bool = False,
-                    multitask: bool = False) -> Callable:
+                    multitask: bool = False, mesh=None) -> Callable:
     """Returns ``step(batch, lr, dropout_rng=None, rot_key=None)``: one
     optimiser step on a batch of tensors on the model's device (or an ids
     batch, collated there and rotated under ``rot_key``), with the model's
@@ -113,10 +146,15 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
     (kernels K3 forward, K4 backward), which computes the same function as
     the module forward for the configurations it supports. A
     ``multitask`` model is given ``task=model_task``, which picks its head.
+    With a distributed ``mesh`` the step reduces over its ranks (see the
+    module's docstring) and returns the global loss on every rank.
     """
     apply_kwargs = {'task': model_task} if multitask else {}
     model_input = _model_input(model)
     to_f32 = _is_double(model)
+    distributed = mesh is not None and mesh.distributed
+    params = [p for group in optimiser.param_groups for p in group['params']]
+    allreduce_events = []
 
     def forward(batch, dropout_rng):
         if use_fused:   # fused configurations have no dropout
@@ -131,19 +169,50 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
         logits = forward(batch, dropout_rng)
         loss_sum, weight = loss_fn(logits, batch, model_task,
                                    regression_loss)
-        loss = loss_sum / torch.clamp_min(weight, 1.0)
         optimiser.zero_grad(set_to_none=True)
-        loss.backward()
+        metrics = (pred_metrics(logits.detach(), batch, model_task)
+                   if with_metrics else None)
+        if distributed:
+            loss_sum.backward()
+            for p in params:   # the reference's zero gradients
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            stats = torch.stack([loss_sum.detach(), weight.detach()])
+            if metrics is not None:
+                stats = torch.cat([stats, metrics])
+            timed = stats.device.type == 'cuda'
+            if timed:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            stats = _reduce_over_mesh(mesh, params, stats.to(
+                params[0].grad.dtype))
+            if timed:
+                events[1].record()
+                allreduce_events.append(events)
+            weight = torch.clamp_min(stats[1], 1.0)
+            for p in params:
+                p.grad.div_(weight)
+            loss = stats[0] / weight
+            metrics = stats[2:] if metrics is not None else None
+        else:
+            loss = loss_sum / torch.clamp_min(weight, 1.0)
+            loss.backward()
         if to_f32:
             lr = float(torch.tensor(lr, dtype=torch.float32))
         clip_and_step(optimiser, lr)
         out = loss.detach()
-        if with_metrics:
-            out = torch.cat([out[None],
-                             pred_metrics(logits.detach(), batch,
-                                          model_task)])
+        if metrics is not None:
+            out = torch.cat([out[None], metrics.to(out.dtype)])
         return out
 
+    def allreduce_ms() -> list:
+        """Each GPU step's all-reduce time by its CUDA events, in order."""
+        if allreduce_events:
+            torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in allreduce_events]
+
+    step.allreduce_ms = allreduce_ms
     return step
 
 

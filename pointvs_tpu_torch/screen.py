@@ -44,9 +44,21 @@ the output. A run trained with ``--include_strain_info`` is scored with
 dE = 0, as the reference's screen scores it (its loader carries no strain
 column; ROADMAP.md, Queue 3).
 
+``--num_devices D`` (the reference's ``_auto_num_devices``: at most the
+visible cards, a divisor of the batch size, and here at most the
+library's size) screens on D spawned ranks (``parallel/launch.py``): rank
+r featurises and scores the stripe ``library[r::D]`` of the size-sorted
+library at ``batch_size / D`` poses a batch, so that the ranks' batch j
+together are one device's batch j, and every rank makes as many eval
+calls as the longest stripe needs (a whole-batch GraphNorm statistic
+sums over the ranks in each). The ranks agree on the path (any rank's
+store past the budget chunks them all); rank 0 gathers every rank's
+rows, restores library order, and writes the CSV, the manifest and the
+top hits' attributions one device writes.
+
 Refused by name, as a missing feature (``NotImplementedError`` naming
-ROADMAP.md): ``--num_devices`` above 1 (data parallelism) and
-``POINTVS_SCREEN_CHUNK_RAW=0`` (the symmetric-half chunk codec). Refused
+ROADMAP.md): ``POINTVS_SCREEN_CHUNK_RAW=0`` (the symmetric-half chunk
+codec). Refused
 as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
 and dense layouts. The reference's grouped, scanned and one-shot scoring
@@ -58,7 +70,7 @@ Usage:
     python -m pointvs_tpu_torch.screen <run_dir> <receptor.parquet> \\
         <ligand_dir_or_glob> --output hits.csv --batch_size 256 \\
         [--attribute_top N --attribution atom_masking] [--cache_dir DIR] \\
-        [--device cuda|cpu]
+        [--num_devices D] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -67,12 +79,14 @@ import csv
 import glob
 import hashlib
 import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointvs_tpu_torch.data.buckets import pick_bucket, to_device
 from pointvs_tpu_torch.data.device_dataset import (
@@ -81,8 +95,11 @@ from pointvs_tpu_torch.data.device_dataset import (
     save_host_store, upload_chunk)
 from pointvs_tpu_torch.data.loader import BatchMeta, get_data_loader
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
+from pointvs_tpu_torch.inference import _auto_num_devices
 from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.models.registry import model_input_kind
+from pointvs_tpu_torch.parallel.launch import spawn
+from pointvs_tpu_torch.parallel.mesh import Mesh
 from pointvs_tpu_torch.parallel.steps import is_ids_batch, make_eval_step
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
@@ -211,11 +228,21 @@ def _budget_batches(host, lo: int, hi: int, n_bud: int, e_bud: int,
     return spans
 
 
+def _agreed_max(mesh: Mesh, value: int, device) -> int:
+    """The largest ``value`` over the mesh's ranks."""
+    if not mesh.distributed:
+        return value
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
+
+
 def _score_chunked(host, chunk_budget: float, eval_fn, device,
-                   batch_size: int):
+                   batch_size: int, mesh: Mesh):
     """Score the library through device-resident chunks: pack a range of
     items on the host, upload and expand it on the device, score its
-    budget batches. Returns (logits, metas) in library order."""
+    budget batches (on a mesh, padded with empty ones to the most any
+    rank has). Returns (logits, metas) in library order."""
     ranges, cspec = plan_chunks(host, chunk_budget)
     LOG.info(f'Chunked screen: {len(ranges)} chunks of <= {cspec.items} '
              f'poses ({cspec.n_fix} nodes x {cspec.eh_fix} edge slots)')
@@ -236,6 +263,7 @@ def _score_chunked(host, chunk_budget: float, eval_fn, device,
     LOG.info(f'Chunked screen: {sum(map(len, spans.values()))} budget '
              f'batches of <= {num_graphs} poses ({n_bud} nodes x {e_bud} '
              f'edges)')
+    calls = _agreed_max(mesh, sum(map(len, spans.values())), device)
     logits, metas = [], []
     for lo, hi in ranges:
         arrays = expand_chunk(upload_chunk(pack_chunk(host, lo, hi, cspec),
@@ -248,6 +276,9 @@ def _score_chunked(host, chunk_budget: float, eval_fn, device,
             metas.append(BatchMeta(host.lig_fnames[b_lo:b_hi],
                                    host.rec_fnames[b_lo:b_hi], None,
                                    graph_mask))
+    for _ in range(calls - len(logits)):
+        eval_fn(('ids', np.full((1, num_graphs), -1, np.int32), arrays,
+                 spec))
     return logits, metas
 
 
@@ -260,16 +291,12 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     """Score every ligand against ``receptor`` and write the ranked CSV
     (and the top hits' attributions). ``radius``, ``edge_radius`` and
     ``estimate_bonds`` apply where the run's ``cmd_args.yaml`` does not
-    set them."""
+    set them. Spawned over ``num_devices`` ranks, rank 0's result."""
     from pointvs_tpu_torch.attribution.attribution_fns import \
         ATTRIBUTION_FNS
     if attribute_top > 0 and attribution not in ATTRIBUTION_FNS:
         raise ValueError(f'--attribution must be one of '
                          f'{sorted(ATTRIBUTION_FNS)}')
-    if num_devices not in (None, 1):
-        raise NotImplementedError(
-            f'--num_devices {num_devices}: data parallelism is not in the '
-            f'port yet (see ROADMAP.md, Queue 1, item 7)')
     if os.environ.get('POINTVS_SCREEN_CHUNK_RAW', '1') != '1':
         raise NotImplementedError(
             'POINTVS_SCREEN_CHUNK_RAW=0: the symmetric-half chunk codec is '
@@ -280,26 +307,65 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     torch_device = resolve_device(device)
     start = time.perf_counter()
 
-    receptor = expand_path(receptor)
     lig_files = _collect_ligands(ligands)
     if not lig_files:
         raise SystemExit(f'No ligand files found under {ligands}')
-    LOG.info(f'Screening {len(lig_files)} ligands against {receptor.name}')
     # Size-sorted (a stat, not a parquet read, per file): batches of
     # similar poses waste less padding under the one pinned bucket.
     lig_files = sorted(lig_files, key=_file_size)
-    output = Path(output)
-    manifest = output.with_suffix('.types')
-    mkdir(output.parent if output.parent != Path('') else '.')
-    manifest.write_text(''.join(f'{receptor} {lig}\n' for lig in lig_files))
+    job = dict(model_path=model_path, receptor=expand_path(receptor),
+               lig_files=lig_files, output=Path(output),
+               batch_size=batch_size, radius=radius,
+               edge_radius=edge_radius, estimate_bonds=estimate_bonds,
+               attribute_top=attribute_top, attribution=attribution,
+               cache_dir=cache_dir, start=start)
+    world = min(_auto_num_devices(batch_size, device, num_devices),
+                len(lig_files))
+    if world > 1:
+        return spawn(_screen_rank, world, device, job,
+                     report=_screen_report)[0]
+    return _screen_rank(torch_device, job)
 
-    trainer, model_kwargs, cmd_args = load_model(model_path, torch_device)
+
+def _screen_report(result: ScreenResult) -> ScreenResult:
+    """A spawned rank's report: its result as it is."""
+    return result
+
+
+def _screen_rank(torch_device, job: dict) -> ScreenResult:
+    """The screen on one rank (or the one device): featurise and score
+    this rank's stripe of the library; rank 0 writes the outputs."""
+    from pointvs_tpu_torch.attribution.attribution_fns import \
+        ATTRIBUTION_FNS
+    mesh = Mesh()
+    receptor, output = job['receptor'], job['output']
+    radius, edge_radius = job['radius'], job['edge_radius']
+    estimate_bonds = job['estimate_bonds']
+    lig_files = job['lig_files']
+    stripe = lig_files[mesh.dp_rank::mesh.n_dp]
+    batch_size = job['batch_size'] // mesh.n_dp
+    manifest = output.with_suffix('.types')
+    if mesh.chief:
+        LOG.info(f'Screening {len(lig_files)} ligands against '
+                 f'{receptor.name}')
+        mkdir(output.parent if output.parent != Path('') else '.')
+        manifest.write_text(''.join(f'{receptor} {lig}\n'
+                                    for lig in lig_files))
+    # A rank reads its own stripe's manifest.
+    rank_manifest = manifest
+    if mesh.distributed:
+        rank_manifest = Path(tempfile.mkdtemp()) / 'stripe.types'
+        rank_manifest.write_text(''.join(f'{receptor} {lig}\n'
+                                         for lig in stripe))
+
+    trainer, model_kwargs, cmd_args = load_model(job['model_path'],
+                                                 torch_device, mesh=mesh)
     task = model_kwargs.get('model_task', 'classification')
     trainer.set_task('classification' if task == 'both' else task)
     loaded = time.perf_counter()
 
     loader = get_data_loader(
-        '/', manifest, batch_size=batch_size,
+        '/', rank_manifest, batch_size=batch_size,
         compact=cmd_args.get('compact', True),
         radius=cmd_args.get('radius', radius),
         use_atomic_numbers=cmd_args.get('use_atomic_numbers', False),
@@ -307,15 +373,15 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
         mode='val', model_task=trainer.model_task,
         edge_radius=cmd_args.get('edge_radius', edge_radius),
         estimate_bonds=cmd_args.get('estimate_bonds', estimate_bonds),
-        prune=cmd_args.get('prune', False), cache_dir=cache_dir)
+        prune=cmd_args.get('prune', False), cache_dir=job['cache_dir'])
 
     dataset = loader.dataset
     host = None
     if os.environ.get('POINTVS_SCREEN_DEVICE', '1') == '1':
         store_path = None
-        if cache_dir is not None:
+        if job['cache_dir'] is not None:
             store_path = _store_cache_path(
-                cache_dir, manifest, receptor, lig_files, cmd_args,
+                job['cache_dir'], rank_manifest, receptor, stripe, cmd_args,
                 dict(radius=radius, edge_radius=edge_radius,
                      estimate_bonds=estimate_bonds))
         host = _host_store(dataset, store_path)
@@ -349,7 +415,9 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     if host is not None:
         budget = float(os.environ.get('POINTVS_DD_BUDGET_MB', '2048')) * 1e6
         chunk_mb = float(os.environ.get('POINTVS_SCREEN_CHUNK_MB', '0'))
-        if host.nbytes <= budget and not chunk_mb:
+        chunked = _agreed_max(mesh, int(host.nbytes > budget
+                                        or bool(chunk_mb)), torch_device)
+        if not chunked:
             loader.enable_device_dataset(DeviceGraphStore(host,
                                                           torch_device))
             path = 'resident'
@@ -357,7 +425,8 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
             path = 'chunked'
     if path == 'chunked':
         logits, metas = _score_chunked(host, chunk_mb * 1e6 or budget,
-                                       eval_fn, torch_device, batch_size)
+                                       eval_fn, torch_device, batch_size,
+                                       mesh)
     else:
         logits, metas = [], []
         for batch, meta in loader:
@@ -365,6 +434,14 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
                 batch = to_device(batch, torch_device)
             logits.append(eval_fn(batch))
             metas.append(meta)
+        # The longest stripe's calls on every rank: a shorter stripe
+        # scores one more batch without a pose.
+        calls = -(-(-(-len(lig_files) // mesh.n_dp)) // batch_size)
+        for _ in range(calls - len(logits)):
+            if is_ids_batch(batch):
+                eval_fn(('ids', np.full_like(batch[1], -1)) + batch[2:])
+            else:
+                eval_fn(to_device(loader.placeholder(), torch_device))
     # One copy back, after every batch is dispatched.
     drained = torch.stack(logits).float().cpu().numpy()
     rows = []
@@ -376,26 +453,36 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
             scores = scores.mean(axis=1)
         rows += [{'ligand': lig, 'score': float(score)}
                  for lig, score in zip(meta.lig_fnames, scores)]
+    if mesh.distributed:
+        # Library order again: rank r's k-th row is pose r + k * D.
+        gathered = [None] * mesh.world
+        dist.all_gather_object(gathered, rows)
+        rows = [None] * len(lig_files)
+        for r, part in enumerate(gathered):
+            rows[r::mesh.world] = part
     scored = time.perf_counter()
 
     rows.sort(key=lambda r: -r['score'])
     for rank, row in enumerate(rows, start=1):
         row['rank'] = rank
-    with open(output, 'w', newline='', encoding='utf-8') as f:
-        writer = csv.DictWriter(f, fieldnames=('ligand', 'score', 'rank'))
-        writer.writeheader()
-        writer.writerows(rows)
+    if mesh.chief:
+        with open(output, 'w', newline='', encoding='utf-8') as f:
+            writer = csv.DictWriter(f, fieldnames=('ligand', 'score',
+                                                   'rank'))
+            writer.writeheader()
+            writer.writerows(rows)
     end = time.perf_counter()
     result = ScreenResult(rows, {
-        'load': loaded - start, 'featurise': featurised - loaded,
-        'score': scored - featurised, 'total': end - start}, path)
+        'load': loaded - job['start'], 'featurise': featurised - loaded,
+        'score': scored - featurised, 'total': end - job['start']}, path)
     LOG.info(f'Scored {len(rows)} poses ({path}) in '
              f'{result.seconds["total"]:.1f}s ({result.poses_per_second:.0f} '
              f'poses/s end to end); ranked results written to {output}')
-    if attribute_top > 0:
-        _attribute_top_hits(trainer, receptor, rows[:attribute_top],
-                            ATTRIBUTION_FNS[attribution], attribution,
-                            output, cmd_args.get('radius', radius),
+    if job['attribute_top'] > 0 and mesh.chief:
+        _attribute_top_hits(trainer, receptor, rows[:job['attribute_top']],
+                            ATTRIBUTION_FNS[job['attribution']],
+                            job['attribution'], output,
+                            cmd_args.get('radius', radius),
                             cmd_args.get('edge_radius', edge_radius))
         result.seconds['attribute'] = time.perf_counter() - end
     return result

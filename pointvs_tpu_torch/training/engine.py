@@ -1,4 +1,4 @@
-"""Trainer: training, checkpoints and scoring on one device.
+"""Trainer: training, checkpoints and scoring, on one device or one rank.
 
 Counterpart of ``pointvs_tpu/training/engine.py``: ``set_task``,
 ``training_setup``, ``train_model`` (epoch/batch loop, the learning rate
@@ -48,6 +48,23 @@ cannot serve (another layout, an ineligible dataset);
 rotation moves into the step, keyed by the step's JAX key
 (``device_dataset.rotate_per_graph``).
 
+Scale-out (``mesh``; the reference's ``num_devices`` and
+``graph_shard``): in a process group (``parallel/launch.py``) the Trainer
+is one rank of a ``Mesh`` of ``n_dp`` data-parallel rows by ``n_gp``
+edge shards. Every rank builds the model from the same seed and takes rank 0's
+parameters (``mesh.replicate``); the model's aggregations sum over the
+rank's gp group (``edge_shard_axis``), and under ``graphnorm_whole_batch``
+its strict GraphNorm over the dp group (``batch_shard_axis``), both kept
+out of ``model_kwargs.yaml`` and the checkpoints, so a sharded run loads
+on one device. The steps reduce over the mesh (``parallel/steps.py``)
+with the dropout key folded with the dp rank. Rank 0 alone writes the
+checkpoints, ``model_kwargs.yaml``, ``metrics.jsonl`` and the
+predictions files; ``val`` gathers every rank's scored rows to it and
+writes each global batch's rows in dataset order, as one device writes
+them. The fused path (``fused_training``) runs per rank without graph
+sharding; the device-resident dataset is off under graph sharding.
+``allreduce_ms`` holds each step's gradient all-reduce time on a GPU.
+
 ``train_model`` takes any loader that yields ``(batch, meta)`` and has a
 ``len()``; the batch is the model's input kind (``input_kind``: a
 ``GraphBatch``, a ``SiamesePair`` or a ``DenseBatch``), whose ``y`` and
@@ -60,10 +77,12 @@ import math
 import os
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointvs_tpu_torch.analysis.top_n import regression_pearson, top_n
 from pointvs_tpu_torch.data.buckets import to_device
@@ -73,6 +92,7 @@ from pointvs_tpu_torch.models.registry import build_model, \
     model_input_kind
 from pointvs_tpu_torch.data.device_dataset import rotation_key
 from pointvs_tpu_torch.ops.prng import step_key
+from pointvs_tpu_torch.parallel.mesh import Mesh, replicate
 from pointvs_tpu_torch.parallel.steps import is_ids_batch, \
     make_eval_step, make_train_step
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
@@ -96,6 +116,29 @@ def _slots(batch) -> int:
     return batch.graph_mask.shape[0]
 
 
+def _merge_rows(parts):
+    """One global batch from its dp rows' (items, logits, y_true, recs,
+    ligs): (logits, y_true, meta), in the order of the dataset indices
+    where every row knows them."""
+    logits = np.concatenate([p[1] for p in parts])
+    y_true = np.concatenate([p[2] for p in parts])
+    recs = [name for p in parts for name in p[3]]
+    ligs = [name for p in parts for name in p[4]]
+    if len(parts) > 1 and all(p[0] is not None for p in parts):
+        order = np.argsort(np.concatenate([np.asarray(p[0], np.int64)
+                                           for p in parts]), kind='stable')
+        logits, y_true = logits[order], y_true[order]
+        recs, ligs = [recs[i] for i in order], [ligs[i] for i in order]
+    return logits, y_true, SimpleNamespace(rec_fnames=recs, lig_fnames=ligs)
+
+
+class _NullLogger:
+    """The records of a rank other than 0: none."""
+
+    def log(self, record):
+        del record
+
+
 class Trainer:
     """Owns a model and its optimiser on ``device``; trains and scores."""
 
@@ -111,14 +154,23 @@ class Trainer:
                  wandb_run: Optional[str] = None, wandb_dir=None,
                  silent: bool = False, profile: bool = False,
                  num_devices: Optional[int] = None, double: bool = False,
-                 device_cache: str = 'auto', **model_kwargs):
+                 device_cache: str = 'auto', mesh: Optional[Mesh] = None,
+                 **model_kwargs):
         if use_1cycle and warm_restarts:
             raise ValueError('1cycle and warm restarts are mutually '
                              'exclusive')
-        if num_devices not in (None, 1):
-            raise NotImplementedError(
-                f'num_devices={num_devices}: data parallelism is not in the '
-                f'port yet (see ROADMAP.md, Queue 1)')
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.graph_shard = self.mesh.n_gp
+        self.num_devices = self.mesh.world
+        if num_devices not in (None, self.num_devices):
+            raise ValueError(
+                f'num_devices={num_devices} but this process group has '
+                f'{self.num_devices} rank(s): the CLIs start one process '
+                f'per rank (parallel/launch.py)')
+        if self.graph_shard > 1 and fused_training:
+            raise ValueError('fused_training runs whole edge passes per '
+                             'rank; it does not take graph_shard > 1')
+        silent = silent or not self.mesh.chief
         if double and device.type != 'cpu':
             raise ValueError('double=True (float64) runs on the CPU only, '
                              'as in the reference package')
@@ -150,11 +202,18 @@ class Trainer:
         self.multitask = model_name == 'multitask'
         # 'graph', 'pair' or 'dense': the batches the model takes.
         self.input_kind = model_input_kind(model_name)
-        self.model = build_model(model_name, **model_kwargs)
+        build_kwargs = dict(model_kwargs)
+        if self.mesh.edge_axis is not None:
+            build_kwargs['edge_shard_axis'] = self.mesh.edge_axis
+        if model_kwargs.get('graphnorm_whole_batch') \
+                and self.mesh.batch_axis is not None:
+            build_kwargs['batch_shard_axis'] = self.mesh.batch_axis
+        self.model = build_model(model_name, **build_kwargs)
         init_parameters(self.model, torch.Generator().manual_seed(seed))
         if double:
             self.model.double()
         self.model.to(device).eval()
+        replicate(self.mesh, self.model)
         self.optimiser = build_optimiser(self.model.parameters(), optimiser,
                                          weight_decay, learning_rate)
         self.seed = seed
@@ -169,16 +228,18 @@ class Trainer:
         self.train_losses: list = []
         self.epoch_seconds: list = []
         self._step_events: list = []
+        self._allreduce_ms: list = []
         # Raw scores of the last val() call, in predictions-file row order
         # (probabilities for classification, outputs otherwise).
         self.val_scores = np.zeros((0,), np.float32)
         if not silent:
             mkdir(self.save_path)
             save_yaml(self.model_kwargs, self.save_path / 'model_kwargs.yaml')
-        self.logger = MetricsLogger(
+        self.logger = (MetricsLogger(
             self.save_path, wandb_project=wandb_project, wandb_run=wandb_run,
             wandb_dir=wandb_dir, config={**self.model_kwargs,
                                          'model': model_name})
+            if self.mesh.chief else _NullLogger())
         if not silent:
             LOG.info(f'Model parameters: {self.param_count}')
         self.logger.log({'Parameters': self.param_count})
@@ -206,6 +267,11 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         return [a.elapsed_time(b) for a, b in self._step_events]
 
+    def allreduce_ms(self) -> list:
+        """Each GPU training step's gradient all-reduce time by its CUDA
+        events, in order (empty on one rank)."""
+        return list(self._allreduce_ms)
+
     def _to_device(self, batch):
         """A host batch on the Trainer's device; an ids batch as it is (its
         step collates it from the store on the store's device)."""
@@ -224,10 +290,11 @@ class Trainer:
             return
         demanded = self.device_cache == 'on'
         if not isinstance(loader, GraphDataLoader) or \
-                loader.layout != 'graph':
+                loader.layout != 'graph' or loader.graph_shard > 1 \
+                or self.graph_shard > 1:
             if demanded:
                 raise ValueError('--device_cache on requires the graph '
-                                 'layout')
+                                 'layout without graph sharding')
             return
         if loader.device_store is not None:
             return
@@ -320,7 +387,8 @@ class Trainer:
     def _profiler(self, epoch_idx, init_epoch, batch_idx, prof):
         """Start or stop the trace of the first epoch's window; returns
         the running profiler or None."""
-        if not self.profile or epoch_idx != init_epoch:
+        if not self.profile or epoch_idx != init_epoch \
+                or not self.mesh.chief:
             return prof
         if batch_idx == PROFILE_STEPS[0] and prof is None:
             from torch.profiler import ProfilerActivity, profile
@@ -355,7 +423,7 @@ class Trainer:
                                   self.model_task, self.regression_loss,
                                   with_metrics=True,
                                   use_fused=self.fused_training,
-                                  multitask=self.multitask)
+                                  multitask=self.multitask, mesh=self.mesh)
         timed = self.device.type == 'cuda'
         steps_per_epoch = len(data_loader)
         total_steps = max(1, (epochs - init_epoch) * steps_per_epoch)
@@ -368,7 +436,8 @@ class Trainer:
             for batch_idx, (batch, _) in enumerate(data_loader):
                 prof = self._profiler(epoch_idx, init_epoch, batch_idx, prof)
                 lr_now = self.scheduler(sched_step)
-                dropout_rng = step_key(self.seed, self.global_iter)
+                dropout_rng = step_key(self.seed, self.global_iter,
+                                       self.mesh.dp_rank)
                 rot_key = (rotation_key(self.seed, self.global_iter)
                            if is_ids_batch(batch) and batch[3].rotate
                            else None)
@@ -426,6 +495,7 @@ class Trainer:
                     'Augmented rotation fallbacks (cumulative)':
                         dataset.aug_fallbacks})
             self.on_epoch_end(epoch_end_validation_set, epochs, top1_on_end)
+        self._allreduce_ms += step_fn.allreduce_ms()
 
     def on_epoch_end(self, epoch_end_validation_set, epochs: int,
                      top1_on_end: bool):
@@ -447,13 +517,15 @@ class Trainer:
                 self.save()
 
     def save(self, save_path=None) -> Path:
-        """Write ``<save_path>/checkpoints/<task>_ckpt_epoch_<n>.pt``."""
+        """Write ``<save_path>/checkpoints/<task>_ckpt_epoch_<n>.pt`` (rank
+        0 alone; every rank holds the same state)."""
         path = (checkpoint_path(self.save_path, self.model_task_for_fnames,
                                 self.epoch)
                 if save_path is None else expand_path(save_path))
-        save_checkpoint(path, self.model, self.optimiser, self.p_epoch,
-                        self.a_epoch, self.lr, self.weight_decay)
-        LOG.info(f'Saved checkpoint to {path}')
+        if self.mesh.chief:
+            save_checkpoint(path, self.model, self.optimiser, self.p_epoch,
+                            self.a_epoch, self.lr, self.weight_decay)
+            LOG.info(f'Saved checkpoint to {path}')
         return path
 
     def load_weights(self, checkpoint_file):
@@ -489,28 +561,46 @@ class Trainer:
         """Score every batch and write ``<task>_<name>`` beside
         ``predictions_file``; with ``top1_on_end``, log its top-1 (or
         Pearson r) score. Returns False only when that tracked metric
-        failed to improve and only the best models are saved."""
+        failed to improve and only the best models are saved.
+
+        On a mesh every rank scores its rows; one gather brings each dp
+        row's scored rows to every rank, and each global batch's rows are
+        written (by rank 0) in the order of their dataset indices
+        (``BatchMeta.items``): one device's order."""
         predictions_file = Path(predictions_file or self.predictions_file)
         predictions_file = predictions_file.parent / (
             f'{self.model_task_for_fnames}_{predictions_file.name}')
-        mkdir(predictions_file.parent)
+        if self.mesh.chief:
+            mkdir(predictions_file.parent)
         self._maybe_enable_device_dataset(data_loader)
         eval_fn = make_eval_step(self.model, self.model_task, use_fused,
                                  multitask=self.multitask)
-        rows, scores = [], []
+        local = []
         for batch, meta in data_loader:
             logits = eval_fn(self._to_device(batch))
             logits = logits.float().cpu().numpy()
             real = meta.graph_mask.reshape(-1) > 0
-            y_true = meta.y.reshape(len(real), -1)[real]
-            text, batch_scores = self._format_predictions(
-                logits[real], y_true, meta)
+            local.append((meta.items, logits[real],
+                          meta.y.reshape(len(real), -1)[real],
+                          list(meta.rec_fnames), list(meta.lig_fnames)))
+        per_row = [local]
+        if self.mesh.distributed:
+            per_row = [None] * self.mesh.world
+            dist.all_gather_object(per_row, local)
+            per_row = per_row[::self.mesh.n_gp]   # one rank per dp row
+        rows, scores = [], []
+        for parts in zip(*per_row):
+            logits, y_true, meta = _merge_rows(parts)
+            text, batch_scores = self._format_predictions(logits, y_true,
+                                                          meta)
             rows.append(text)
             scores.append(batch_scores)
-            self._update_mean_preds(logits[real], y_true)
-        predictions_file.write_text(''.join(rows), encoding='utf-8')
+            self._update_mean_preds(logits, y_true)
         self.val_scores = (np.concatenate(scores) if scores
                            else np.zeros((0,), np.float32))
+        if not self.mesh.chief:
+            return True
+        predictions_file.write_text(''.join(rows), encoding='utf-8')
         if top1_on_end:
             return self._score_and_track(predictions_file)
         return True

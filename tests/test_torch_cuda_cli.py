@@ -138,3 +138,40 @@ def test_double_on_the_gpu_exits_naming_device_cpu(tmp_path, cuda_device):
         train_main(_argv(run, RESOURCES / 'test.types', 'cuda')
                    + ['--double'])
     assert not run.exists()
+
+
+@pytest.mark.cuda
+def test_scale_out_cli_on_the_gpu_matches_one_device(tmp_path, cuda_device):
+    """``--num_devices 2`` (2 ranks sharing the card over gloo) and
+    ``--num_devices 2 --graph_shard 2`` against one device, strict
+    GraphNorm, no dropout: per-step losses within the trajectory gate,
+    validation scores within 5e-4; K2 in every layer on the dp ranks, K1
+    and never K2 on the edge-shard ranks."""
+    del cuda_device
+    pairs = ('rec_0.parquet lig_0.parquet', 'rec.parquet lig.parquet')
+    types = tmp_path / 'train.types'
+    types.write_text(''.join(f'{int(i % 3 == 0)} -1 {0.5 + i:.1f} '
+                             f'{pairs[i % 2]}\n' for i in range(8)))
+
+    def argv(name, extra):
+        return (_argv(tmp_path / name, types, 'cuda')
+                + ['--dropout', '0', '--strict_graphnorm', '-ep', '1',
+                   '--test_data_root_pose', str(RESOURCES),
+                   '--test_types_pose', str(types)] + extra)
+
+    one = train_main(argv('one', ['--num_devices', '1']))
+    dp = train_main(argv('dp', ['--num_devices', '2']))
+    gs = train_main(argv('gs', ['--num_devices', '2', '--graph_shard', '2']))
+    for reports in (dp, gs):
+        for r in reports:
+            np.testing.assert_allclose(r['train_losses'], one.train_losses,
+                                       atol=1e-4, rtol=1e-5)
+            np.testing.assert_allclose(r['val_scores'], one.val_scores,
+                                       atol=5e-4)
+    steps = len(one.train_losses)
+    for r in dp:
+        assert r['launch_counts']['softmax_aggregate_sorted'] >= \
+            LAYERS * steps
+    for r in gs:
+        assert r['launch_counts']['softmax_aggregate_sorted'] == 0
+        assert r['launch_counts']['segment_sum_sorted'] >= LAYERS * steps

@@ -150,8 +150,5 @@ def test_state_dict_round_trip(scan_layers):
 
 
 def test_out_of_slice_flags_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_model('egnn', dim_input=DIM_IN, k=K, dim_output=1,
-                    edge_shard_axis='gp')
     with pytest.raises(NotImplementedError, match='must be one of'):
         build_model('no_such_model', dim_input=DIM_IN, k=K, dim_output=1)

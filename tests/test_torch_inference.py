@@ -5,9 +5,10 @@ sidecars (the layout of tests/test_torch_import.py) holds weights of the
 JAX model's shapes. ``pointvs_tpu.inference`` and
 ``pointvs_tpu_torch.inference --device cpu`` must write the same rows in
 the same order, probabilities within 2e-3 (the file prints 3 decimals),
-given the same ``--num_devices 1``; ``--num_devices 2`` is refused as a
-missing feature. Also: the port's entry point refuses to run without CUDA unless asked for
-the CPU, and the port imports nothing of JAX or of the JAX package.
+given the same ``--num_devices 1``, and at ``--num_devices 2`` (two gloo
+ranks on the CPU against 2 XLA host devices). Also: the port's entry
+point refuses to run without CUDA unless asked for the CPU, and the port
+imports nothing of JAX or of the JAX package.
 """
 import re
 import subprocess
@@ -81,13 +82,31 @@ def test_entry_point_raises_without_cuda(run_dir, monkeypatch):
                    str(RESOURCES)])
 
 
-def test_cli_refuses_more_devices_by_name(run_dir):
-    """A reference command line with --num_devices 2 gets past argparse
-    and is refused as a missing feature, before anything is loaded."""
+def test_cli_two_ranks_match_jax(run_dir):
+    """``--num_devices 2``: two spawned gloo ranks score a stripe each
+    and rank 0 writes the file one device writes, against JAX's CLI on
+    2 of the suite's XLA host devices (its rows in its dp rows' order)."""
+    from pointvs_tpu.inference import main as jax_main
     from pointvs_tpu_torch.inference import main as port_main
-    with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
-        port_main([str(run_dir), str(RESOURCES / 'test.types'),
-                   str(RESOURCES), '--num_devices', '2', '--device', 'cpu'])
+
+    args = [str(run_dir), str(RESOURCES / 'test.types'), str(RESOURCES),
+            '--num_devices', '2']
+    jax_main(args + ['--output_fname', 'jax2.txt'])
+    reports = port_main(args + ['--output_fname', 'port2.txt', '--device',
+                                'cpu'])
+    assert [r['rank'] for r in reports] == [0, 1]
+    want = sorted(_rows(run_dir / 'pose_jax2.txt'))
+    got = _rows(run_dir / 'pose_port2.txt')
+    assert len(got) == len(want) == 2
+    for g, w in zip(sorted(got), want):
+        assert g[0] == w[0] and g[3:] == w[3:]
+        assert abs(float(g[2]) - float(w[2])) <= 2e-3
+    one = port_main(args[:3] + ['--num_devices', '1', '--output_fname',
+                                'port1.txt', '--device', 'cpu'])
+    assert [r[3:] for r in got] == [
+        r[3:] for r in _rows(run_dir / 'pose_port1.txt')]
+    np.testing.assert_allclose(reports[0]['val_scores'], one.val_scores,
+                               atol=1e-6)
 
 
 def test_orbax_run_dir_is_refused(tmp_path):
@@ -97,8 +116,8 @@ def test_orbax_run_dir_is_refused(tmp_path):
         resolve_run(tmp_path)
 
 
-# Modules of the training slice, the model families, the screen and the
-# attribution tail that the walk below must reach.
+# Modules of the training slice, the model families, the screen, the
+# attribution tail and scale-out that the walk below must reach.
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
@@ -106,7 +125,8 @@ TRAINING_MODULES = (
     'config', 'logging', 'data.loader', 'data.blob', 'ops.edge_dropout',
     'training.metrics_logger', 'models.multitask', 'models.lucid',
     'models.en_transformer', 'models.siamese', 'models.vanilla',
-    'screen', 'data.single_item', 'ops.prng',
+    'screen', 'data.single_item', 'ops.prng', 'parallel.mesh',
+    'parallel.launch', 'parallel.graph_shard',
     'ops.dropout', 'native.build', 'dataset_generation.chem',
     'dataset_generation.types_to_parquet', 'attribution.attribution_fns',
     'attribution.attribution', 'attribution.interaction_parser',
@@ -163,6 +183,7 @@ def test_port_sources_name_no_jax_module():
             'attribution/md_gnn_correlation.py',
             'analysis/synthpharm_atomic_auc.py',
             'analysis/pose_selection.py', 'analysis/ranking.py',
-            'constants.py'} <= names
+            'constants.py', 'parallel/mesh.py', 'parallel/launch.py',
+            'parallel/graph_shard.py'} <= names
     offenders = [str(p) for p in scanned if pattern.search(p.read_text())]
     assert not offenders

@@ -181,9 +181,6 @@ def test_resume_continues_from_the_saved_epoch(tmp_path):
 
 
 REFUSED = {
-    'num_devices': ['--num_devices', '2'],
-    'multihost': ['--multihost'],
-    'graph_shard': ['--graph_shard', '2'],
     'scatter_cap': ['--scatter_cap', '64'],
 }
 
@@ -197,11 +194,6 @@ def test_refused_flags_raise_by_name(tmp_path, name):
     with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
         port_main(argv + REFUSED[name])
     assert not save.exists()
-
-
-def test_resume_refuses_more_devices(tmp_path):
-    with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
-        resume_main([str(tmp_path), '--num_devices', '2'])
 
 
 def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):

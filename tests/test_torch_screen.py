@@ -20,7 +20,11 @@ checkpoint, the affinity phase's, with the pose head), scores per ligand
 within 1e-5, the CSV's columns and ranks; ``--attribute_top`` (the top
 hits' attribution CSVs against the JAX screen's) and a
 ``--include_strain_info`` run (scored with dE = 0, as the JAX screen
-does). Each refusal by name.
+does). Each refusal by name. ``num_devices=2`` (two spawned gloo ranks,
+each a stripe of the library) on the resident, streaming and chunked
+paths and with a strict-GraphNorm run (whose whole-batch statistics sum
+over the ranks) against the JAX screen on 2 of the suite's XLA host
+devices, within 1e-5, and the port's one-device CSV row for row.
 """
 import csv
 import shutil
@@ -272,8 +276,6 @@ def _run_with(runs, tmp_path, **cmd_args):
 
 
 REFUSED = {
-    'num_devices': (dict(), dict(num_devices=2), NotImplementedError,
-                    'ROADMAP.md'),
     'attribution_method': (dict(), dict(attribute_top=1,
                                         attribution='nope'), ValueError,
                            '--attribution must be one of'),
@@ -449,3 +451,55 @@ def test_store_cache_reloads_and_invalidates(runs, tmp_path):
     changed = run('c')
     assert len(set(cache.glob('torch_store_*.bin'))) == 2
     assert _scores(changed) != _scores(first)
+
+
+SCREEN_DP = {   # name -> (environment, ligand glob, strict GraphNorm)
+    'resident': ({}, '[pc]o*.parquet', False),
+    'streaming': (dict(POINTVS_SCREEN_DEVICE='0'), '[pc]o*.parquet', False),
+    'chunked': (dict(POINTVS_SCREEN_CHUNK_MB='0.02',
+                     POINTVS_CHUNK_COORDS16='0'), '[pc]o*.parquet', False),
+    # 4 poses at batch 2: no partial batch, whose placeholder row the
+    # reference fills with one real node.
+    'strict_graphnorm': ({}, '[pc]o*_[01].parquet', True),
+}
+
+
+@pytest.mark.parametrize('name', sorted(SCREEN_DP))
+def test_screen_two_ranks_match_jax(runs, library, tmp_path, monkeypatch,
+                                    name):
+    env, pattern, strict = SCREEN_DP[name]
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    run = runs / 'pose'
+    if strict:
+        run = tmp_path / 'strict'
+        port_main(['egnn', str(run), '--train_data_root_pose',
+                   str(RESOURCES), '--train_types_pose',
+                   str(RESOURCES / 'test.types'), '--graphnorm',
+                   '--strict_graphnorm'] + POSE_CLI)
+        kwargs = yaml.safe_load((run / 'model_kwargs.yaml').read_text())
+        assert kwargs['graphnorm'] and kwargs['graphnorm_whole_batch']
+    ligands = str(library[0] / pattern)
+    two = port_screen.screen(run, RESOURCES / 'rec_0.parquet', ligands,
+                             output=str(tmp_path / 'two.csv'), batch_size=2,
+                             num_devices=2, device='cpu')
+    one = port_screen.screen(run, RESOURCES / 'rec_0.parquet', ligands,
+                             output=str(tmp_path / 'one.csv'), batch_size=2,
+                             device='cpu')
+    assert two.path == one.path
+    got, want = _csv(tmp_path / 'two.csv'), _csv(tmp_path / 'one.csv')
+    assert [r['ligand'] for r in got] == [r['ligand'] for r in want]
+    for g, w in zip(got, want):
+        assert abs(float(g['score']) - float(w['score'])) <= 1e-6
+    assert (tmp_path / 'two.types').read_text() == \
+        (tmp_path / 'one.types').read_text()
+    for var in env:
+        monkeypatch.delenv(var)
+    ref = jax_screen(run, RESOURCES / 'rec_0.parquet', ligands,
+                     output=str(tmp_path / 'jax.csv'), batch_size=2,
+                     num_devices=2)
+    jax_scores = dict(zip(ref.ligand, ref.score))
+    scores = _scores(two)
+    assert sorted(scores) == sorted(jax_scores)
+    for lig, score in scores.items():
+        assert abs(score - jax_scores[lig]) <= 1e-5, lig
