@@ -201,7 +201,8 @@ on`` against ``off`` with augmented actives (the hybrid tail), scores
 within 1e-5; peak memory. The screen phase also screens the README
 model at batch 32 through the host stream (``POINTVS_SCREEN_DEVICE=0``)
 and the chunked library (``POINTVS_SCREEN_CHUNK_MB=5``: at least 3
-chunks) with exact coordinates, each within 1e-5 of the resident
+chunks) with exact coordinates and in the half-edge codec
+(``POINTVS_SCREEN_CHUNK_RAW=0``), each within 1e-5 of the resident
 store's scores, and with the default codecs (coords16: the worst
 |score difference|, the top-32 overlap and Spearman's rho), then a cold
 and a warm ``--cache_dir`` screen (the warm one loads the cached store).
@@ -219,6 +220,16 @@ a validation forward on the dp ranks, K2 never and K1 in every layer on
 the edge-shard ranks. K1 on rank 0's edge shard of a real batch against
 its plain version in float64. Each rank's step ms and gradient
 all-reduce ms a step (pack, all-reduce, unpack) by CUDA events.
+
+Then the dataset tools (``dataset_tools``): ``replicate_poses train``
+writes 64 poses and ``replicate_poses screen`` a 256-pose library from a
+source tree laid out from ``tests/resources``, ``synthetic_affinity``
+labels the 64 poses, ``main multitask --model_task regression`` with the
+README flags trains the affinity head on them for one epoch at batch 32
+(K2 6 a step; its first-step loss within 1e-4 of a ``--device cpu``
+run's), and ``screen`` scores the library with the README serving run
+(K2 6 a batch; the first 32 scores within 1e-4 of the CPU's); their K1
+and K2 launches join the kernels line's counts.
 
 Then the wall seconds of every phase, one JSON line describing every
 kernel, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1338,10 +1349,11 @@ def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
                  resident, card: str) -> dict:
     """The README model's screen at batch 32 on its other paths, against
     the resident store's scores (``resident``): streaming
-    (``POINTVS_SCREEN_DEVICE=0``) and chunked with exact coordinates
-    within 1e-5; chunked with the default codecs (coords16, lossy): the
-    worst |score difference|, the top-32 overlap and Spearman's rho; then
-    a cold and a warm screen with ``--cache_dir``, the warm one loading the
+    (``POINTVS_SCREEN_DEVICE=0``), chunked with exact coordinates and
+    chunked in the half-edge codec (``POINTVS_SCREEN_CHUNK_RAW=0``) within
+    1e-5; chunked with the default codecs (coords16, lossy): the worst
+    |score difference|, the top-32 overlap and Spearman's rho; then a cold
+    and a warm screen with ``--cache_dir``, the warm one loading the
     cached store. Each run's launches: K2 6 a batch, one offset
     computation a batch. Returns the runs' launches by name."""
     import os
@@ -1355,6 +1367,8 @@ def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
                            'POINTVS_CHUNK_COORDS16': '0'}, 'chunked', None),
         'chunked_coords16': ({'POINTVS_SCREEN_CHUNK_MB': SCREEN_CHUNK_MB},
                              'chunked', None),
+        'chunked_half': ({'POINTVS_SCREEN_CHUNK_MB': SCREEN_CHUNK_MB,
+                          'POINTVS_SCREEN_CHUNK_RAW': '0'}, 'chunked', None),
         'cache_cold': ({}, 'resident', root / 'screen_cache'),
         'cache_warm': ({}, 'resident', root / 'screen_cache'),
     }
@@ -1412,8 +1426,10 @@ def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
                 check(worst <= 1e-5, f'screen {key}: scores differ from the '
                                      f'resident store\'s by {worst}')
             if key.startswith('chunked'):
-                n_chunks = len(plans[-1][0])
+                n_chunks, cspec = len(plans[-1][0]), plans[-1][1]
                 check(n_chunks >= 3, f'screen {key}: {n_chunks} chunks')
+                check(cspec.raw == (key != 'chunked_half') and cspec.half,
+                      f'screen {key}: chunk codec {cspec}')
                 extra += f'; {n_chunks} chunks'
             sec = result.seconds
             print(f'screen: {card}: {SCREEN_PATH_RUN} -b '
@@ -1424,6 +1440,11 @@ def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
                   f'{worst:.2e}{extra}; launches {counts}')
     finally:
         screen_mod.plan_chunks = real_plan
+    print(f'screen: {card}: chunk codecs, {SCREEN_PATH_RUN} -b '
+          f'{SCREEN_PATH_BATCH}: ' + ', '.join(
+              f'{key} {results[key].poses_per_second:.1f} poses/s'
+              for key in ('chunked_exact', 'chunked_coords16',
+                          'chunked_half')))
     cold, warm = results['cache_cold'], results['cache_warm']
     print(f'screen: {card}: re-screen with --cache_dir: cold '
           f'{cold.seconds["total"]:.3f} s (featurise '
@@ -3584,6 +3605,145 @@ def phase_double_refused(root: Path, types: Path):
           f'{proc.stderr.strip().splitlines()[-1]}')
 
 
+# ------------------------------------------------------- dataset tools
+TOOLS_COPIES = 32            # of each of the source tree's 2 poses: 64
+TOOLS_SCREEN_POSES = 256
+TOOLS_CPU_POSES = 32
+# The multitask CLI phase's README flags, the affinity phase alone.
+TOOLS_AFFINITY_FLAGS = ['regression' if flag == 'both' else flag
+                        for flag in MT_CLI_FLAGS]
+
+
+def write_tools_source(src: Path) -> Path:
+    """A source tree laid out from ``tests/resources``:
+    ``receptors/rec_0.parquet``, ``ligands/rec_0_actives/lig_0.parquet``
+    and ``ligands/rec_0_decoys/lig_1.parquet`` (the test ligand twice; the
+    library names its copies by stem) and a types file labelling them 1
+    and 0."""
+    (src / 'receptors').mkdir(parents=True)
+    (src / 'receptors' / 'rec_0.parquet').write_bytes(
+        (RESOURCES / 'rec_0.parquet').read_bytes())
+    lines = []
+    for label, kind in ((1, 'actives'), (0, 'decoys')):
+        sub = src / 'ligands' / f'rec_0_{kind}'
+        sub.mkdir(parents=True)
+        (sub / f'lig_{1 - label}.parquet').write_bytes(
+            (RESOURCES / 'lig_0.parquet').read_bytes())
+        lines.append(f'{label} -1 -1.0 receptors/rec_0.parquet '
+                     f'ligands/rec_0_{kind}/lig_{1 - label}.parquet')
+    (src / 'src.types').write_text('\n'.join(lines) + '\n')
+    return src / 'src.types'
+
+
+def phase_dataset_tools(torch, np, root: Path, card: str):
+    """The dataset tools feeding the card, in process: ``replicate_poses
+    train`` writes 64 poses and ``replicate_poses screen`` a 256-pose
+    library from a source tree laid out from ``tests/resources``;
+    ``synthetic_affinity`` labels the 64 poses; ``main multitask
+    --model_task regression`` with the multitask CLI phase's README flags
+    trains the affinity head on them for one epoch at batch 32 (K2 6 a
+    step, no K3/K4), its first-step loss within 1e-4 of a ``--device cpu``
+    run's; ``screen`` scores the library with the README serving run (K2
+    6 a batch, one offset computation a batch), its first 32 ligands
+    within 1e-4 of a ``--device cpu`` screen. Returns the K1 and K2
+    launches."""
+    from pointvs_tpu_torch.dataset_generation import replicate_poses, \
+        synthetic_affinity
+    from pointvs_tpu_torch.main import main as train_main
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.screen import screen
+    src_types = write_tools_source(root / 'tools_source')
+    src = src_types.parent
+    train, lib = root / 'tools_train', root / 'tools_library'
+    start = time.perf_counter()
+    replicate_poses.main(['train', str(src), str(src_types), str(train),
+                          '--copies', str(TOOLS_COPIES), '--seed',
+                          str(SEED)])
+    replicate_poses.main(['screen', str(src), 'rec_0', str(lib),
+                          '--n_poses', str(TOOLS_SCREEN_POSES), '--seed',
+                          str(SEED)])
+    n_train = len((train / 'scale.types').read_text().splitlines())
+    library = sorted(lib.glob('*.parquet'))
+    check(n_train == 2 * TOOLS_COPIES
+          and len(library) == TOOLS_SCREEN_POSES,
+          f'dataset tools: {n_train} training poses, {len(library)} '
+          f'library poses')
+    affinity = synthetic_affinity.make_types(train, train / 'scale.types',
+                                             train / 'affinity.types')
+    pks = np.asarray([float(line.split()[1]) for line in
+                      affinity.read_text().splitlines()])
+    check(len(pks) == n_train and np.isfinite(pks).all() and pks.std() > 0,
+          f'synthetic_affinity: labels {pks}')
+    tools_s = time.perf_counter() - start
+
+    def argv(run, device):
+        return (['multitask', str(run), '--train_data_root_affinity',
+                 str(train), '--train_types_affinity', str(affinity)]
+                + TOOLS_AFFINITY_FLAGS + ['--device', device])
+
+    sk.reset_launch_counts()
+    start = time.perf_counter()
+    gpu = train_main(argv(root / 'tools_affinity_cuda', 'cuda'))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    counts = sk.launch_counts()
+    steps = len(gpu.train_losses)
+    check(steps == n_train // 32 and np.isfinite(gpu.train_losses).all(),
+          f'affinity CLI: losses {gpu.train_losses}')
+    check(counts['softmax_aggregate_sorted'] == 6 * steps
+          and counts['fused_edge_forward'] == 0
+          and counts['fused_edge_backward'] == 0,
+          f'affinity CLI launches {counts}: expected K2 = 6 x {steps} '
+          f'steps, no K3/K4')
+    launches = {'k1': counts['segment_sum_sorted'],
+                'k2': counts['softmax_aggregate_sorted']}
+    cpu = train_main(argv(root / 'tools_affinity_cpu', 'cpu'))
+    first = abs(gpu.train_losses[0] - cpu.train_losses[0])
+    check(first <= 1e-4, f'affinity CLI: first-step losses differ by '
+                         f'{first}')
+    ms = np.asarray(gpu.step_ms())
+    print(f'dataset tools: {card}: replicate_poses ({n_train} training, '
+          f'{len(library)} library poses) and synthetic_affinity (pK mean '
+          f'{pks.mean():.3f}, std {pks.std():.3f}) {tools_s:.3f} s; affinity '
+          f'CLI {steps} steps, wall {train_s:.3f} s, step_ms '
+          f'{ms.round(3).tolist()} (CUDA events); losses '
+          f'{gpu.train_losses}; first-step |gpu - cpu| {first:.3e}; '
+          f'launches {counts}')
+
+    run = root / SCREEN_PATH_RUN
+    receptor = src / 'receptors' / 'rec_0.parquet'
+    first_dir = root / 'tools_library_first'
+    first_dir.mkdir()
+    for path in library[:TOOLS_CPU_POSES]:
+        (first_dir / path.name).write_bytes(path.read_bytes())
+    cpu_scores = {Path(r['ligand']).name: r['score'] for r in screen(
+        run, receptor, str(first_dir), output=str(root / 'tools_cpu.csv'),
+        batch_size=32, device='cpu').rows}
+    sk.reset_launch_counts()
+    result = screen(run, receptor, str(lib), output=str(
+        root / 'tools_screen.csv'), batch_size=32)
+    torch.cuda.synchronize()
+    counts = sk.launch_counts()
+    batches = -(-TOOLS_SCREEN_POSES // 32)
+    check(counts['softmax_aggregate_sorted'] == 6 * batches
+          and counts['segment_offsets'] == batches
+          and counts['segment_sum_sorted'] == 0,
+          f'tools screen launches {counts}: expected K2 = 6 x {batches}')
+    scores = {Path(r['ligand']).name: r['score'] for r in result.rows}
+    check(len(scores) == TOOLS_SCREEN_POSES
+          and np.isfinite(list(scores.values())).all(),
+          f'tools screen: {len(scores)} scores')
+    diff = max(abs(scores[lig] - v) for lig, v in cpu_scores.items())
+    check(diff <= 1e-4, f'tools screen: GPU and CPU scores differ by {diff}')
+    launches['k1'] += counts['segment_sum_sorted']
+    launches['k2'] += counts['softmax_aggregate_sorted']
+    print(f'dataset tools: {card}: screen of the replicated library '
+          f'({result.path}): {TOOLS_SCREEN_POSES} poses at '
+          f'{result.poses_per_second:.1f} poses/s; max|gpu - cpu| over the '
+          f'first {TOOLS_CPU_POSES} {diff:.2e}; launches {counts}')
+    return launches
+
+
 LUCID_STEP_FLAGS = dict(LUCID_6L, num_layers=3, dropout=DROPOUT_RATE)
 LUCID_STEP_COUNT = 12
 
@@ -3741,6 +3901,8 @@ def main() -> int:
             so_launches, so_err = timed('scale_out', phase_scale_out, torch,
                                         np, root, types, card)
             err['k1'] = max(err['k1'], so_err)
+            tools_launches = timed('dataset_tools', phase_dataset_tools,
+                                   torch, np, root, card)
             timed('double_refused', phase_double_refused, root, types)
     except Exception:  # any phase failing fails the run, with its trace
         traceback.print_exc()
@@ -3769,11 +3931,11 @@ def main() -> int:
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
               served('segment_sum_sorted') + dd_launches['k1']
-              + so_launches['k1'], 'k1', 'k1_36'),
+              + so_launches['k1'] + tools_launches['k1'], 'k1', 'k1_36'),
         entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', softmax_runs)
-              + dd_launches['k2'] + so_launches['k2'], 'softmax',
-              'softmax'),
+              + dd_launches['k2'] + so_launches['k2']
+              + tools_launches['k2'], 'softmax', 'softmax'),
         entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', ['sigmoid_3l']),
               'sigmoid', 'sigmoid'),
@@ -3794,7 +3956,8 @@ def main() -> int:
           f'fused path {strain_launches}; bf16 Trainer {bf16_launches}; '
           f'synthpharm CLI {sp_launches}; screens {screen_launches}; '
           f'attribution {attr_launches}; attribution tail {tail_launches}; '
-          f'scale-out (every rank) {so_launches}')
+          f'scale-out (every rank) {so_launches}; dataset tools '
+          f'{tools_launches}')
     print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))

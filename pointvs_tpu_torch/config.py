@@ -3,8 +3,8 @@
 
 Every flag of the reference, with the same names, aliases, types and
 defaults, so a reference command line parses unchanged; plus ``--device``
-(``cuda``, the default, or ``cpu``). Flags whose feature is not in the port
-are parsed and then refused by name in ``main.refuse_unported``.
+(``cuda``, the default, or ``cpu``). ``--scatter_cap`` is parsed and has
+no effect (``main.note_scatter_cap``).
 """
 from __future__ import annotations
 
@@ -155,8 +155,8 @@ _FLAGS = (
         help='Pin the padded edge count per batch to one size')),
     ('--scatter_cap', (), dict(
         type=int, default=None,
-        help='The TPU kernels\' window capacity (not in the port: its '
-             'segment kernel has none)')),
+        help='The TPU kernels\' window capacity; no effect here: the '
+             'segment kernels have no windows')),
     ('--device_cache', (), dict(
         default='auto', choices=('auto', 'on', 'off'),
         help='Device-resident dataset: put the whole featurised dataset on '

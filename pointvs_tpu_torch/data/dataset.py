@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 from collections import defaultdict
 from pathlib import Path
 from typing import Optional
@@ -75,9 +76,6 @@ LOG = get_logger()
 
 _RECOGNISED_ATOMIC_NUMBERS = (6, 7, 8, 9, 15, 16, 17)
 _OTHER_GROUPINGS = ((35, 53), (3, 11, 19), (4, 12, 20), (26, 29, 30))
-# Augmented-active size caps (the reference's defaults): probe rotations,
-# slack on nodes and on edges, redraws before the fallback rotation.
-_AUG_PROBES, _AUG_SLACK_N, _AUG_SLACK_E, _AUG_RETRIES = 4, 1.6, 1.8, 4
 _PROBE_EPOCH = 1 << 30   # probe keys sit far above any real epoch
 _MEM_CACHE_BYTES = 4 << 30
 
@@ -275,7 +273,11 @@ class PointCloudDataset:
     def aug_size_cap(self, item: int):
         """(node, edge) cap on ``item``'s augmented graphs: the slack times
         the largest of the unrotated graph and the probe rotations, and at
-        least the first probe's size (the fallback rotation)."""
+        least the first probe's size (the fallback rotation). The probe
+        count and slacks come from ``POINTVS_AUG_PROBES`` (4, at least 1:
+        probe 0 is the fallback), ``POINTVS_AUG_SLACK_N`` (1.6) and
+        ``POINTVS_AUG_SLACK_E`` (1.8), read on every cap as the reference
+        reads them."""
         hit = self._aug_caps.get(item)
         if hit is not None:
             return hit
@@ -283,7 +285,8 @@ class PointCloudDataset:
         base = self._load_boxed_graph(lig_path, rec_path)
         n_max, e_max = len(base[0]['x']), len(base[1])
         fb_n = fb_e = 0
-        for j in range(_AUG_PROBES):
+        probes = max(1, int(os.environ.get('POINTVS_AUG_PROBES', '4')))
+        for j in range(probes):
             g = self._build_graph(lig_path, rec_path,
                                   self.augmented_active_min_angle,
                                   self._aug_attempt_rng(
@@ -292,17 +295,21 @@ class PointCloudDataset:
                 fb_n, fb_e = len(g[0]['x']), len(g[1])
             n_max = max(n_max, len(g[0]['x']))
             e_max = max(e_max, len(g[1]))
-        cap = (max(int(math.ceil(n_max * _AUG_SLACK_N)), fb_n),
-               max(int(math.ceil(e_max * _AUG_SLACK_E)), fb_e))
+        slack_n = float(os.environ.get('POINTVS_AUG_SLACK_N', '1.6'))
+        slack_e = float(os.environ.get('POINTVS_AUG_SLACK_E', '1.8'))
+        cap = (max(int(math.ceil(n_max * slack_n)), fb_n),
+               max(int(math.ceil(e_max * slack_e)), fb_e))
         self._aug_caps[item] = cap
         return cap
 
     def _aug_draw(self, item: int, epoch: int):
         """Rotations keyed (seed, epoch, item, attempt) until one fits
-        ``aug_size_cap``; after the retries, the first probe's rotation."""
+        ``aug_size_cap``; after ``POINTVS_AUG_RETRIES`` (4) rejections, the
+        first probe's rotation."""
         n_cap, e_cap = self.aug_size_cap(item)
         lig_path, rec_path = self._paths_for(item)
-        for attempt in range(_AUG_RETRIES + 1):
+        retries = int(os.environ.get('POINTVS_AUG_RETRIES', '4'))
+        for attempt in range(retries + 1):
             g = self._build_graph(
                 lig_path, rec_path, self.augmented_active_min_angle,
                 self._aug_attempt_rng(item, epoch, attempt))

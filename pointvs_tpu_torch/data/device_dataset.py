@@ -35,11 +35,15 @@ shifts by the item's edge offset into the batch's ``recv_perm``. For
 - The chunked library (``plan_chunks``, ``pack_chunk``,
   ``expand_chunk``): a library past the memory budget goes to the device
   in ranges of items, each packed on the host into compact buffers of
-  one fixed shape and expanded on the device. Only the reference's raw
-  codec is here, with its four default encodings: ``degrees`` (senders
-  as per-node out-degrees), ``coords16`` (per-axis fixed point; lossy,
-  within half a step), ``rperm12`` (12-bit receiver ranks, pairs in 3
-  bytes) and ``deg8`` (uint8 degrees). The symmetric-half codec is not.
+  one fixed shape and expanded on the device. The raw codec (the
+  default) has four encodings: ``degrees`` (senders as per-node
+  out-degrees), ``coords16`` (per-axis fixed point; lossy, within half a
+  step), ``rperm12`` (12-bit receiver ranks, pairs in 3 bytes) and
+  ``deg8`` (uint8 degrees). The other codec (``raw=False``, the screen's
+  ``POINTVS_SCREEN_CHUNK_RAW=0``) ships uint16 edge lists and exact
+  coordinates: of a mirrored store only the half with sender < receiver,
+  rebuilt on the device by two stable sorts; else the full lists, the
+  receiver ranks from one stable sort.
 - ``save_host_store`` / ``load_host_store``: the built store as one flat
   file (``data/blob.py``) under its own format tag.
 
@@ -559,9 +563,10 @@ class StoreChunkSpec(NamedTuple):
     n_fix: int          # node rows (a multiple of 8, for the bit unpack)
     eh_fix: int         # edge slots (a multiple of 4, for 2-bit classes)
     feat_dim: int
-    half: bool          # raw codec: rperm is each edge's mirror in every
-    #                     item, so receivers travel implicitly as
-    #                     senders[rperm]
+    half: bool          # the store is mirrored (``_mirrored``). Raw
+    #                     codec: receivers travel implicitly as
+    #                     senders[rperm]; else only the half of each
+    #                     item's edges with sender < receiver travels
     raw: bool = True
     degrees: bool = False   # senders as per-node out-degrees
     coords16: bool = False  # coordinates in per-axis fixed point (lossy)
@@ -595,20 +600,20 @@ def _mirrored(host: HostStore) -> bool:
 def plan_chunks(host: HostStore, budget_bytes: float, raw: bool = True):
     """(ranges, spec): contiguous item ranges whose expanded device bytes
     fit ``budget_bytes`` (a single item past it is a range of its own),
-    and the chunks' fixed shapes."""
-    if not raw:
-        raise NotImplementedError(
-            'POINTVS_SCREEN_CHUNK_RAW=0: the symmetric-half chunk codec is '
-            'not in the port (see ROADMAP.md, Queue 1)')
+    and the chunks' fixed shapes: the raw codec, or (``raw=False``) uint16
+    edge lists, half of them where the store is mirrored."""
     if host.aug_from < len(host.num_nodes):
         raise ValueError('chunked stores do not support augmented tails')
     a = host.arrays
+    if not raw and int(np.max(host.num_nodes, initial=0)) >= 0xffff:
+        raise ValueError('an item has more nodes than uint16 ids can name; '
+                         'use the raw chunk codec')
     ns, es = a.node_start, a.edge_start
     feat_dim = a.feats.shape[1]
-    degrees = (a.rperm.itemsize <= 2
+    degrees = (raw and a.rperm.itemsize <= 2
                and os.environ.get('POINTVS_CHUNK_DEGREES', '1') != '0')
-    coords16 = os.environ.get('POINTVS_CHUNK_COORDS16', '1') != '0'
-    rperm12 = (int(np.max(a.edge_len, initial=0)) < 4096
+    coords16 = raw and os.environ.get('POINTVS_CHUNK_COORDS16', '1') != '0'
+    rperm12 = (raw and int(np.max(a.edge_len, initial=0)) < 4096
                and os.environ.get('POINTVS_CHUNK_RPERM12', '1') != '0')
     deg8 = (degrees and _max_out_degree(host) < 256
             and os.environ.get('POINTVS_CHUNK_DEG8', '1') != '0')
@@ -638,11 +643,16 @@ def plan_chunks(host: HostStore, budget_bytes: float, raw: bool = True):
               if hi > lo]
     n_fix = max(int(ns[hi] - ns[lo]) for lo, hi in ranges)
     e_fix = max(int(es[hi] - es[lo]) for lo, hi in ranges)
+    half = _mirrored(host)
+    if raw:
+        eh_fix = -(-e_fix // 4) * 4
+    else:   # the half list's classes are 2-bit, four to a byte
+        eh_fix = -(-(e_fix // 2) // 4) * 4 if half else e_fix
     return ranges, StoreChunkSpec(
         items=max(hi - lo for lo, hi in ranges),
-        n_fix=-(-n_fix // 8) * 8, eh_fix=-(-e_fix // 4) * 4,
-        feat_dim=feat_dim, half=_mirrored(host), raw=True, degrees=degrees,
-        coords16=coords16, rperm12=rperm12, deg8=deg8)
+        n_fix=-(-n_fix // 8) * 8, eh_fix=eh_fix, feat_dim=feat_dim,
+        half=half, raw=raw, degrees=degrees, coords16=coords16,
+        rperm12=rperm12, deg8=deg8)
 
 
 def _class_bits(classes: np.ndarray) -> np.ndarray:
@@ -694,9 +704,27 @@ def pack_chunk(host: HostStore, lo: int, hi: int,
         edge_len=padded(a.edge_len[lo:hi], spec.items, 0, np.int32),
         y=padded(a.y[lo:hi], spec.items, 0, np.float32),
         strain=padded(a.strain[lo:hi], spec.items, 0, np.float32),
-        n_real=np.int32(n), e_real=np.int32(e),
-        raw_class_bits=_class_bits(padded(a.eclass[e_lo:e_hi], spec.eh_fix,
-                                          3, np.uint8)))
+        n_real=np.int32(n), e_real=np.int32(e))
+    senders, receivers = a.senders[e_lo:e_hi], a.receivers[e_lo:e_hi]
+    eclass = a.eclass[e_lo:e_hi]
+    if not spec.raw and spec.half:
+        keep = senders < receivers      # each item's order is kept
+        out.update(
+            half_senders=padded(senders[keep], spec.eh_fix, 0xffff,
+                                np.uint16),
+            half_receivers=padded(receivers[keep], spec.eh_fix, 0xffff,
+                                  np.uint16),
+            half_class_bits=_class_bits(padded(eclass[keep], spec.eh_fix,
+                                               3, np.uint8)))
+        return out
+    if not spec.raw:
+        out.update(full_senders=padded(senders, spec.eh_fix, 0, np.uint16),
+                   full_receivers=padded(receivers, spec.eh_fix, 0,
+                                         np.uint16),
+                   full_class=padded(eclass, spec.eh_fix, 3, np.uint8))
+        return out
+    out['raw_class_bits'] = _class_bits(padded(eclass, spec.eh_fix, 3,
+                                               np.uint8))
     rperm = padded(a.rperm[e_lo:e_hi], spec.eh_fix, 0, a.rperm.dtype)
     if spec.rperm12:
         # Item-local ranks < 4096: value pairs in 3 bytes (eh_fix % 4 == 0).
@@ -722,11 +750,11 @@ def pack_chunk(host: HostStore, lo: int, hi: int,
         out['raw_degrees'] = deg.astype(np.uint8 if spec.deg8
                                         else np.uint16)
     else:
-        out['raw_senders'] = padded(a.senders[e_lo:e_hi], spec.eh_fix, 0,
+        out['raw_senders'] = padded(senders, spec.eh_fix, 0,
                                     a.senders.dtype)
     if not spec.half:
-        out['raw_receivers'] = padded(a.receivers[e_lo:e_hi], spec.eh_fix,
-                                      0, a.receivers.dtype)
+        out['raw_receivers'] = padded(receivers, spec.eh_fix, 0,
+                                      a.receivers.dtype)
     return out
 
 
@@ -735,40 +763,42 @@ def upload_chunk(packed: dict, device: torch.device) -> dict:
     return {k: _to_tensor(np.asarray(v), device) for k, v in packed.items()}
 
 
-def expand_chunk(packed: dict, spec: StoreChunkSpec) -> DeviceStoreArrays:
-    """A packed chunk's tensors -> the store arrays of its items, on the
-    chunk's device: the bits unpacked, the fixed-point coordinates mapped
-    back, the senders from a cumsum of the degrees and a searchsorted,
-    the 12-bit ranks unpacked; receivers, for a symmetric store, as
-    senders[rperm]."""
-    node_start = packed['node_start']
-    edge_start = packed['edge_start']
-    device = node_start.device
-    n_fix, eh = spec.n_fix, spec.eh_fix
-    shifts = torch.arange(8, dtype=torch.uint8, device=device)
-    bits = packed['feat_bits']                      # [F, n_fix / 8]
-    feats = ((bits[:, :, None] >> shifts) & 1).reshape(
-        spec.feat_dim, n_fix).t().contiguous()      # [n_fix, F] uint8
-    if spec.coords16:
-        coords = (packed['coords_lo'] + _as_index(packed['coords_q']).to(
-            torch.float32) * packed['coords_scale'])
-    else:
-        coords = packed['coords']
+def _classes(bits: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """2-bit edge classes, four to a byte, at positions ``pos``."""
+    return ((bits[pos // 4].to(torch.int64) >> (2 * (pos % 4))) & 3).to(
+        torch.uint8)
 
-    pos = torch.arange(eh, dtype=torch.int64, device=device)
-    eclass = ((packed['raw_class_bits'][pos // 4].to(torch.int64)
-               >> (2 * (pos % 4))) & 3).to(torch.uint8)
-    edge_start64 = edge_start.to(torch.int64)
-    item_e = (torch.searchsorted(edge_start64, pos, right=True)
-              - 1).clamp(0, spec.items - 1)
+
+def _item_of(edge_start: torch.Tensor, pos: torch.Tensor,
+             items: int) -> torch.Tensor:
+    """The item slot that holds each chunk edge position."""
+    return (torch.searchsorted(edge_start, pos, right=True) - 1).clamp(
+        0, items - 1)
+
+
+def _stable_argsort(x: torch.Tensor) -> torch.Tensor:
+    """Ties keep their order, on either device: the expanded lists equal
+    the host store's bit for bit only so."""
+    return torch.sort(x, stable=True).indices
+
+
+def _expand_raw(packed: dict, spec: StoreChunkSpec):
+    """Raw codec: the senders from a cumsum of the degrees and a
+    searchsorted, the 12-bit ranks unpacked; receivers, for a mirrored
+    store, as senders[rperm]."""
+    node_start = packed['node_start'].to(torch.int64)
+    edge_start = packed['edge_start'].to(torch.int64)
+    n_fix, eh = spec.n_fix, spec.eh_fix
+    pos = torch.arange(eh, dtype=torch.int64, device=node_start.device)
+    eclass = _classes(packed['raw_class_bits'], pos)
+    item_e = _item_of(edge_start, pos, spec.items)
     if spec.degrees:
         deg = _as_index(packed['raw_degrees'])
         offs = torch.cat([deg.new_zeros(1), torch.cumsum(deg, 0)])
         g_send = (torch.searchsorted(offs, pos, right=True)
                   - 1).clamp(0, n_fix - 1)
-        senders = torch.where(
-            pos < packed['e_real'].to(torch.int64),
-            g_send - node_start.to(torch.int64)[item_e], 0)
+        senders = torch.where(pos < packed['e_real'].to(torch.int64),
+                              g_send - node_start[item_e], 0)
     else:
         senders = _as_index(packed['raw_senders'])
     if spec.rperm12:
@@ -781,13 +811,82 @@ def expand_chunk(packed: dict, spec: StoreChunkSpec) -> DeviceStoreArrays:
     if 'raw_receivers' in packed:
         receivers = _as_index(packed['raw_receivers'])
     else:
-        receivers = senders[(rperm + edge_start64[item_e]).clamp(0, eh - 1)]
+        receivers = senders[(rperm + edge_start[item_e]).clamp(0, eh - 1)]
+    return senders, receivers, rperm, eclass
+
+
+def _expand_half(packed: dict, spec: StoreChunkSpec):
+    """Half lists: rebased to chunk-global ids (padding at the sentinel
+    ``n_fix``), the mirrors first and one stable sort by global sender
+    give every item's lists in (sender, receiver) order; the receiver
+    ranks come from a stable sort of the global receivers (padding
+    last), rebased per item."""
+    node_start = packed['node_start'].to(torch.int64)
+    edge_start = packed['edge_start'].to(torch.int64)
+    n_fix, eh = spec.n_fix, spec.eh_fix
+    pos = torch.arange(eh, dtype=torch.int64, device=node_start.device)
+    # Each item holds as many half edges as half its edges.
+    off = node_start[_item_of(edge_start, 2 * pos, spec.items)]
+    real_h = 2 * pos < packed['e_real'].to(torch.int64)
+    hs = torch.where(real_h, _as_index(packed['half_senders']) + off, n_fix)
+    hr = torch.where(real_h, _as_index(packed['half_receivers']) + off,
+                     n_fix)
+    hc = _classes(packed['half_class_bits'], pos)
+    all_s, all_r = torch.cat([hr, hs]), torch.cat([hs, hr])
+    order = _stable_argsort(all_s)
+    senders_g, receivers_g = all_s[order], all_r[order]
+    epos = torch.arange(2 * eh, dtype=torch.int64, device=pos.device)
+    item_e = _item_of(edge_start, epos, spec.items)
+    real_e = senders_g < n_fix
+    senders = torch.where(real_e, senders_g - node_start[item_e], 0)
+    receivers = torch.where(real_e, receivers_g - node_start[item_e], 0)
+    eclass = torch.where(real_e, torch.cat([hc, hc])[order], 3)
+    rank = _stable_argsort(torch.where(real_e, receivers_g, 2 * n_fix))
+    rperm = torch.where(real_e, rank - edge_start[item_e], 0)
+    return senders, receivers, rperm, eclass
+
+
+def _expand_full(packed: dict, spec: StoreChunkSpec):
+    """Full lists: the receiver ranks from one stable sort of the global
+    receivers (padding last), rebased per item."""
+    node_start = packed['node_start'].to(torch.int64)
+    edge_start = packed['edge_start'].to(torch.int64)
+    pos = torch.arange(spec.eh_fix, dtype=torch.int64,
+                       device=node_start.device)
+    item_e = _item_of(edge_start, pos, spec.items)
+    real_e = pos < packed['e_real'].to(torch.int64)
+    senders = torch.where(real_e, _as_index(packed['full_senders']), 0)
+    receivers = torch.where(real_e, _as_index(packed['full_receivers']), 0)
+    eclass = torch.where(real_e, packed['full_class'], 3)
+    rank = _stable_argsort(torch.where(
+        real_e, receivers + node_start[item_e], 2 * spec.n_fix))
+    rperm = torch.where(real_e, rank - edge_start[item_e], 0)
+    return senders, receivers, rperm, eclass
+
+
+def expand_chunk(packed: dict, spec: StoreChunkSpec) -> DeviceStoreArrays:
+    """A packed chunk's tensors -> the store arrays of its items, on the
+    chunk's device: the bits unpacked, the fixed-point coordinates mapped
+    back, the edge lists by the chunk's codec."""
+    node_start = packed['node_start']
+    shifts = torch.arange(8, dtype=torch.uint8, device=node_start.device)
+    bits = packed['feat_bits']                      # [F, n_fix / 8]
+    feats = ((bits[:, :, None] >> shifts) & 1).reshape(
+        spec.feat_dim, spec.n_fix).t().contiguous()  # [n_fix, F] uint8
+    if spec.coords16:
+        coords = (packed['coords_lo'] + _as_index(packed['coords_q']).to(
+            torch.float32) * packed['coords_scale'])
+    else:
+        coords = packed['coords']
+    expand = (_expand_raw if spec.raw
+              else _expand_half if spec.half else _expand_full)
+    senders, receivers, rperm, eclass = expand(packed, spec)
     return DeviceStoreArrays(
         feats=feats, coords=coords, senders=senders.to(torch.int32),
         receivers=receivers.to(torch.int32), rperm=rperm.to(torch.int32),
-        eclass=eclass, node_start=node_start, edge_start=edge_start,
-        node_len=packed['node_len'], edge_len=packed['edge_len'],
-        y=packed['y'], strain=packed['strain'])
+        eclass=eclass, node_start=node_start,
+        edge_start=packed['edge_start'], node_len=packed['node_len'],
+        edge_len=packed['edge_len'], y=packed['y'], strain=packed['strain'])
 
 
 # --------------------------------------------------------------------- #

@@ -29,9 +29,10 @@ Writes the reference's run directory: ``cmd_args.yaml`` (with
 ``hostname`` and ``slurm_jobid``), ``model_kwargs.yaml``, ``output.log``,
 ``metrics.jsonl``, ``checkpoints/<task>_ckpt_epoch_<n>.pt``,
 ``<task>_predictions*.txt`` and, with ``--end_flag``, ``_FINISHED``. Runs
-on the GPU unless ``--device cpu`` is given. Flags whose feature the port
-does not have raise ``NotImplementedError`` naming ROADMAP.md
-(``refuse_unported``).
+on the GPU unless ``--device cpu`` is given. ``--scatter_cap`` (the
+reference's window capacity for its TPU segment kernels) is accepted and
+has no effect: the port's segment kernels have no windows, so no batch
+can overflow one (``note_scatter_cap`` logs this once).
 
 Scale-out (``parallel/launch.py``): ``--num_devices D`` (default: the
 visible cards, 1 on the CPU) trains on D ranks, one process each,
@@ -72,13 +73,14 @@ from pointvs_tpu_torch.utils import load_yaml, mkdir, save_yaml
 GRAPH_SHARD_MODELS = ('egnn', 'lucid', 'en_transformer', 'multitask')
 
 
-def refuse_unported(args) -> None:
-    """Raise for the first flag whose feature is not in the port."""
-    if args.scatter_cap is not None:
-        raise NotImplementedError(
-            "--scatter_cap: the TPU kernels' window capacity (the port's "
-            'segment kernel has none) is not in the port (see ROADMAP.md, '
-            'Queue 1)')
+def note_scatter_cap(args) -> None:
+    """Log that a ``--scatter_cap`` given on the command line or in a
+    run's ``cmd_args.yaml`` has no effect."""
+    cap = getattr(args, 'scatter_cap', None)
+    if cap is not None:
+        get_logger().info(
+            f"--scatter_cap {cap} has no effect: it caps the TPU kernels' "
+            f"window load, and the port's segment kernels have no windows")
 
 
 def check_scale_out(args, world: int) -> None:
@@ -217,7 +219,7 @@ def main(argv=None):
         for key, value in load_yaml(args.load_args).items():
             if hasattr(args, key):
                 setattr(args, key, value)
-    refuse_unported(args)
+    note_scatter_cap(args)
     if args.model not in MODEL_REGISTRY:
         raise SystemExit(f'model must be one of {sorted(MODEL_REGISTRY)}, '
                          f'got {args.model!r}')

@@ -1,9 +1,11 @@
 """Build the host graph library (``graphops.cpp``) with g++ and bind it
 with ctypes.
 
-The library compiles at first use into ``native/build/`` (listed in
-.gitignore), named by a digest of the source and the flags, so an edited
-source is rebuilt and never served stale. Each build writes a temporary
+The library compiles at first use into the directory that
+``POINTVS_NATIVE_CACHE`` names (read at each build; by default
+``~/.cache/pointvs_tpu_torch/native``, apart from the JAX package's
+``~/.cache/pointvs_tpu/native``), named by a digest of the source and the
+flags, so an edited source is rebuilt and never served stale. Each build writes a temporary
 file whose name is unique to its process (pid and a random suffix) and
 ``os.replace``s it into place, so processes that build at once (pytest's
 workers) never see each other's half-written output. A failed build
@@ -32,7 +34,6 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).parent / 'graphops.cpp'
-BUILD_DIR = Path(__file__).parent / 'build'
 # No -march=native: the library must run on any host of the same
 # architecture, and no FMA contraction, so the squared distances round
 # as numpy's do.
@@ -56,10 +57,17 @@ SIGNATURES = {
 }
 
 
+def build_dir() -> Path:
+    """Where the library is built: ``POINTVS_NATIVE_CACHE``, else
+    ``~/.cache/pointvs_tpu_torch/native``."""
+    default = Path.home() / '.cache' / 'pointvs_tpu_torch' / 'native'
+    return Path(os.environ.get('POINTVS_NATIVE_CACHE', default))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(SRC.read_bytes()
                             + ' '.join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f'libgraphops-{digest}.so'
+    return build_dir() / f'libgraphops-{digest}.so'
 
 
 def build() -> Path:
@@ -71,7 +79,7 @@ def build() -> Path:
     if cxx is None:
         raise RuntimeError('g++ not found: the host graph library '
                            '(pointvs_tpu_torch/native/graphops.cpp) needs it')
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(
         f'{out.stem}.{os.getpid()}.{secrets.token_hex(4)}.tmp')
     proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), '-o', str(tmp)],

@@ -8,7 +8,8 @@ optimiser state and the epoch counters, and continues the pose and then
 the affinity phase from the saved epochs. A multitask ``--model_task
 both`` run resumes from its newest checkpoint of either task, whose
 counters name the phase to continue. ``--bf16``, ``--double`` (with
-``--device cpu``) and ``--synthpharm`` runs resume as they were trained.
+``--device cpu``) and ``--synthpharm`` runs resume as they were trained;
+a run's ``--scatter_cap`` has no effect, as in ``main``.
 
 ``--num_devices`` resumes on that many ranks (``parallel/launch.py``); as
 in the reference, the default is the run's own ``--num_devices``, else
@@ -26,7 +27,7 @@ from types import SimpleNamespace
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.logging import get_logger
 from pointvs_tpu_torch.main import build_loaders, check_scale_out, \
-    run_phases
+    note_scatter_cap, run_phases
 from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.parallel.launch import default_num_devices, spawn
 from pointvs_tpu_torch.parallel.mesh import Mesh
@@ -71,6 +72,7 @@ def main(argv=None):
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
     args = parser.parse_args(argv)
     saved = _with_defaults(run_args(args.base_path))
+    note_scatter_cap(saved)
     refuse_double_on_cuda(getattr(saved, 'double', False), args.device)
     device = resolve_device(args.device)
     world = (args.num_devices or getattr(saved, 'num_devices', None)

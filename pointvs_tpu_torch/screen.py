@@ -30,7 +30,9 @@ How the library reaches the device (the reference's store decision):
   in item ranges of that many MB (``plan_chunks``, ``pack_chunk``,
   ``expand_chunk``; the codecs ``POINTVS_CHUNK_DEGREES``, ``_COORDS16``,
   ``_RPERM12`` and ``_DEG8``, all on by default; coords16 is lossy within
-  half a fixed-point step). Each chunk's poses are scored in budget
+  half a fixed-point step; ``POINTVS_SCREEN_CHUNK_RAW=0`` takes the
+  reference's other codec: exact coordinates and uint16 edge lists, of a
+  mirrored store only the half with sender < receiver). Each chunk's poses are scored in budget
   batches: contiguous poses until ``POINTVS_SCREEN_EDGE_BUDGET`` edges
   (default 131072) or ``POINTVS_SCREEN_MAX_BS`` poses (default four
   batches) fill one fixed (nodes, edges) shape.
@@ -56,10 +58,7 @@ store past the budget chunks them all); rank 0 gathers every rank's
 rows, restores library order, and writes the CSV, the manifest and the
 top hits' attributions one device writes.
 
-Refused by name, as a missing feature (``NotImplementedError`` naming
-ROADMAP.md): ``POINTVS_SCREEN_CHUNK_RAW=0`` (the symmetric-half chunk
-codec). Refused
-as runs the reference's screen stops on (``ValueError`` naming the flag):
+Refused as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
 and dense layouts. The reference's grouped, scanned and one-shot scoring
 programs (``POINTVS_SCREEN_GROUP``, ``_SCAN``, ``_ONESHOT``,
@@ -243,9 +242,12 @@ def _score_chunked(host, chunk_budget: float, eval_fn, device,
     items on the host, upload and expand it on the device, score its
     budget batches (on a mesh, padded with empty ones to the most any
     rank has). Returns (logits, metas) in library order."""
-    ranges, cspec = plan_chunks(host, chunk_budget)
+    ranges, cspec = plan_chunks(
+        host, chunk_budget,
+        raw=os.environ.get('POINTVS_SCREEN_CHUNK_RAW', '1') == '1')
     LOG.info(f'Chunked screen: {len(ranges)} chunks of <= {cspec.items} '
-             f'poses ({cspec.n_fix} nodes x {cspec.eh_fix} edge slots)')
+             f'poses ({cspec.n_fix} nodes x {cspec.eh_fix} '
+             f'{"half-" if cspec.half and not cspec.raw else ""}edge slots)')
     nn, ne = host.num_nodes, host.num_edges
     max_bs = int(os.environ.get('POINTVS_SCREEN_MAX_BS',
                                 str(batch_size * 4)))
@@ -297,10 +299,6 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     if attribute_top > 0 and attribution not in ATTRIBUTION_FNS:
         raise ValueError(f'--attribution must be one of '
                          f'{sorted(ATTRIBUTION_FNS)}')
-    if os.environ.get('POINTVS_SCREEN_CHUNK_RAW', '1') != '1':
-        raise NotImplementedError(
-            'POINTVS_SCREEN_CHUNK_RAW=0: the symmetric-half chunk codec is '
-            'not in the port (see ROADMAP.md, Queue 1)')
     saved = run_args(model_path)
     refuse_unserved(saved)
     refuse_double_on_cuda(saved.get('double', False), device)

@@ -7,7 +7,8 @@ marker; this file imports no JAX, so it runs where JAX is not installed).
   for two epochs.
 - The rotation matrices on the card are within 1e-6 of the CPU's, and
   the rotated coordinates within 3e-6 of their scale.
-- A chunk expanded on the card equals the one expanded on the CPU.
+- A chunk expanded on the card equals the one expanded on the CPU, in the
+  raw codec and in the half-edge codec (its two stable sorts).
 
 Run on a machine with a GPU:
     python -m pytest --noconftest -m cuda \
@@ -109,9 +110,11 @@ def test_rotation_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_chunk_expands_on_the_card_as_on_the_cpu(cuda_device):
+@pytest.mark.parametrize('raw', [True, False], ids=['raw', 'half'])
+def test_chunk_expands_on_the_card_as_on_the_cpu(cuda_device, raw):
     host = dd.build_host_store(_dataset())
-    ranges, spec = dd.plan_chunks(host, host.nbytes / 2)
+    ranges, spec = dd.plan_chunks(host, host.nbytes / 2, raw=raw)
+    assert spec.half and spec.raw == raw
     for lo, hi in ranges:
         packed = dd.pack_chunk(host, lo, hi, spec)
         got, want = (dd.expand_chunk(dd.upload_chunk(packed, device), spec)

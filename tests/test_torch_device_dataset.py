@@ -13,9 +13,12 @@ device_dataset.py``) against the JAX package's, on the CPU.
   ``--device_cache on`` where the JAX package refuses it.
 - Ids batches of the loader equal the streaming loader's batch for batch,
   the hybrid tail across 3 epochs, with the background prefetch and with
-  a synchronous refresh.
+  a synchronous refresh; under tiny ``POINTVS_AUG_*`` caps the slots,
+  graphs and reject and fallback counts equal JAX's over 10 epochs.
 - ``pack_chunk`` -> ``expand_chunk`` reproduces the store exactly with the
-  lossless codecs; coords16 within JAX's bound (scale / 2), its arrays
+  lossless codecs, the raw ones and the reference's other codec (half
+  and full uint16 edge lists, ``raw=False``), whose packed buffers and
+  expanded arrays also equal JAX's bit for bit; coords16 within JAX's bound (scale / 2), its arrays
   equal to JAX's ``expand_chunk`` (coordinates within one rounding
   step); ``plan_chunks`` within budget, the reference's
   backstop case included; the codecs' gates.
@@ -373,6 +376,54 @@ def test_hybrid_loader_matches_streaming(refresh, monkeypatch):
     assert not torch.equal(tails[0], tails[1])
 
 
+def test_forced_aug_rejections_match_jax(monkeypatch):
+    """Tiny augmented-active caps (slack 0.05, one probe, two retries, as
+    the JAX package's ``test_hybrid_spill_free_under_forced_rejections``
+    sets them) run the reject and fallback paths hot: the store's slots,
+    the caps, every epoch's graphs and the reject and fallback counts
+    equal JAX's, and the refreshed store collates the streaming graphs,
+    over 10 epochs."""
+    for name, value in (('POINTVS_AUG_SLACK_N', '0.05'),
+                        ('POINTVS_AUG_SLACK_E', '0.05'),
+                        ('POINTVS_AUG_PROBES', '1'),
+                        ('POINTVS_AUG_RETRIES', '2')):
+        monkeypatch.setenv(name, value)
+    (ds, jax_ds), (stream_ds, jax_stream) = _aug_datasets(), _aug_datasets()
+    host = dd.build_host_store(ds)
+    _assert_store_equal(host, jdd.build_host_store(jax_ds))
+    store = dd.DeviceGraphStore(host, CPU)
+    ids = list(range(len(ds)))
+    for epoch in range(10):
+        store.refresh(ds, epoch)     # raises if a draw outgrew its slot
+        stream_ds.set_epoch(epoch)
+        jax_stream.set_epoch(epoch)
+        samples = [stream_ds[i] for i in ids]
+        for i in ids:
+            want = jax_stream[i]
+            for field in ('node_feats', 'coords', 'senders', 'receivers',
+                          'edge_attr'):
+                np.testing.assert_array_equal(
+                    getattr(samples[i], field), getattr(want, field),
+                    err_msg=f'epoch {epoch} item {i} {field}')
+        for i in ids[stream_ds.pre_aug_ds_len:]:
+            n_cap, e_cap = stream_ds.aug_size_cap(i)
+            assert (n_cap, e_cap) == jax_stream.aug_size_cap(i)
+            assert samples[i].num_nodes <= n_cap
+            assert samples[i].num_edges <= e_cap
+        n_pad, e_pad = _pads(samples)
+        spec = dd.DeviceCollateSpec(n_pad, e_pad, len(ids), host.symmetric,
+                                    False)
+        _assert_batch_equal(
+            dd.collate_from_ids(store.arrays, np.asarray(ids, np.int32),
+                                spec),
+            pad_graphs_to_batch(samples, num_graphs=len(ids), n_pad=n_pad,
+                                e_pad=e_pad), f'epoch {epoch}')
+    assert ds.aug_rejects > 0
+    assert ds.aug_rejects == stream_ds.aug_rejects == jax_stream.aug_rejects
+    assert (ds.aug_fallbacks == stream_ds.aug_fallbacks
+            == jax_stream.aug_fallbacks)
+
+
 def test_aug_item_and_prefetched_refresh_match_sync():
     ds, _ = _aug_datasets()
     for epoch in (0, 3):
@@ -403,21 +454,51 @@ def _expand(host, lo, hi, spec):
                                            CPU), spec)
 
 
+# The raw codec by the encodings each case switches off; 'half' and 'full'
+# are the other codec (raw=False) on the mirrored store and on the store
+# taken as not mirrored.
 CODECS = {'default': {}, 'uint16': dict(rperm12=False, deg8=False),
-          'explicit_senders': dict(degrees=False, deg8=False)}
+          'explicit_senders': dict(degrees=False, deg8=False),
+          'half': None, 'full': None}
 
 
 @pytest.mark.parametrize('codec', sorted(CODECS))
-def test_chunk_codec_reproduces_the_store(stores, codec):
-    _, host, _ = stores
-    ranges, spec = dd.plan_chunks(host, host.nbytes / 3)
-    assert len(ranges) >= 3 and spec.raw and spec.half
-    assert spec.degrees and spec.coords16 and spec.rperm12 and spec.deg8
-    spec = spec._replace(coords16=False, **CODECS[codec])
+def test_chunk_codec_reproduces_the_store(stores, codec, monkeypatch):
+    _, host, jax_host = stores
+    raw = CODECS[codec] is not None
+    if codec == 'full':
+        monkeypatch.setattr(dd, '_mirrored', lambda _: False)
+        jax_host = jax_host._replace(symmetric=False)
+    ranges, spec = dd.plan_chunks(host, host.nbytes / 3, raw=raw)
+    assert len(ranges) >= 3 and spec.raw == raw
+    assert spec.half == (codec != 'full')
+    if raw:
+        assert spec.degrees and spec.coords16 and spec.rperm12 and spec.deg8
+        spec = spec._replace(coords16=False, **CODECS[codec])
+    else:
+        jranges, jspec = jdd.plan_chunks(jax_host, host.nbytes / 3,
+                                         raw=False)
+        assert ranges == jranges and spec._asdict() == jspec._asdict()
+        assert not (spec.degrees or spec.coords16 or spec.rperm12
+                    or spec.deg8)
+        jax_expand = jax.jit(lambda p: jdd.expand_chunk(p, jspec))
     a = host.arrays
     device_store = dd.DeviceGraphStore(host, CPU).arrays
     for lo, hi in ranges:
-        got = _expand(host, lo, hi, spec)
+        packed = dd.pack_chunk(host, lo, hi, spec)
+        got = dd.expand_chunk(dd.upload_chunk(packed, CPU), spec)
+        if not raw:
+            jpacked = jdd.pack_chunk(jax_host, lo, hi, jspec)
+            assert sorted(packed) == sorted(jpacked)
+            for key, value in packed.items():
+                assert value.dtype == jpacked[key].dtype, key
+                np.testing.assert_array_equal(value, jpacked[key],
+                                              err_msg=key)
+            want = jax_expand(packed)
+            for field in dd.DeviceStoreArrays._fields:
+                np.testing.assert_array_equal(
+                    getattr(got, field).numpy(),
+                    np.asarray(getattr(want, field)), err_msg=field)
         n_lo, n_hi = int(a.node_start[lo]), int(a.node_start[hi])
         e_lo, e_hi = int(a.edge_start[lo]), int(a.edge_start[hi])
         n, e, c = n_hi - n_lo, e_hi - e_lo, hi - lo
@@ -484,8 +565,18 @@ def test_chunk_codec_gates(stores):
     wide = host._replace(arrays=host.arrays._replace(
         rperm=host.arrays.rperm.astype(np.int32)))
     assert not dd.plan_chunks(wide, host.nbytes)[1].degrees
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        dd.plan_chunks(host, host.nbytes, raw=False)
+    # The other codec: none of the raw encodings, half the edge slots of
+    # a mirrored store, and no item past what uint16 ids can name.
+    _, lists = dd.plan_chunks(host, float('inf'), raw=False)
+    assert not (lists.raw or lists.degrees or lists.coords16
+                or lists.rperm12 or lists.deg8)
+    half_edges = int(host.arrays.edge_len.sum()) // 2
+    assert lists.half and lists.eh_fix == -(-half_edges // 4) * 4
+    num_nodes = host.num_nodes.copy()
+    num_nodes[0] = 0xffff
+    huge = host._replace(num_nodes=num_nodes)
+    with pytest.raises(ValueError, match='uint16'):
+        dd.plan_chunks(huge, host.nbytes, raw=False)
 
 
 def _sized_store(nodes, edges, feat_dim=17):

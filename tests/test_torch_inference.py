@@ -117,7 +117,8 @@ def test_orbax_run_dir_is_refused(tmp_path):
 
 
 # Modules of the training slice, the model families, the screen, the
-# attribution tail and scale-out that the walk below must reach.
+# attribution tail, scale-out and the dataset tools that the walk below
+# must reach.
 TRAINING_MODULES = (
     'fused_train', 'inference_engine', 'ops.fused_egnn', 'ops.fused_egnn_bwd',
     'parallel.steps', 'training.checkpoints', 'training.engine',
@@ -135,7 +136,16 @@ TRAINING_MODULES = (
     'attribution.constrained_attribution', 'attribution.process_pdb',
     'attribution.gromacs', 'attribution.md_gnn_correlation',
     'analysis.synthpharm_atomic_auc', 'analysis.pose_selection',
-    'analysis.ranking', 'constants')
+    'analysis.ranking', 'constants', 'data.gninatypes',
+    'dataset_generation.synthetic_affinity',
+    'dataset_generation.replicate_poses',
+    'dataset_generation.generate_types_file',
+    'dataset_generation.dir_based_to_types',
+    'dataset_generation.planar_check',
+    'dataset_generation.split_by_cdhit_output',
+    'dataset_generation.protein_clustering',
+    'dataset_generation.ligand_clustering',
+    'dataset_generation.strain_energy')
 
 
 def test_port_imports_no_jax():
@@ -184,6 +194,15 @@ def test_port_sources_name_no_jax_module():
             'analysis/synthpharm_atomic_auc.py',
             'analysis/pose_selection.py', 'analysis/ranking.py',
             'constants.py', 'parallel/mesh.py', 'parallel/launch.py',
-            'parallel/graph_shard.py'} <= names
+            'parallel/graph_shard.py', 'data/gninatypes.py',
+            'dataset_generation/synthetic_affinity.py',
+            'dataset_generation/replicate_poses.py',
+            'dataset_generation/generate_types_file.py',
+            'dataset_generation/dir_based_to_types.py',
+            'dataset_generation/planar_check.py',
+            'dataset_generation/split_by_cdhit_output.py',
+            'dataset_generation/protein_clustering.py',
+            'dataset_generation/ligand_clustering.py',
+            'dataset_generation/strain_energy.py'} <= names
     offenders = [str(p) for p in scanned if pattern.search(p.read_text())]
     assert not offenders

@@ -17,11 +17,12 @@ device-resident dataset off.
 
 Also: ``resume_training`` continues a 1-epoch run to epoch 3 with Adam's
 step count carried on; the serving CLI scores a port run directory to the
-trained model's predictions; every flag the port refuses raises
-``NotImplementedError`` naming ROADMAP.md before anything is written; and
-``--device cuda`` without CUDA raises.
+trained model's predictions; ``--scatter_cap`` (the reference's TPU window
+capacity) changes nothing in a run or in its resume; and ``--device
+cuda`` without CUDA raises.
 """
 import json
+import shutil
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ import yaml
 
 from pointvs_tpu.main import main as jax_main
 from pointvs_tpu_torch import inference
+from pointvs_tpu_torch.logging import get_logger
 from pointvs_tpu_torch.main import main as port_main
 from pointvs_tpu_torch.models.params import load_reference_checkpoint, \
     state_dict_from_flax
@@ -180,20 +182,54 @@ def test_resume_continues_from_the_saved_epoch(tmp_path):
     assert _adam_steps(trainer.optimiser.state_dict()) == {3}
 
 
-REFUSED = {
-    'scatter_cap': ['--scatter_cap', '64'],
-}
+@pytest.fixture(scope='module')
+def capped_runs(tmp_path_factory):
+    """One epoch with and without ``--scatter_cap 64``: (runs, Trainers)."""
+    root = tmp_path_factory.mktemp('scatter_cap')
+    runs, trainers = {}, {}
+    for name, extra in (('plain', []), ('capped', ['--scatter_cap', '64'])):
+        runs[name] = root / name
+        trainers[name] = port_main(
+            ['egnn', str(runs[name]), '--train_data_root_pose',
+             str(RESOURCES), '--train_types_pose',
+             str(RESOURCES / 'test.types'), '-b', '2', '-ep', '1',
+             '--device', 'cpu'] + CLI_MODEL[:4] + extra)
+    return runs, trainers
 
 
-@pytest.mark.parametrize('name', sorted(REFUSED))
-def test_refused_flags_raise_by_name(tmp_path, name):
-    save = tmp_path / 'run'
-    argv = ['egnn', str(save), '--train_data_root_pose', str(RESOURCES),
-            '--train_types_pose', str(RESOURCES / 'test.types'),
-            '--device', 'cpu']
-    with pytest.raises(NotImplementedError, match=r'ROADMAP\.md'):
-        port_main(argv + REFUSED[name])
-    assert not save.exists()
+def _weights(trainer):
+    return {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+
+@pytest.mark.parametrize('cli', ['main', 'resume'])
+def test_scatter_cap_has_no_effect(capped_runs, tmp_path, cli, caplog):
+    """The port's segment kernels have no windows to cap: a run with the
+    flag, and its resume from a cmd_args.yaml that carries it, end with
+    the weights of the run without it."""
+    runs, trainers = capped_runs
+    if cli == 'resume':
+        trainers = {}
+        logger = get_logger()   # its own handlers: no propagation
+        logger.addHandler(caplog.handler)
+        try:
+            for name, run in runs.items():
+                copy = tmp_path / name
+                shutil.copytree(run, copy)
+                args = yaml.safe_load((copy / 'cmd_args.yaml').read_text())
+                args['epochs_pose'] = 2
+                (copy / 'cmd_args.yaml').write_text(yaml.dump(args))
+                trainers[name] = resume_main([str(copy), '--device', 'cpu'])
+                assert trainers[name].p_epoch == 2
+        finally:
+            logger.removeHandler(caplog.handler)
+        assert '--scatter_cap 64 has no effect' in caplog.text
+    saved = yaml.safe_load((runs['capped'] / 'cmd_args.yaml').read_text())
+    assert saved['scatter_cap'] == 64
+    plain, capped = _weights(trainers['plain']), _weights(trainers['capped'])
+    assert sorted(plain) == sorted(capped)
+    for key, value in plain.items():
+        assert torch.equal(value, capped[key]), key
+    assert trainers['plain'].train_losses == trainers['capped'].train_losses
 
 
 def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):

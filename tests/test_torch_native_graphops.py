@@ -9,10 +9,14 @@ its numpy plain versions and the JAX package's struct helpers.
   ``rec_0``/``lig_0`` and on the parsed 7zzp pair, over inter/intra radii
   and pruning on and off.
 - ``counting_argsort`` equals ``np.argsort(kind='stable')``.
-- The build: two processes building into one empty directory both
-  succeed; a source that does not compile raises with g++'s stderr.
+- The build: into the directory ``POINTVS_NATIVE_CACHE`` names (by
+  default ``~/.cache/pointvs_tpu_torch/native``); two processes building
+  into one empty directory both succeed; a source that does not compile
+  raises with g++'s stderr.
 - The dataset's graphs equal those of the numpy plain versions.
 """
+import ctypes
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -173,20 +177,18 @@ def test_counting_argsort_refuses_ids_out_of_range():
 
 
 _BUILD_IN = '''
-import sys
-from pathlib import Path
 from pointvs_tpu_torch.native import build
-build.BUILD_DIR = Path(sys.argv[1])
 print(build.build())
 '''
 
 
 def test_two_processes_build_into_an_empty_directory(tmp_path):
     build_dir = tmp_path / 'build'
-    procs = [subprocess.Popen([sys.executable, '-c', _BUILD_IN,
-                               str(build_dir)], cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for _ in range(2)]
+    env = dict(os.environ, POINTVS_NATIVE_CACHE=str(build_dir))
+    procs = [subprocess.Popen([sys.executable, '-c', _BUILD_IN], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
     outs = [p.communicate(timeout=240) for p in procs]
     assert [p.returncode for p in procs] == [0, 0], outs
     paths = {out.strip() for out, _ in outs}
@@ -195,12 +197,31 @@ def test_two_processes_build_into_an_empty_directory(tmp_path):
     assert built == [Path(paths.pop()).name]   # no temporary left behind
 
 
+@pytest.mark.parametrize('cache', ['named', 'default'])
+def test_the_library_lives_where_POINTVS_NATIVE_CACHE_says(
+        tmp_path, monkeypatch, cache):
+    monkeypatch.setenv('HOME', str(tmp_path / 'home'))
+    if cache == 'named':
+        want = tmp_path / 'read_write' / 'native'
+        monkeypatch.setenv('POINTVS_NATIVE_CACHE', str(want))
+    else:
+        want = tmp_path / 'home' / '.cache' / 'pointvs_tpu_torch' / 'native'
+        monkeypatch.delenv('POINTVS_NATIVE_CACHE', raising=False)
+    path = native.library_path()
+    assert path.parent == want
+    assert path.name.startswith('libgraphops-') and path.suffix == '.so'
+    if cache == 'named':
+        assert native.build() == path and path.exists()
+        assert [p.name for p in want.iterdir()] == [path.name]
+        assert ctypes.CDLL(str(path)).pvs_counting_argsort
+
+
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path,
                                                         monkeypatch):
     broken = tmp_path / 'graphops.cpp'
     broken.write_text('extern "C" int pvs_box_filter( { }\n')
     monkeypatch.setattr(native, 'SRC', broken)
-    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setenv('POINTVS_NATIVE_CACHE', str(tmp_path / 'build'))
     with pytest.raises(RuntimeError, match='(?s)g\\+\\+ failed.*error'):
         native.build()
     assert not list((tmp_path / 'build').iterdir())

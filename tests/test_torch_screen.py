@@ -284,17 +284,12 @@ REFUSED = {
     'synthpharm': (dict(synthpharm=True), {}, ValueError, '--synthpharm'),
     'pair_layout': (dict(model='siamese'), {}, ValueError, 'siamese'),
     'dense_layout': (dict(model='lie_conv'), {}, ValueError, 'lie_conv'),
-    # An environment variable, not a run flag: the symmetric-half codec.
-    'chunk_raw_0': (dict(), {}, NotImplementedError,
-                    'POINTVS_SCREEN_CHUNK_RAW=0.*ROADMAP.md'),
 }
 
 
 @pytest.mark.parametrize('name', sorted(REFUSED))
 def test_refusals_by_name(runs, library, tmp_path, monkeypatch, name):
     saved, kwargs, error, match = REFUSED[name]
-    if name == 'chunk_raw_0':
-        monkeypatch.setenv('POINTVS_SCREEN_CHUNK_RAW', '0')
     run = _run_with(runs, tmp_path, **saved)
     out = tmp_path / 'hits.csv'
     with pytest.raises(error, match=match):
@@ -381,6 +376,8 @@ SCREEN_PATHS = {
     'chunked_exact': (dict(POINTVS_SCREEN_CHUNK_MB='0.02',
                            POINTVS_CHUNK_COORDS16='0'), 'chunked'),
     'chunked_coords16': (dict(POINTVS_SCREEN_CHUNK_MB='0.02'), 'chunked'),
+    'chunked_half': (dict(POINTVS_SCREEN_CHUNK_MB='0.02',
+                          POINTVS_SCREEN_CHUNK_RAW='0'), 'chunked'),
 }
 
 
@@ -390,7 +387,9 @@ def test_screen_paths_match_jax(runs, library, tmp_path, monkeypatch, name):
     scores within 1e-5: the JAX package's resident scores, and with
     coords16 (lossy) its own chunked scores under the same variables. At
     0.02 MB the five poses go to the device in at least 3 chunks, scored
-    in budget batches of at most 2 poses."""
+    in budget batches of at most 2 poses. Under
+    POINTVS_SCREEN_CHUNK_RAW=0 the chunks carry half edge lists, and the
+    CSV equals the port's resident screen's within 1e-5."""
     env, path = SCREEN_PATHS[name]
     for var, value in env.items():
         monkeypatch.setenv(var, value)
@@ -410,6 +409,7 @@ def test_screen_paths_match_jax(runs, library, tmp_path, monkeypatch, name):
     assert got.path == path and len(got.rows) == 5
     assert len(plans) == (path == 'chunked')
     assert all(len(ranges) >= 3 for ranges, _ in plans)
+    assert all(spec.raw == (name != 'chunked_half') for _, spec in plans)
     if name != 'chunked_coords16':
         monkeypatch.delenv('POINTVS_SCREEN_CHUNK_MB', raising=False)
         monkeypatch.delenv('POINTVS_SCREEN_DEVICE', raising=False)
@@ -420,6 +420,19 @@ def test_screen_paths_match_jax(runs, library, tmp_path, monkeypatch, name):
     assert sorted(scores) == sorted(jax_scores)
     for lig, score in scores.items():
         assert abs(score - jax_scores[lig]) <= 1e-5, lig
+    if name == 'chunked_half':
+        monkeypatch.delenv('POINTVS_SCREEN_CHUNK_RAW')
+        resident = port_screen.screen(
+            runs / 'pose', RESOURCES / 'rec_0.parquet', ligands,
+            output=str(tmp_path / 'resident.csv'), batch_size=2,
+            device='cpu')
+        assert resident.path == 'resident'
+        half_csv = pd.read_csv(tmp_path / 'port.csv')
+        resident_csv = pd.read_csv(tmp_path / 'resident.csv')
+        assert list(half_csv.ligand) == list(resident_csv.ligand)
+        assert list(half_csv['rank']) == list(resident_csv['rank'])
+        np.testing.assert_allclose(half_csv.score, resident_csv.score,
+                                   rtol=0, atol=1e-5)
 
 
 def test_store_cache_reloads_and_invalidates(runs, tmp_path):
