@@ -221,6 +221,22 @@ the edge-shard ranks. K1 on rank 0's edge shard of a real batch against
 its plain version in float64. Each rank's step ms and gradient
 all-reduce ms a step (pack, all-reduce, unpack) by CUDA events.
 
+After the screen, the streaming wire path (``wire``; ``data/wire.py``)
+with the README model on the screen's 256-pose library: batches at ``-b
+32`` in the v1, v2 and v3 wire formats and at ``-b 256`` (over 65,536
+padded nodes) in v2 and v1 (int32 ids), each compressed and packed on
+the host, copied to the card in one transfer and decoded there, every
+field bit-identical to the host batch moved array by array; the eval
+step on each, and at ``-b 32`` the module (K1/K2) and fused (K3/K4)
+training steps, packed and raw in turns from identical models, with
+identical outputs and parameters; the streaming screen
+(``POINTVS_SCREEN_DEVICE=0``) at ``-b 32`` and ``-b 256``, grouped
+(``POINTVS_SCREEN_GROUP``, 8) and scanned (``POINTVS_SCREEN_SCAN=1``),
+within 1e-5 of the resident store's scores; for each format the bytes a
+batch raw and packed, the host's compress and pack ms, the copy and the
+decode ms by CUDA events, and the steps' ms packed and raw. Its K1-K4
+launches join the kernels line's counts.
+
 Then the dataset tools (``dataset_tools``): ``replicate_poses train``
 writes 64 poses and ``replicate_poses screen`` a 256-pose library from a
 source tree laid out from ``tests/resources``, ``synthetic_affinity``
@@ -1325,6 +1341,9 @@ def phase_screen(torch, np, root: Path, card: str):
                   f'{diff:.2e}')
             if b == SCREEN_PATH_BATCH and name == SCREEN_PATH_RUN:
                 resident = result
+            if name == WIRE_RUN:
+                RESIDENT_SCORES[b] = {r['ligand']: r['score']
+                                      for r in result.rows}
     for key, counts in screen_paths(torch, np, root, receptor, ligands,
                                     resident, card).items():
         out[SCREEN_PATH_RUN] = {k: out[SCREEN_PATH_RUN].get(k, 0) + n
@@ -1453,6 +1472,310 @@ def screen_paths(torch, np, root: Path, receptor: Path, ligands: str,
           f'{warm.seconds["featurise"]:.3f}); resident without the cache '
           f'{resident.seconds["total"]:.3f} s')
     return out
+
+
+# --------------------------------------------------------------- wire
+WIRE_RUN = 'readme_softmax_6l'
+WIRE_BATCHES = (32, 256)
+WIRE_STEPS = 3          # training steps of each form, in turns
+WIRE_REPS = 20          # timed repeats of a copy, a decode or a step
+WIRE_GROUP_SCREENS = {'grouped': {}, 'scanned': {'POINTVS_SCREEN_SCAN': '1'}}
+# label -> (batch size, POINTVS_WIRE_V3, prefer_v2, wire class)
+WIRE_FORMATS = {
+    'v1 -b 32': (32, '0', False, 'WireBatch'),
+    'v2 -b 32': (32, '1', True, 'WireBatchV2'),
+    'v3 -b 32': (32, '1', None, 'WireBatchV3'),
+    'v2 -b 256': (256, '1', None, 'WireBatchV2'),   # the default there
+    'v1 -b 256': (256, '0', False, 'WireBatch'),    # int32 indices
+}
+# README screens of the library from phase_screen: batch -> scores.
+RESIDENT_SCORES = {}
+
+
+def _turns_ms(torch, dev, fns: dict, reps=WIRE_REPS) -> dict:
+    """Median ms of each of ``fns`` by CUDA events on ``dev`` (the host
+    clock on the CPU), the functions called in turns, after one warm-up
+    call each."""
+    for fn in fns.values():
+        fn()
+    cuda = dev.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+    marks = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                marks[name].append((start, end))
+            else:
+                start = time.perf_counter()
+                fn()
+                marks[name].append(1e3 * (time.perf_counter() - start))
+    if cuda:
+        torch.cuda.synchronize()
+        return {name: statistics.median(a.elapsed_time(b) for a, b in m)
+                for name, m in marks.items()}
+    return {name: statistics.median(m) for name, m in marks.items()}
+
+
+def _with_env(env: dict, fn):
+    import os
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_wire(torch, np, root: Path, card: str, dev=None,
+               batches=WIRE_BATCHES, min_v2_nodes=65536):
+    """The streaming wire path (``data/wire.py``) with the README model on
+    the screen's library: (a) batches of the library at ``-b 32`` in v1,
+    v2 and v3 and at ``-b 256`` (n_pad >= 65536) in v2 (the default
+    there) and v1 (int32 ids), each packed on the host, copied to the
+    card and decoded there, every field bit-identical to the host batch
+    moved array by array; (b) on each, the eval step packed and raw, and
+    at ``-b 32`` (v3) the training step on the module path (K1/K2) and on
+    the fused path (K3/K4) from identical models, packed and raw in turns:
+    identical outputs and parameters (a second raw model is the control);
+    (c) the streaming screen (``POINTVS_SCREEN_DEVICE=0``) at ``-b 32``
+    and ``-b 256``, grouped (``POINTVS_SCREEN_GROUP`` 8) and again under
+    ``POINTVS_SCREEN_SCAN=1``, within 1e-5 of the resident store's scores
+    (phase_screen); (d) for each format the bytes a batch raw and packed,
+    the host's compress and pack ms, the H2D copy ms of each by CUDA
+    events (from pinned memory), the decode ms and the eval step ms packed
+    and raw; the training steps' ms packed and raw. Each packed path's
+    launches are counted. Returns the launches by kernel."""
+    import copy
+    from pointvs_tpu_torch import inference
+    from pointvs_tpu_torch import screen as screen_mod
+    from pointvs_tpu_torch.data import wire
+    from pointvs_tpu_torch.data.buckets import to_device
+    from pointvs_tpu_torch.ops import segment_kernels as sk
+    from pointvs_tpu_torch.parallel.steps import make_eval_step, \
+        make_train_step
+    from pointvs_tpu_torch.training.optimisers import build_optimiser
+    dev = dev or torch.device('cuda')
+    cuda = dev.type == 'cuda'
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    lib = root / 'library'
+    types = lib / 'poses.types'
+    run = root / WIRE_RUN
+    trainer, _ = inference.get_model_and_test_dl(
+        str(run), str(types), str(lib), dev, batch_size=batches[0])
+    model = trainer.model
+    host = {}
+    for b in batches:
+        _, loader = inference.get_model_and_test_dl(
+            str(run), str(types), str(lib), torch.device('cpu'),
+            batch_size=b)
+        host[b] = next(iter(loader))[0]
+    check(host[batches[1]].node_feats.shape[0] >= min_v2_nodes,
+          f'wire: the -b {batches[1]} batch has '
+          f'{host[batches[1]].node_feats.shape[0]} padded nodes')
+    eval_step = make_eval_step(model, 'classification')
+    launches = {'k1': 0, 'k2': 0, 'k3': 0, 'k4': 0}
+
+    def add_launches(counts):
+        for key, name in (('k1', 'segment_sum_sorted'),
+                          ('k2', 'softmax_aggregate_sorted'),
+                          ('k3', 'fused_edge_forward'),
+                          ('k4', 'fused_edge_backward')):
+            launches[key] += counts.get(name, 0)
+
+    packed_v3 = None
+    for label, (b, v3, prefer_v2, cls) in WIRE_FORMATS.items():
+        b = batches[0] if b == 32 else batches[1]
+        batch = host[b]
+        symmetric = batch.inv_recv_perm is not None
+        wire_batch = _with_env({'POINTVS_WIRE_V3': v3},
+                               lambda: wire.compress(batch, prefer_v2))
+        check(type(wire_batch).__name__ == cls,
+              f'wire {label}: compressed as {type(wire_batch).__name__}')
+        host_ms = _turns_ms(torch, torch.device('cpu'), {'host': lambda: (
+            wire.pack(_with_env({'POINTVS_WIRE_V3': v3},
+                                lambda: wire.compress(batch, prefer_v2))))},
+            reps=5)['host']
+        tmpl = wire.template(wire_batch)
+        packed = wire.pack(wire_batch)
+        raw = to_device(batch, dev)
+        staged = wire.upload(packed, dev)
+        decoded = wire.decode(staged, tmpl, symmetric)
+        sync()
+        _assert_batches_equal(torch, decoded, raw, f'wire {label}')
+        raw_bytes = sum(a.nbytes for a in batch if a is not None)
+        # The copies alone, from pinned memory, by events.
+        pinned_raw = [torch.from_numpy(np.ascontiguousarray(a))
+                      for a in batch if a is not None]
+        pinned_packed = torch.from_numpy(packed)
+        if cuda:
+            pinned_raw = [t.pin_memory() for t in pinned_raw]
+            pinned_packed = pinned_packed.pin_memory()
+        buf = wire.ready(staged)
+        copy_ms = _turns_ms(torch, dev, {
+            'raw': lambda: [t.to(dev, non_blocking=True)
+                            for t in pinned_raw],
+            'packed': lambda: pinned_packed.to(dev, non_blocking=True),
+            'decode': lambda: wire.decode(buf, tmpl, symmetric)})
+        packed_batch = ('packed', buf, tmpl, symmetric)
+        sk.reset_launch_counts()
+        got = eval_step(packed_batch)
+        sync()
+        counts = sk.launch_counts()
+        add_launches(counts)
+        want = eval_step(raw)
+        check(torch.equal(got, want),
+              f'wire {label}: packed and raw eval steps differ by '
+              f'{float((got - want).abs().max())}')
+        check(not cuda or counts['softmax_aggregate_sorted'] == 6,
+              f'wire {label}: packed eval launches {counts}')
+        eval_ms = _turns_ms(torch, dev, {
+            'raw': lambda: eval_step(raw),
+            'packed': lambda: eval_step(packed_batch)})
+        print(f'wire: {card}: {label} ({cls}, N {batch.node_feats.shape[0]}'
+              f', E {batch.senders.shape[0]}): bytes raw {raw_bytes} packed '
+              f'{packed.nbytes} ({raw_bytes / packed.nbytes:.2f}x); host '
+              f'compress+pack {host_ms:.3f} ms; H2D copy raw '
+              f'{copy_ms["raw"]:.4f} ms (13 arrays) packed '
+              f'{copy_ms["packed"]:.4f} ms; decode {copy_ms["decode"]:.4f}'
+              f' ms; eval step (in turns) raw '
+              f'{eval_ms["raw"]:.3f} packed {eval_ms["packed"]:.3f} ms; '
+              f'fields bit-identical, eval outputs '
+              f'identical; launches {counts}')
+        if label == 'v3 -b 32':
+            packed_v3 = (raw, packed_batch)
+
+    # (b) training steps, packed and raw in turns, from identical models.
+    raw, packed_batch = packed_v3
+    for fused in (False, True):
+        models = {form: copy.deepcopy(model) for form in
+                  ('raw', 'raw_control', 'packed')}
+        steps = {}
+        for form, net in models.items():
+            opt = build_optimiser(net.parameters(), 'adam', 1e-4, TRAIN_LR)
+            steps[form] = make_train_step(net, opt, 'classification',
+                                          with_metrics=True,
+                                          use_fused=fused)
+        outs = {form: [] for form in models}
+        counts = {}
+        for _ in range(WIRE_STEPS):
+            for form in models:
+                sk.reset_launch_counts()
+                outs[form].append(steps[form](
+                    packed_batch if form == 'packed' else raw, TRAIN_LR))
+                sync()
+                if form == 'packed':
+                    for k, n in sk.launch_counts().items():
+                        counts[k] = counts.get(k, 0) + n
+        add_launches(counts)
+        path = 'fused' if fused else 'module'
+        control = all(torch.equal(a, c) for a, c in
+                      zip(outs['raw'], outs['raw_control'])) and all(
+            torch.equal(p, q) for p, q in
+            zip(models['raw'].parameters(),
+                models['raw_control'].parameters()))
+        same = all(torch.equal(a, c) for a, c in
+                   zip(outs['raw'], outs['packed'])) and all(
+            torch.equal(p, q) for p, q in
+            zip(models['raw'].parameters(), models['packed'].parameters()))
+        worst = max(float((a - c).abs().max()) for a, c in
+                    zip(outs['raw'], outs['packed']))
+        check(same, f'wire: {path} training steps packed and raw differ '
+                    f'(outputs by {worst}; raw against raw identical: '
+                    f'{control})')
+        layers = README_6L['num_layers'] * WIRE_STEPS
+        if not cuda:   # no launches on the CPU
+            pass
+        elif fused:
+            check(counts['fused_edge_forward'] == layers
+                  and counts['fused_edge_backward'] == layers,
+                  f'wire: packed fused steps launched {counts}')
+        else:
+            check(counts['softmax_aggregate_sorted'] == layers
+                  and counts['segment_sum_sorted'] > 0,
+                  f'wire: packed module steps launched {counts}')
+        step_ms = _turns_ms(torch, dev, {
+            'raw': lambda: steps['raw'](raw, TRAIN_LR),
+            'packed': lambda: steps['packed'](packed_batch, TRAIN_LR)})
+        device = ''
+        if cuda:   # one profiled step of each: kernel time on the card
+            kernel_ms = {form: sum(kernel_profile(torch, lambda: steps[form](
+                batch, TRAIN_LR))[0].values())
+                for form, batch in (('raw', raw), ('packed', packed_batch))}
+            device = (f'; one profiled step\'s kernel time raw '
+                      f'{kernel_ms["raw"]:.3f} packed '
+                      f'{kernel_ms["packed"]:.3f} ms')
+        print(f'wire: {card}: {path} training step -b {batches[0]} (v3): '
+              f'{WIRE_STEPS} steps packed and raw in turns identical '
+              f'(losses {[float(o[0]) for o in outs["packed"]]}); step ms '
+              f'(in turns, CUDA events) raw {step_ms["raw"]:.3f} packed '
+              f'{step_ms["packed"]:.3f}{device}; packed launches {counts}')
+
+    # (c) the streaming screen, grouped and scanned.
+    receptor = lib / 'rec_0.parquet'
+    ligands = str(lib / 'lig_*.parquet')
+    real_upload = screen_mod.upload
+    copies = []
+
+    def upload(host_bufs, device):
+        copies.append(len(host_bufs))
+        return real_upload(host_bufs, device)
+
+    screen_mod.upload = upload
+    try:
+        for b in batches:
+            for name, env in WIRE_GROUP_SCREENS.items():
+                copies.clear()
+                sk.reset_launch_counts()
+                result = _with_env(
+                    dict(env, POINTVS_SCREEN_DEVICE='0'),
+                    lambda: screen_mod.screen(
+                        run, receptor, ligands, output=str(
+                            root / f'wire_screen_{name}_{b}.csv'),
+                        batch_size=b, device=dev.type))
+                sync()
+                counts = sk.launch_counts()
+                add_launches(counts)
+                n_batches = -(-len(result.rows) // b)
+                calls = sum(copies) if name == 'scanned' else n_batches
+                check(result.path == 'streaming' and (
+                      not cuda or counts['softmax_aggregate_sorted']
+                      == 6 * calls and counts['segment_offsets'] == calls),
+                      f'wire screen {name} -b {b}: path {result.path}, '
+                      f'launches {counts}, group copies {copies}')
+                scores = {r['ligand']: r['score'] for r in result.rows}
+                want = RESIDENT_SCORES.get(b)
+                worst = float('nan')
+                if want is not None:
+                    check(sorted(scores) == sorted(want),
+                          f'wire screen {name} -b {b}: other ligands')
+                    worst = max(abs(scores[k] - want[k]) for k in want)
+                    check(worst <= 1e-5, f'wire screen {name} -b {b}: '
+                                         f'scores differ from the resident '
+                                         f'store\'s by {worst}')
+                sec = result.seconds
+                print(f'wire: {card}: screen {name} -b {b} (streaming, '
+                      f'group copies {copies}): {result.poses_per_second:.1f}'
+                      f' poses/s, wall {sec["total"]:.3f} s (featurise '
+                      f'{sec["featurise"]:.3f}, score {sec["score"]:.3f}); '
+                      f'max|score - resident| {worst:.2e}; launches '
+                      f'{counts}')
+    finally:
+        screen_mod.upload = real_upload
+    return launches
 
 
 # -------------------------------------------------------- attribution
@@ -3858,6 +4181,7 @@ def main() -> int:
                              types, n_poses)
             screen_launches = timed('screen', phase_screen, torch, np, root,
                                     card)
+            wire_launches = timed('wire', phase_wire, torch, np, root, card)
             attr_launches, attr_err = timed('attribution', phase_attribution,
                                             torch, np, root, card)
             err['k1'] = max(err['k1'], attr_err['k1'])
@@ -3931,18 +4255,22 @@ def main() -> int:
     kernels = [
         entry('segment_sum_sorted', K1_SOURCE, K1_REPLACES,
               served('segment_sum_sorted') + dd_launches['k1']
-              + so_launches['k1'] + tools_launches['k1'], 'k1', 'k1_36'),
+              + so_launches['k1'] + tools_launches['k1']
+              + wire_launches['k1'], 'k1', 'k1_36'),
         entry('softmax_aggregate_sorted[softmax]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', softmax_runs)
               + dd_launches['k2'] + so_launches['k2']
-              + tools_launches['k2'], 'softmax', 'softmax'),
+              + tools_launches['k2'] + wire_launches['k2'], 'softmax',
+              'softmax'),
         entry('softmax_aggregate_sorted[sigmoid]', K1_SOURCE, K2_REPLACES,
               served('softmax_aggregate_sorted', ['sigmoid_3l']),
               'sigmoid', 'sigmoid'),
         entry('fused_edge_forward', K3_SOURCE, K3_REPLACES,
-              train_launches['k3'] + dd_launches['k3'], 'k3', 'k3'),
+              train_launches['k3'] + dd_launches['k3']
+              + wire_launches['k3'], 'k3', 'k3'),
         entry('fused_edge_backward', K4_SOURCE, K4_REPLACES,
-              train_launches['k4'] + dd_launches['k4'], 'k4', 'k4'),
+              train_launches['k4'] + dd_launches['k4']
+              + wire_launches['k4'], 'k4', 'k4'),
         entry('threefry_dropout', DROPOUT_SOURCE, DROPOUT_REPLACES,
               family_launches['lucid_3l_dropout']['threefry_dropout'],
               'dropout', 'dropout_edge'),
@@ -3957,7 +4285,7 @@ def main() -> int:
           f'synthpharm CLI {sp_launches}; screens {screen_launches}; '
           f'attribution {attr_launches}; attribution tail {tail_launches}; '
           f'scale-out (every rank) {so_launches}; dataset tools '
-          f'{tools_launches}')
+          f'{tools_launches}; packed wire paths {wire_launches}')
     print(f'phase wall seconds: {json.dumps(phase_seconds)}')
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -35,13 +35,17 @@ The batch is the model's input layout:
   Each training pass first refreshes the store's augmented tail for its
   epoch and starts featurising the next epoch's in the background.
 
-Host batches stay on the host: the consumer moves each to the device
-(``data.buckets.to_device``, pinned memory and non-blocking copies on the
-consumer's stream). ``BatchMeta.y`` and ``graph_mask`` are host copies of
-the batch's labels and slot mask ([1, B] for an ids batch, as the
-reference's loader builds them); ``BatchMeta.items`` holds the dataset
-indices of the real slots. The reference's TPU window capacity
-(``meta.cap``) is not here.
+``transfer_fn`` (None by default; the Trainer sets its ``_to_device``,
+the screen its packing) is applied to every batch in the producer thread
+(``_apply_transfer``), as in the reference: collation, wire packing
+(``data/wire.py``) and the host-to-device copy on a side CUDA stream then
+overlap the consumer's steps, which wait on the copy's event before they
+read it. Without prefetching it runs in the consumer. Cached batches are
+kept on the host and transferred again on each pass.
+``BatchMeta.y`` and ``graph_mask`` are host copies of the batch's labels
+and slot mask ([1, B] for an ids batch, as the reference's loader builds
+them); ``BatchMeta.items`` holds the dataset indices of the real slots.
+The reference's TPU window capacity (``meta.cap``) is not here.
 
 Scale-out, as the reference's multi-process loader: with ``num_shards``
 > 1 the loader is one data-parallel rank's. Every rank draws the same
@@ -140,6 +144,8 @@ class GraphDataLoader:
         # as its index stream replays from its seed.
         self._epochs_started = 0
         self.device_store = None
+        # Applied to each (host) batch in the producer thread.
+        self.transfer_fn = None
 
     def __len__(self) -> int:
         n = -(-len(self.dataset) // self.num_shards)   # the longest stripe
@@ -178,16 +184,25 @@ class GraphDataLoader:
 
     def _empty(self, batch):
         """A collated placeholder with no real slot, node or edge (nothing
-        of it enters a loss or a whole-batch statistic)."""
+        of it enters a loss or a whole-batch statistic); its edges are all
+        padding, as the wire form's decode reads them."""
         if isinstance(batch, SiamesePair):
             return SiamesePair(self._empty(batch.rec), self._empty(batch.lig))
         blank = dict(y=np.zeros_like(batch.y),
                      graph_mask=np.zeros_like(batch.graph_mask))
         if isinstance(batch, GraphBatch):
+            n_pad = batch.node_feats.shape[0]
+            order = np.arange(batch.senders.shape[0], dtype=np.int32)
             blank.update(node_mask=np.zeros_like(batch.node_mask),
                          edge_mask=np.zeros_like(batch.edge_mask),
                          graph_id=np.full_like(batch.graph_id,
-                                               batch.graph_mask.shape[0]))
+                                               batch.graph_mask.shape[0]),
+                         senders=np.full_like(batch.senders, n_pad),
+                         receivers=np.full_like(batch.receivers, n_pad),
+                         edge_attr=np.zeros_like(batch.edge_attr),
+                         recv_perm=order,
+                         inv_recv_perm=(None if batch.inv_recv_perm is None
+                                        else order))
         else:   # DenseBatch
             blank.update(m=np.zeros_like(batch.m))
         return batch._replace(**blank)
@@ -261,7 +276,19 @@ class GraphDataLoader:
                                    [s.rec_fname for s in samples],
                                    batch.y, batch.graph_mask, chunk)
 
-    def _prefetched(self) -> Iterator[Tuple[AnyBatch, BatchMeta]]:
+    def _apply_transfer(self, item):
+        """``(transfer_fn(batch), meta)``, or the item as it is without a
+        ``transfer_fn``."""
+        if self.transfer_fn is None:
+            return item
+        batch, meta = item
+        return self.transfer_fn(batch), meta
+
+    def _prefetched(self, cache=None) -> Iterator[Tuple[AnyBatch,
+                                                         BatchMeta]]:
+        """The produced batches, collated and transferred by one producer
+        thread; each host item is also appended to ``cache`` where given.
+        """
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         done = object()
         errors = []
@@ -272,7 +299,7 @@ class GraphDataLoader:
                 for item in self._produce():
                     if stop.is_set():
                         return
-                    q.put(item)
+                    q.put((item, self._apply_transfer(item)))
             except BaseException as exc:   # raised in the consumer
                 errors.append(exc)
             finally:
@@ -282,12 +309,14 @@ class GraphDataLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
-                if item is done:
+                got = q.get()
+                if got is done:
                     if errors:
                         raise errors[0]
                     return
-                yield item
+                if cache is not None:
+                    cache.append(got[0])
+                yield got[1]
         finally:
             # A consumer that stops early lets the producer finish.
             stop.set()
@@ -311,15 +340,17 @@ class GraphDataLoader:
                 self.device_store.refresh(self.dataset, epoch)
                 self.device_store.prefetch_refresh(self.dataset, epoch + 1)
         if self._batch_cache is not None:
-            yield from self._batch_cache
+            for item in self._batch_cache:
+                yield self._apply_transfer(item)
             return
         cache = [] if self._cacheable else None
-        source = (self._prefetched() if self.prefetch > 0
-                  else self._produce())
-        for item in source:
-            if cache is not None:
-                cache.append(item)
-            yield item
+        if self.prefetch > 0:
+            yield from self._prefetched(cache)
+        else:
+            for item in self._produce():
+                if cache is not None:
+                    cache.append(item)
+                yield self._apply_transfer(item)
         if cache is not None:
             self._batch_cache = cache
 

@@ -18,7 +18,9 @@ Wrappers (numpy in, numpy out):
   order, with the pruning BFS;
 - ``counting_argsort``: stable argsort of bounded non-negative ids, and
   ``lexsort_pairs``, the (row, column) order of an edge list from two of
-  them.
+  them;
+- ``native_symhalf``: the v3 wire format's eligibility check of one
+  collated edge list and its sender < receiver half (``data/wire.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ CXX_FLAGS = ('-O3', '-ffp-contract=off', '-shared', '-fPIC')
 _DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int32)
 _BP = ctypes.POINTER(ctypes.c_uint8)
+_HP = ctypes.POINTER(ctypes.c_uint16)
 SIGNATURES = {
     # lig_xyz, n_lig, rec_xyz, n_rec, radius, keep -> kept count
     'pvs_box_filter': ((_DP, ctypes.c_int, _DP, ctypes.c_int,
@@ -54,6 +57,10 @@ SIGNATURES = {
     # ids, n, max_id, out_order
     'pvs_counting_argsort': ((_IP, ctypes.c_int64, ctypes.c_int32, _IP),
                              None),
+    # senders, receivers, recv_perm, edge_class, e, n_pad, half_s, half_r,
+    # half_bits -> edges with sender < receiver, or -1 if ineligible
+    'pvs_symhalf': ((_IP, _IP, _IP, _BP, ctypes.c_int64, ctypes.c_int32,
+                     _HP, _HP, _BP), ctypes.c_int64),
 }
 
 
@@ -171,3 +178,30 @@ def lexsort_pairs(rows: np.ndarray, cols: np.ndarray,
     their order) for ids in [0, max_id]: two stable counting sorts."""
     by_col = counting_argsort(cols, max_id)
     return by_col[counting_argsort(np.asarray(rows)[by_col], max_id)]
+
+
+def native_symhalf(senders: np.ndarray, receivers: np.ndarray,
+                   recv_perm: np.ndarray, edge_class: np.ndarray,
+                   n_pad: int):
+    """(half_senders, half_receivers, half_class_bits) of one collated
+    edge list for the v3 wire format: uint16 [E/2], uint16 [E/2] and uint8
+    [E/8], or None when the list is ineligible (``pvs_symhalf`` in
+    ``graphops.cpp`` says when). ``wire._symhalf_numpy`` is its plain
+    version."""
+    e = len(senders)
+    if e % 8 or not 0 <= n_pad <= 65535:
+        return None
+    senders = np.ascontiguousarray(senders, dtype=np.int32)
+    receivers = np.ascontiguousarray(receivers, dtype=np.int32)
+    recv_perm = np.ascontiguousarray(recv_perm, dtype=np.int32)
+    edge_class = np.ascontiguousarray(edge_class, dtype=np.uint8)
+    half_s = np.empty(e // 2, np.uint16)
+    half_r = np.empty(e // 2, np.uint16)
+    bits = np.empty(e // 8, np.uint8)
+    n_up = load().pvs_symhalf(
+        _ptr(senders, _IP), _ptr(receivers, _IP), _ptr(recv_perm, _IP),
+        _ptr(edge_class, _BP), e, int(n_pad), _ptr(half_s, _HP),
+        _ptr(half_r, _HP), _ptr(bits, _BP))
+    if n_up < 0:
+        return None
+    return half_s, half_r, bits

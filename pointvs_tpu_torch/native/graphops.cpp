@@ -7,7 +7,9 @@
 // (preprocessing.make_box_numpy / generate_edges_numpy) element for
 // element: the same strict `< r` and `> 1e-7` comparisons and the same
 // row-major edge order, the inter-molecular block first, then the
-// intra block unfiltered by molecule. native/build.py compiles this file
+// intra block unfiltered by molecule. Also the host half of the v3 wire
+// format (data/wire.py): the eligibility check of a symmetric edge list
+// and its sender < receiver half. native/build.py compiles this file
 // with g++ at first use and binds it with ctypes.
 
 #include <algorithm>
@@ -297,6 +299,62 @@ void pvs_counting_argsort(const int32_t* ids, int64_t n, int32_t max_id,
     for (int64_t i = 0; i < n; ++i) {
         out_order[counts[ids[i]]++] = static_cast<int32_t>(i);
     }
+}
+
+// The v3 wire format's host half of one collated edge list (e edges,
+// node padding n_pad). The list is eligible when
+//   - its (sender, receiver) pairs are in lexicographic order,
+//   - every edge's mirror sits where recv_perm says:
+//     senders[recv_perm[i]] == receivers[i] (with the collator's
+//     receivers[recv_perm] == senders, each edge's mirror exists),
+//   - every edge is padding (s == r == n_pad) or has s != r, both ids
+//     below n_pad, and as many edges have s < r as s > r.
+// Then the s < r edges, in list order, go to half_s / half_r as uint16
+// and their classes (0-2) to half_bits, four 2-bit codes a byte, lowest
+// bits first; the e/2 - n_up slots after them hold n_pad, n_pad and
+// class 3. Returns n_up, or -1 for an ineligible list (nothing written
+// is then meaningful).
+int64_t pvs_symhalf(const int32_t* senders, const int32_t* receivers,
+                    const int32_t* recv_perm, const uint8_t* edge_class,
+                    int64_t e, int32_t n_pad, uint16_t* half_s,
+                    uint16_t* half_r, uint8_t* half_bits) {
+    if (e % 8 != 0 || n_pad < 0 || n_pad > 65535) return -1;
+    const int64_t half = e / 2;
+    int64_t up = 0, down = 0;
+    for (int64_t i = 0; i < e; ++i) {
+        const int32_t s = senders[i], r = receivers[i];
+        if (i > 0) {
+            const int32_t ps = senders[i - 1], pr = receivers[i - 1];
+            if (s < ps || (s == ps && r < pr)) return -1;
+        }
+        const int32_t m = recv_perm[i];
+        if (m < 0 || m >= e || senders[m] != r) return -1;
+        if (s == n_pad && r == n_pad) continue;
+        if (s < 0 || r < 0 || s >= n_pad || r >= n_pad || s == r) return -1;
+        if (s < r) {
+            ++up;
+        } else {
+            ++down;
+        }
+    }
+    if (up != down) return -1;
+    std::memset(half_bits, 0, static_cast<size_t>(half / 4));
+    int64_t k = 0;
+    for (int64_t i = 0; i < e; ++i) {
+        if (senders[i] < receivers[i]) {
+            half_s[k] = static_cast<uint16_t>(senders[i]);
+            half_r[k] = static_cast<uint16_t>(receivers[i]);
+            half_bits[k >> 2] |= static_cast<uint8_t>(
+                (edge_class[i] & 3u) << (2 * (k & 3)));
+            ++k;
+        }
+    }
+    for (; k < half; ++k) {
+        half_s[k] = static_cast<uint16_t>(n_pad);
+        half_r[k] = static_cast<uint16_t>(n_pad);
+        half_bits[k >> 2] |= static_cast<uint8_t>(3u << (2 * (k & 3)));
+    }
+    return up;
 }
 
 }  // extern "C"

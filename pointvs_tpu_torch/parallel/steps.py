@@ -36,9 +36,19 @@ ids[1, B], store, spec)`` (``data/loader.py``): the step collates it on
 the store's device (``device_dataset.collate_from_ids``) and, in a
 training step whose ``spec.rotate`` is set, rotates each graph under
 ``rot_key`` (the reference's ``fold_in(step rng, 0x526f7461)``), then
-runs the same module or fused core. Evaluation never rotates. The
-reference's wire and packed batch forms are not in the port (ROADMAP.md,
-Queue 1).
+runs the same module or fused core. Evaluation never rotates.
+
+They also take the reference's packed batch, ``('packed', buf, template,
+symmetric)`` (``data/wire.py``): one uint8 buffer on the device (a
+``wire.Staged`` whose copy the step waits for), the host template of
+its fields and the host's verdict that the edge list is symmetric (a
+Python bool). The step decodes it into a ``GraphBatch`` as its first
+operation (``wire.decode``); the rest is the raw batch's step, so a packed
+batch and its raw ``GraphBatch`` give the same outputs bit for bit. The
+edge-shard steps of ``--graph_shard`` take raw batches, as the
+reference's do. ``make_scan_eval_step`` scores a group of packed batches
+of one template, ``[G, nbytes]``, in one call, as the reference's
+``lax.scan`` program does: here a loop over the group's rows.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from pointvs_tpu_torch.data.buckets import cast_floats
+from pointvs_tpu_torch.data.wire import decode, is_packed, ready
 from pointvs_tpu_torch.fused_train import fused_apply
 from pointvs_tpu_torch.inference_engine import fused_forward, \
     supports_fusion
@@ -80,10 +91,14 @@ def is_ids_batch(batch) -> bool:
 
 
 def graph_batch(batch, rot_key=None, rotate: bool = True):
-    """The model input of ``batch``: an ids batch collated on its store's
-    device (the store a ``DeviceGraphStore`` or an expanded chunk's
-    arrays; with ``rotate``, rotated under ``rot_key`` when its spec says
-    so); any other batch as it is."""
+    """The model input of ``batch``: a packed batch decoded on its
+    buffer's device; an ids batch collated on its store's device (the
+    store a ``DeviceGraphStore`` or an expanded chunk's arrays; with
+    ``rotate``, rotated under ``rot_key`` when its spec says so); any
+    other batch as it is."""
+    if is_packed(batch):
+        _, buf, template, symmetric = batch
+        return decode(buf, template, bool(symmetric))
     if not is_ids_batch(batch):
         return batch
     from pointvs_tpu_torch.data.device_dataset import (collate_from_ids,
@@ -134,8 +149,9 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
                     use_fused: bool = False,
                     multitask: bool = False, mesh=None) -> Callable:
     """Returns ``step(batch, lr, dropout_rng=None, rot_key=None)``: one
-    optimiser step on a batch of tensors on the model's device (or an ids
-    batch, collated there and rotated under ``rot_key``), with the model's
+    optimiser step on a batch of tensors on the model's device (or a
+    packed batch, decoded there, or an ids batch, collated there and
+    rotated under ``rot_key``), with the model's
     dropout drawn under ``dropout_rng`` (the step's raw JAX key,
     uint32[2]: what the reference's step passes as ``rngs={'dropout':
     ...}``, after its fold of the device index). It returns the loss (a
@@ -219,8 +235,9 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
 def make_eval_step(model, model_task: Optional[str] = None,
                    use_fused: bool = False,
                    multitask: bool = False) -> Callable:
-    """Returns ``step(batch) -> logits``; it never drops edges, and an
-    ids batch is collated without rotation.
+    """Returns ``step(batch) -> logits``; it never drops edges, a packed
+    batch is decoded first and an ids batch is collated without
+    rotation.
 
     The fused engine (``inference_engine.fused_forward``, kernel K3) is
     taken under the reference's gate: ``use_fused``, at least 6 layers and
@@ -244,4 +261,22 @@ def make_eval_step(model, model_task: Optional[str] = None,
         return model(batch, **apply_kwargs)
 
     step.fused = fuse
+    return step
+
+
+def make_scan_eval_step(model, model_task: Optional[str] = None,
+                        multitask: bool = False) -> Callable:
+    """Returns ``step(group, template, symmetric) -> logits [G, B, out]``:
+    the module forward (as the reference's scan program runs it) of each
+    of a group of packed batches of one ``template``, ``group`` a
+    ``[G, nbytes]`` uint8 tensor or a ``wire.Staged`` of one. The group's
+    copy is waited for once; its rows are decoded and scored in order."""
+    eval_step = make_eval_step(model, model_task, multitask=multitask)
+
+    def step(group, template, symmetric: bool = False) -> torch.Tensor:
+        rows = ready(group)
+        return torch.stack([
+            eval_step(('packed', rows[i], template, bool(symmetric)))
+            for i in range(rows.shape[0])])
+
     return step

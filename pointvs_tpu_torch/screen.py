@@ -36,8 +36,15 @@ How the library reaches the device (the reference's store decision):
   batches: contiguous poses until ``POINTVS_SCREEN_EDGE_BUDGET`` edges
   (default 131072) or ``POINTVS_SCREEN_MAX_BS`` poses (default four
   batches) fill one fixed (nodes, edges) shape.
-- **Streaming** (``POINTVS_SCREEN_DEVICE=0``): the host collates every
-  batch, after one sizing pass over the library.
+- **Streaming** (``POINTVS_SCREEN_DEVICE=0``, and always under
+  ``POINTVS_SCREEN_SCAN=1``): the host collates every batch, after one
+  sizing pass over the library, and the loader's producer thread
+  compresses and packs it (``data/wire.py``). ``POINTVS_SCREEN_GROUP``
+  (default 8) packed batches of one wire template go to the device as one
+  ``[G, nbytes]`` copy from pinned memory; the eval step then decodes and
+  scores each of them, or under ``POINTVS_SCREEN_SCAN=1`` the scan eval
+  step scores the whole group in one call, a short last group padded by
+  repeating its last buffer (``parallel/steps.make_scan_eval_step``).
 
 With ``--attribute_top N`` the N best hits are attributed with the method
 ``--attribution`` names (``attribution.score_atoms``, the run's radius and
@@ -60,10 +67,10 @@ top hits' attributions one device writes.
 
 Refused as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
-and dense layouts. The reference's grouped, scanned and one-shot scoring
-programs (``POINTVS_SCREEN_GROUP``, ``_SCAN``, ``_ONESHOT``,
-``_REPEAT``) give the scores of these paths; the port reads none of
-them.
+and dense layouts. The reference's one-shot and repeated scoring
+programs (``POINTVS_SCREEN_ONESHOT``, ``_REPEAT``) and its scan's
+unrolling (``POINTVS_SCREEN_UNROLL``) tune XLA programs; they give the
+scores of these paths and the port reads none of them (README.md).
 
 Usage:
     python -m pointvs_tpu_torch.screen <run_dir> <receptor.parquet> \\
@@ -87,19 +94,22 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pointvs_tpu_torch.data.buckets import pick_bucket, to_device
+from pointvs_tpu_torch.data.buckets import pick_bucket
 from pointvs_tpu_torch.data.device_dataset import (
     STORE_FORMAT, DeviceCollateSpec, DeviceGraphStore, build_host_store,
     expand_chunk, load_host_store, pack_chunk, plan_chunks,
     save_host_store, upload_chunk)
 from pointvs_tpu_torch.data.loader import BatchMeta, get_data_loader
+from pointvs_tpu_torch.data.wire import Staged, compress, pack, template, \
+    upload
 from pointvs_tpu_torch.device import refuse_double_on_cuda, resolve_device
 from pointvs_tpu_torch.inference import _auto_num_devices
 from pointvs_tpu_torch.models.load_model import load_model, run_args
 from pointvs_tpu_torch.models.registry import model_input_kind
 from pointvs_tpu_torch.parallel.launch import spawn
 from pointvs_tpu_torch.parallel.mesh import Mesh
-from pointvs_tpu_torch.parallel.steps import is_ids_batch, make_eval_step
+from pointvs_tpu_torch.parallel.steps import make_eval_step, \
+    make_scan_eval_step
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
 LOG = get_logger()
@@ -284,6 +294,72 @@ def _score_chunked(host, chunk_budget: float, eval_fn, device,
     return logits, metas
 
 
+def _pack_host(batch) -> tuple:
+    """A host batch compressed and packed on the host: ``('host_packed',
+    bytes, template, symmetric)``."""
+    wire = compress(batch)
+    return ('host_packed', pack(wire), template(wire),
+            batch.inv_recv_perm is not None)
+
+
+def _score_streaming(loader, eval_fn, scan_fn, device, calls: int):
+    """Score the loader's batches, packed in its producer thread, in
+    groups of ``POINTVS_SCREEN_GROUP`` batches of one template: one copy
+    of the group's bytes to the device, then the eval step on each member,
+    or ``scan_fn`` on the whole group, a short last group padded by
+    repeating its last buffer. A stripe with fewer than ``calls`` batches
+    scores placeholders after its own, so that every rank makes the same
+    calls in the same groups. Returns (logits, metas) in library order."""
+    group_size = max(1, int(os.environ.get('POINTVS_SCREEN_GROUP', '8')))
+    loader.transfer_fn = _pack_host
+    loader.prefetch = max(loader.prefetch, 3)
+
+    def stream():
+        n = 0
+        for item in loader:
+            n += 1
+            yield item
+        for _ in range(calls - n):
+            yield _pack_host(loader.placeholder()), None
+
+    logits, metas, group = [], [], []
+    scan_len = None
+
+    def flush(final: bool):
+        nonlocal scan_len
+        _, _, tmpl, symmetric = group[0][0]
+        bufs = [batch[1] for batch, _ in group]
+        if scan_fn is not None:
+            if scan_len is None:
+                scan_len = (len(bufs) if final and len(bufs) < group_size
+                            else group_size)
+            bufs += [bufs[-1]] * (scan_len - len(bufs))
+        staged = upload(bufs, device)
+        if scan_fn is not None:
+            out = scan_fn(staged, tmpl, symmetric)
+        else:
+            out = [eval_fn(('packed', Staged(staged.data[i], staged.event),
+                            tmpl, symmetric)) for i in range(len(group))]
+        for (_, meta), row in zip(group, out):
+            if meta is not None:
+                logits.append(row)
+                metas.append(meta)
+        group.clear()
+
+    def kind(batch):   # batches of one kind share a group
+        return type(batch[2]), batch[2], batch[3]
+
+    for batch, meta in stream():
+        if group and kind(batch) != kind(group[0][0]):
+            flush(False)
+        group.append((batch, meta))
+        if len(group) == group_size:
+            flush(False)
+    if group:
+        flush(True)
+    return logits, metas
+
+
 def screen(model_path, receptor, ligands, output='screen_results.csv',
            batch_size: int = 256, radius: float = 10,
            edge_radius: float = 4, estimate_bonds: bool = False,
@@ -375,7 +451,8 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
 
     dataset = loader.dataset
     host = None
-    if os.environ.get('POINTVS_SCREEN_DEVICE', '1') == '1':
+    scan = os.environ.get('POINTVS_SCREEN_SCAN', '0') == '1'
+    if os.environ.get('POINTVS_SCREEN_DEVICE', '1') == '1' and not scan:
         store_path = None
         if job['cache_dir'] is not None:
             store_path = _store_cache_path(
@@ -421,25 +498,26 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
             path = 'resident'
         else:
             path = 'chunked'
+    # The longest stripe's batches, on every rank: a shorter stripe
+    # scores one more batch without a pose.
+    calls = -(-(-(-len(lig_files) // mesh.n_dp)) // batch_size)
     if path == 'chunked':
         logits, metas = _score_chunked(host, chunk_mb * 1e6 or budget,
                                        eval_fn, torch_device, batch_size,
                                        mesh)
-    else:
+    elif path == 'resident':
         logits, metas = [], []
         for batch, meta in loader:
-            if not is_ids_batch(batch):
-                batch = to_device(batch, torch_device)
             logits.append(eval_fn(batch))
             metas.append(meta)
-        # The longest stripe's calls on every rank: a shorter stripe
-        # scores one more batch without a pose.
-        calls = -(-(-(-len(lig_files) // mesh.n_dp)) // batch_size)
         for _ in range(calls - len(logits)):
-            if is_ids_batch(batch):
-                eval_fn(('ids', np.full_like(batch[1], -1)) + batch[2:])
-            else:
-                eval_fn(to_device(loader.placeholder(), torch_device))
+            eval_fn(('ids', np.full_like(batch[1], -1)) + batch[2:])
+    else:
+        scan_fn = (make_scan_eval_step(trainer.model, trainer.model_task,
+                                       multitask=trainer.multitask)
+                   if scan else None)
+        logits, metas = _score_streaming(loader, eval_fn, scan_fn,
+                                         torch_device, calls)
     # One copy back, after every batch is dispatched.
     drained = torch.stack(logits).float().cpu().numpy()
     rows = []

@@ -69,7 +69,11 @@ sharding; the device-resident dataset is off under graph sharding.
 ``len()``; the batch is the model's input kind (``input_kind``: a
 ``GraphBatch``, a ``SiamesePair`` or a ``DenseBatch``), whose ``y`` and
 ``graph_mask`` the losses and metrics read (a pair's are its receptor
-side's), and ``meta`` names each slot's files.
+side's), and ``meta`` names each slot's files. ``train_model`` and
+``val`` set a ``GraphDataLoader``'s ``transfer_fn`` to ``_to_device``, as
+the reference's engine does: each host ``GraphBatch`` is compressed,
+packed into one buffer and copied to the device in the loader's producer
+thread (``data/wire.py``), and the step decodes it.
 """
 from __future__ import annotations
 
@@ -85,7 +89,10 @@ import torch
 import torch.distributed as dist
 
 from pointvs_tpu_torch.analysis.top_n import regression_pearson, top_n
-from pointvs_tpu_torch.data.buckets import to_device
+from pointvs_tpu_torch.data.buckets import GraphBatch, SiamesePair, \
+    to_device
+from pointvs_tpu_torch.data.wire import carries_exactly, is_packed, \
+    num_graphs, pack_batch
 from pointvs_tpu_torch.models.layers import init_parameters
 from pointvs_tpu_torch.models.params import load_reference_checkpoint
 from pointvs_tpu_torch.models.registry import build_model, \
@@ -110,10 +117,20 @@ PROFILE_STEPS = (3, 8)   # first epoch's traced batches: [start, stop)
 
 
 def _slots(batch) -> int:
-    """Graph slots of a batch (an ids batch's from its spec)."""
+    """Graph slots of a batch (an ids batch's from its spec, a packed
+    one's from its template)."""
     if is_ids_batch(batch):
         return batch[3].num_graphs
+    if is_packed(batch):
+        return num_graphs(batch[2])
     return batch.graph_mask.shape[0]
+
+
+def _on_device(batch) -> bool:
+    """Whether a batch's arrays are tensors already."""
+    if isinstance(batch, SiamesePair):
+        batch = batch.rec
+    return torch.is_tensor(batch[0])
 
 
 def _merge_rows(parts):
@@ -273,10 +290,19 @@ class Trainer:
         return list(self._allreduce_ms)
 
     def _to_device(self, batch):
-        """A host batch on the Trainer's device; an ids batch as it is (its
-        step collates it from the store on the store's device)."""
-        if is_ids_batch(batch):
+        """A host ``GraphBatch`` compressed, packed into one buffer and
+        copied to the Trainer's device in one transfer
+        (``wire.pack_batch``); a ``SiamesePair``, a ``DenseBatch``, an
+        edge shard of ``--graph_shard`` and a ``GraphBatch`` that the wire
+        form cannot carry exactly (``wire.carries_exactly``: no collator
+        makes one) moved array by array (``to_device``); an ids batch, a
+        packed batch and a batch already on a device as they are. The
+        loaders run it in their producer thread (``transfer_fn``)."""
+        if is_ids_batch(batch) or is_packed(batch) or _on_device(batch):
             return batch
+        if isinstance(batch, GraphBatch) and self.graph_shard == 1 \
+                and carries_exactly(batch):
+            return pack_batch(batch, self.device)
         return to_device(batch, self.device)
 
     def _maybe_enable_device_dataset(self, loader) -> None:
@@ -419,6 +445,8 @@ class Trainer:
         """Epoch/batch loop (ref ``train_model``)."""
         init_epoch, start = self.training_setup(data_loader, epochs)
         self._maybe_enable_device_dataset(data_loader)
+        if hasattr(data_loader, 'transfer_fn'):
+            data_loader.transfer_fn = self._to_device
         step_fn = make_train_step(self.model, self.optimiser,
                                   self.model_task, self.regression_loss,
                                   with_metrics=True,
@@ -573,6 +601,8 @@ class Trainer:
         if self.mesh.chief:
             mkdir(predictions_file.parent)
         self._maybe_enable_device_dataset(data_loader)
+        if hasattr(data_loader, 'transfer_fn'):
+            data_loader.transfer_fn = self._to_device
         eval_fn = make_eval_step(self.model, self.model_task, use_fused,
                                  multitask=self.multitask)
         local = []

@@ -19,7 +19,10 @@ Also: ``resume_training`` continues a 1-epoch run to epoch 3 with Adam's
 step count carried on; the serving CLI scores a port run directory to the
 trained model's predictions; ``--scatter_cap`` (the reference's TPU window
 capacity) changes nothing in a run or in its resume; and ``--device
-cuda`` without CUDA raises.
+cuda`` without CUDA raises. With ``--device_cache off`` every batch goes
+to the step in the packed wire form (``data/wire.py``); with the loader's
+producer thread (``--prefetch 2``) the run gives the in-line run's
+losses exactly.
 """
 import json
 import shutil
@@ -119,6 +122,26 @@ def test_cli_trajectory_matches_jax(runs):
     for g, w in zip(got_rows, want_rows):
         assert g[:2] == w[:2] and g[3:] == w[3:]
         assert abs(float(g[2]) - float(w[2])) <= 1.1e-3
+
+
+def test_producer_thread_transfer_matches_jax(runs):
+    """The same run with the loader's producer thread (``--prefetch 2``),
+    which collates, packs (data/wire.py) and copies each batch ahead of
+    the step (``--device_cache off``: every batch goes by the wire): the
+    losses of the in-line run exactly, and JAX's within the gate."""
+    root, _, port_trainer = runs
+    argv = _argv(root / 'port_prefetch', root / 'train.types',
+                 ['--load_weights', str(root / 'init.pt')])
+    argv[argv.index('--prefetch') + 1] = '2'
+    trainer = port_main(argv + ['--device', 'cpu'])
+    assert trainer.train_losses == port_trainer.train_losses
+    logged = {r['Batch (train, pose)']: r['Loss (train, pose)']
+              for r in _metrics(root / 'jax') if 'Loss (train, pose)' in r}
+    for batch, loss in logged.items():
+        np.testing.assert_allclose(trainer.train_losses[batch - 1], loss,
+                                   **TRAJ_TOL)
+    assert (root / 'port_prefetch' / 'pose_predictions.txt').read_text() \
+        == (root / 'port' / 'pose_predictions.txt').read_text()
 
 
 def test_run_directory_matches_jax(runs):

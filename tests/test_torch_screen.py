@@ -24,7 +24,11 @@ does). Each refusal by name. ``num_devices=2`` (two spawned gloo ranks,
 each a stripe of the library) on the resident, streaming and chunked
 paths and with a strict-GraphNorm run (whose whole-batch statistics sum
 over the ranks) against the JAX screen on 2 of the suite's XLA host
-devices, within 1e-5, and the port's one-device CSV row for row.
+devices, within 1e-5, and the port's one-device CSV row for row. The
+streaming screen in groups of POINTVS_SCREEN_GROUP=3 packed batches (five
+batches: a group of 3 and one of 2), and scanned under
+POINTVS_SCREEN_SCAN=1, gives the ungrouped scores exactly and the JAX
+screen's within 1e-5.
 """
 import csv
 import shutil
@@ -433,6 +437,55 @@ def test_screen_paths_match_jax(runs, library, tmp_path, monkeypatch, name):
         assert list(half_csv['rank']) == list(resident_csv['rank'])
         np.testing.assert_allclose(half_csv.score, resident_csv.score,
                                    rtol=0, atol=1e-5)
+
+
+STREAM_GROUPS = {'grouped': {}, 'scanned': {'POINTVS_SCREEN_SCAN': '1'}}
+
+
+@pytest.mark.parametrize('name', sorted(STREAM_GROUPS))
+def test_grouped_streaming_screen_matches_ungrouped_and_jax(
+        runs, library, tmp_path, monkeypatch, name):
+    """The streaming screen's groups: five batches of one pose in groups of
+    POINTVS_SCREEN_GROUP=3 (one copy each of 3 and 2 batches; under
+    POINTVS_SCREEN_SCAN=1, which streams even with the resident store on,
+    the short last group is padded to 3 by repeating its last buffer) give
+    the ungrouped screen's scores exactly and the JAX screen's within
+    1e-5."""
+    ligands = str(library[0] / '[pc]o*.parquet')
+    monkeypatch.setenv('POINTVS_SCREEN_DEVICE', '0')
+    monkeypatch.setenv('POINTVS_SCREEN_GROUP', '1')
+    one = port_screen.screen(runs / 'pose', RESOURCES / 'rec_0.parquet',
+                             ligands, output=str(tmp_path / 'one.csv'),
+                             batch_size=1, device='cpu')
+    if name == 'scanned':
+        monkeypatch.delenv('POINTVS_SCREEN_DEVICE')
+    for var, value in STREAM_GROUPS[name].items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setenv('POINTVS_SCREEN_GROUP', '3')
+    copies = []
+
+    def upload(host, device):
+        copies.append(len(host))
+        return real_upload(host, device)
+
+    real_upload = port_screen.upload
+    monkeypatch.setattr(port_screen, 'upload', upload)
+    grouped = port_screen.screen(runs / 'pose', RESOURCES / 'rec_0.parquet',
+                                 ligands, output=str(tmp_path / 'g.csv'),
+                                 batch_size=1, device='cpu')
+    assert one.path == grouped.path == 'streaming'
+    assert copies == ([3, 3] if name == 'scanned' else [3, 2])
+    assert _scores(grouped) == _scores(one)
+    for var in ('POINTVS_SCREEN_DEVICE', 'POINTVS_SCREEN_SCAN',
+                'POINTVS_SCREEN_GROUP'):
+        monkeypatch.delenv(var, raising=False)
+    want = jax_screen(runs / 'pose', RESOURCES / 'rec_0.parquet', ligands,
+                      output=str(tmp_path / 'jax.csv'), batch_size=1)
+    jax_scores = dict(zip(want.ligand, want.score))
+    scores = _scores(grouped)
+    assert sorted(scores) == sorted(jax_scores)
+    for lig, score in scores.items():
+        assert abs(score - jax_scores[lig]) <= 1e-5, lig
 
 
 def test_store_cache_reloads_and_invalidates(runs, tmp_path):

@@ -8,7 +8,11 @@ tests/test_train_trajectory.py: atol 1e-4, rtol 1e-5), and the fused path's
 trajectory against the module path's at the same gate; the segment
 kernels' custom gradients (plain route) against the plain functions' own
 autograd (1e-5); a ``.pt`` checkpoint round trip, with a JAX forward on the
-imported weights within 1e-5 of the port's.
+imported weights within 1e-5 of the port's. The packed wire form
+(``data/wire.py``) of a real batch in v1, v2 and v3: the packed train,
+eval and scan steps equal the raw batch's exactly, the packed eval step
+is within 1e-5 of the JAX package's packed eval step, and the Trainer
+packs collated batches only.
 """
 from collections import namedtuple
 
@@ -352,3 +356,116 @@ def test_trainer_nan_guard(tmp_path):
                       k=K, dim_output=1, num_layers=2, **FLAGS)
     with pytest.raises(FloatingPointError):
         trainer.train_model(_Loader([(_host(bad), None)]), epochs=1)
+
+
+# --------------------------------------------------------------------- #
+# The packed batch form (data/wire.py) in the steps: on the same batch the
+# packed train, eval and scan steps give the raw batch's outputs exactly,
+# in each wire format; the packed eval step matches the JAX package's
+# packed eval step within 1e-5.
+WIRE_FORMATS = {'v1': dict(prefer_v2=False, v3='0'),
+                'v2': dict(prefer_v2=True, v3='1'),
+                'v3': dict(prefer_v2=False, v3='1')}
+
+
+def _real_batch():
+    from tests.setup_and_params import ORIGINAL_GRAPH_TWO_ITEMS
+    return _host(ORIGINAL_GRAPH_TWO_ITEMS)
+
+
+def _packed(batch, fmt, monkeypatch):
+    from pointvs_tpu_torch.data import wire
+    opts = WIRE_FORMATS[fmt]
+    monkeypatch.setenv('POINTVS_WIRE_V3', opts['v3'])
+    packed = wire.compress(batch, prefer_v2=opts['prefer_v2'])
+    assert type(packed).__name__ == {'v1': 'WireBatch', 'v2': 'WireBatchV2',
+                                     'v3': 'WireBatchV3'}[fmt]
+    return ('packed', wire.upload(wire.pack(packed), torch.device('cpu')),
+            wire.template(packed), batch.inv_recv_perm is not None)
+
+
+def _wire_model(seed=0):
+    from pointvs_tpu_torch.models.layers import init_parameters
+    model = build_model('egnn', dim_input=DIM_IN, k=K, dim_output=1,
+                        num_layers=LAYERS, **FLAGS)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+@pytest.mark.parametrize('fmt', sorted(WIRE_FORMATS))
+def test_packed_train_step_equals_raw(fmt, monkeypatch):
+    batch = _real_batch()
+    packed = _packed(batch, fmt, monkeypatch)
+    outs, weights = [], []
+    for form in ('raw', 'packed'):
+        model = _wire_model()
+        opt = optimisers.build_optimiser(model.parameters(), 'adam', WD, LR)
+        step = make_train_step(model, opt, 'classification',
+                               with_metrics=True)
+        outs.append([step(port_batch(batch) if form == 'raw' else packed, LR)
+                     for _ in range(3)])
+        weights.append([p.detach().clone() for p in model.parameters()])
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)
+    for got, want in zip(weights[1], weights[0]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('fmt', sorted(WIRE_FORMATS))
+def test_packed_eval_and_scan_steps_equal_raw(fmt, monkeypatch):
+    from pointvs_tpu_torch.data import wire
+    from pointvs_tpu_torch.parallel.steps import make_scan_eval_step
+    batch = _real_batch()
+    shifted = batch._replace(coords=batch.coords + np.float32(0.25))
+    model = _wire_model(1)
+    eval_step = make_eval_step(model, 'classification')
+    raw = [eval_step(port_batch(b)) for b in (batch, shifted, batch)]
+    packed = [_packed(b, fmt, monkeypatch) for b in (batch, shifted, batch)]
+    for got, want in zip([eval_step(p) for p in packed], raw):
+        assert torch.equal(got, want)
+    group = wire.upload([wire.ready(p[1]).numpy() for p in packed],
+                        torch.device('cpu'))
+    scanned = make_scan_eval_step(model, 'classification')(
+        group, packed[0][2], packed[0][3])
+    assert scanned.shape == (3,) + raw[0].shape
+    assert torch.equal(scanned, torch.stack(raw))
+
+
+def test_packed_eval_matches_jax_packed_eval():
+    from pointvs_tpu.data import wire as ref_wire
+    from pointvs_tpu.data.buckets import stack_device_batches
+    from pointvs_tpu.parallel.mesh import get_mesh, replicate, shard_batch
+    from pointvs_tpu.parallel.steps import make_eval_step as jax_eval_step
+    from pointvs_tpu_torch.data import wire
+    from tests.setup_and_params import ORIGINAL_GRAPH_TWO_ITEMS
+    from tests.test_torch_egnn import jax_model_and_params, port_model
+    batch = ORIGINAL_GRAPH_TWO_ITEMS
+    jax_model, params = jax_model_and_params(FLAGS, batch, False, seed=3)
+    mesh = get_mesh(1)
+    stacked = stack_device_batches([batch])
+    ref = ref_wire.compress(stacked)
+    want = np.asarray(jax_eval_step(jax_model, 'classification', mesh)(
+        replicate(params, mesh),
+        ('packed', shard_batch(ref_wire.pack_stacked(ref), mesh),
+         ref_wire.stacked_template(ref), True))).reshape(-1, 1)
+    host = _host(batch)
+    packed = wire.pack_batch(host, torch.device('cpu'))
+    assert type(packed[2]).__name__ == type(ref).__name__ == 'WireBatchV3'
+    got = make_eval_step(port_model(FLAGS, params), 'classification')(
+        packed).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_trainer_packs_collated_batches_only(tmp_path):
+    """The Trainer ships a collated batch packed; a batch the wire form
+    cannot carry exactly (random float features) moves array by array."""
+    from pointvs_tpu_torch.data.wire import Staged
+    trainer = Trainer('egnn', tmp_path, torch.device('cpu'), silent=True,
+                      dim_input=DIM_IN, k=K, dim_output=1, num_layers=2,
+                      **FLAGS)
+    packed = trainer._to_device(_real_batch())
+    assert packed[0] == 'packed' and isinstance(packed[1], Staged)
+    assert trainer._to_device(packed) is packed
+    raw = trainer._to_device(_host(_trajectory_batches(17)[0]))
+    assert isinstance(raw, HostBatch) and torch.is_tensor(raw.node_feats)
+    assert trainer._to_device(raw) is raw
