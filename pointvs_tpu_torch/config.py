@@ -120,7 +120,8 @@ _FLAGS = (
     ('--profile', (), dict(
         action='store_true',
         help='Write a torch.profiler trace of steps 3-8 of the first epoch '
-             'to <save_path>/profile')),
+             'to <save_path>/profile: the device\'s kernels and the '
+             'port\'s spans (pointvs.train.*, pointvs.step.*)')),
     ('--debug_nans', (), dict(
         action='store_true',
         help='torch.autograd anomaly detection: fail at the first op whose '

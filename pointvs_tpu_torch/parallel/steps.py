@@ -21,6 +21,9 @@ alike. The caller folds the rank's index into the dropout key (the
 reference's ``fold_in(key, axis_index)``); the model's own groups
 (``edge_shard_axis``, ``batch_shard_axis``) reduce inside the forward.
 On a GPU the all-reduce is timed by CUDA events (``step.allreduce_ms``).
+Under a profiler the training step's parts are spans (``tracing.py``):
+``pointvs.step.collate`` (also in the eval step), ``forward`` (with the
+loss), ``backward`` (with ``allreduce`` on a mesh) and ``optimiser``.
 
 Both steps take any of the model inputs (``GraphBatch``, ``SiamesePair``,
 ``DenseBatch``); the loss and metrics read ``batch.y`` and
@@ -62,6 +65,7 @@ from pointvs_tpu_torch.data.wire import decode, is_packed, ready
 from pointvs_tpu_torch.fused_train import fused_apply
 from pointvs_tpu_torch.inference_engine import fused_forward, \
     supports_fusion
+from pointvs_tpu_torch.tracing import span
 from pointvs_tpu_torch.training.losses import loss_fn
 from pointvs_tpu_torch.training.optimisers import clip_and_step
 
@@ -95,22 +99,25 @@ def graph_batch(batch, rot_key=None, rotate: bool = True):
     buffer's device; an ids batch collated on its store's device (the
     store a ``DeviceGraphStore`` or an expanded chunk's arrays; with
     ``rotate``, rotated under ``rot_key`` when its spec says so); any
-    other batch as it is."""
+    other batch as it is. The decode and the collation run inside
+    ``pointvs.step.collate``."""
     if is_packed(batch):
         _, buf, template, symmetric = batch
-        return decode(buf, template, bool(symmetric))
+        with span('pointvs.step.collate'):
+            return decode(buf, template, bool(symmetric))
     if not is_ids_batch(batch):
         return batch
     from pointvs_tpu_torch.data.device_dataset import (collate_from_ids,
                                                        rotate_per_graph)
     _, ids, store, spec = batch
     ids = ids[0]
-    out = collate_from_ids(getattr(store, 'arrays', store), ids, spec)
-    if rotate and spec.rotate:
-        if rot_key is None:
-            raise ValueError('a rotating ids batch needs the step\'s '
-                             'rot_key')
-        out = rotate_per_graph(out, rot_key, ids, spec.num_graphs)
+    with span('pointvs.step.collate'):
+        out = collate_from_ids(getattr(store, 'arrays', store), ids, spec)
+        if rotate and spec.rotate:
+            if rot_key is None:
+                raise ValueError('a rotating ids batch needs the step\'s '
+                                 'rot_key')
+            out = rotate_per_graph(out, rot_key, ids, spec.num_graphs)
     return out
 
 
@@ -178,25 +185,18 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
         return model(batch, train=True, dropout_rng=dropout_rng,
                      **apply_kwargs)
 
-    def step(batch, lr: float, dropout_rng=None,
-             rot_key=None) -> torch.Tensor:
-        model.train()
-        batch = model_input(graph_batch(batch, rot_key))
-        logits = forward(batch, dropout_rng)
-        loss_sum, weight = loss_fn(logits, batch, model_task,
-                                   regression_loss)
-        optimiser.zero_grad(set_to_none=True)
-        metrics = (pred_metrics(logits.detach(), batch, model_task)
-                   if with_metrics else None)
-        if distributed:
-            loss_sum.backward()
-            for p in params:   # the reference's zero gradients
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            stats = torch.stack([loss_sum.detach(), weight.detach()])
-            if metrics is not None:
-                stats = torch.cat([stats, metrics])
-            timed = stats.device.type == 'cuda'
+    def backward_over_mesh(loss_sum, weight, metrics):
+        """The rank's gradients, then one all-reduce of them with the
+        stats (``pointvs.step.allreduce``); the global (loss, metrics)."""
+        loss_sum.backward()
+        for p in params:   # the reference's zero gradients
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        stats = torch.stack([loss_sum.detach(), weight.detach()])
+        if metrics is not None:
+            stats = torch.cat([stats, metrics])
+        timed = stats.device.type == 'cuda'
+        with span('pointvs.step.allreduce'):
             if timed:
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
@@ -206,17 +206,33 @@ def make_train_step(model, optimiser: torch.optim.Optimizer,
             if timed:
                 events[1].record()
                 allreduce_events.append(events)
-            weight = torch.clamp_min(stats[1], 1.0)
-            for p in params:
-                p.grad.div_(weight)
-            loss = stats[0] / weight
-            metrics = stats[2:] if metrics is not None else None
-        else:
-            loss = loss_sum / torch.clamp_min(weight, 1.0)
-            loss.backward()
-        if to_f32:
-            lr = float(torch.tensor(lr, dtype=torch.float32))
-        clip_and_step(optimiser, lr)
+        weight = torch.clamp_min(stats[1], 1.0)
+        for p in params:
+            p.grad.div_(weight)
+        return (stats[0] / weight,
+                stats[2:] if metrics is not None else None)
+
+    def step(batch, lr: float, dropout_rng=None,
+             rot_key=None) -> torch.Tensor:
+        model.train()
+        batch = model_input(graph_batch(batch, rot_key))
+        with span('pointvs.step.forward'):
+            logits = forward(batch, dropout_rng)
+            loss_sum, weight = loss_fn(logits, batch, model_task,
+                                       regression_loss)
+            optimiser.zero_grad(set_to_none=True)
+            metrics = (pred_metrics(logits.detach(), batch, model_task)
+                       if with_metrics else None)
+        with span('pointvs.step.backward'):
+            if distributed:
+                loss, metrics = backward_over_mesh(loss_sum, weight, metrics)
+            else:
+                loss = loss_sum / torch.clamp_min(weight, 1.0)
+                loss.backward()
+        with span('pointvs.step.optimiser'):
+            if to_f32:
+                lr = float(torch.tensor(lr, dtype=torch.float32))
+            clip_and_step(optimiser, lr)
         out = loss.detach()
         if metrics is not None:
             out = torch.cat([out[None], metrics.to(out.dtype)])

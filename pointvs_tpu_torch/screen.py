@@ -65,6 +65,14 @@ store past the budget chunks them all); rank 0 gathers every rank's
 rows, restores library order, and writes the CSV, the manifest and the
 top hits' attributions one device writes.
 
+A profiler running in the caller sees the call as ten spans
+(``tracing.py``) that tile it in order: ``pointvs.screen.collect``,
+``load_model``, ``dataset``, ``cache_key``, ``store_load``, ``bucket``,
+``store_upload``, ``eval``, ``drain``, ``rank_write`` (the store's three
+only on the resident and chunked paths, the cache key only with
+``--cache_dir``). In a re-screen from ``--cache_dir``, ``store_load`` is
+the cached store's read; in a first screen it is the featurisation.
+
 Refused as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
 and dense layouts. The reference's one-shot and repeated scoring
@@ -110,6 +118,7 @@ from pointvs_tpu_torch.parallel.launch import spawn
 from pointvs_tpu_torch.parallel.mesh import Mesh
 from pointvs_tpu_torch.parallel.steps import make_eval_step, \
     make_scan_eval_step
+from pointvs_tpu_torch.tracing import span
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
 LOG = get_logger()
@@ -381,12 +390,13 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     torch_device = resolve_device(device)
     start = time.perf_counter()
 
-    lig_files = _collect_ligands(ligands)
-    if not lig_files:
-        raise SystemExit(f'No ligand files found under {ligands}')
-    # Size-sorted (a stat, not a parquet read, per file): batches of
-    # similar poses waste less padding under the one pinned bucket.
-    lig_files = sorted(lig_files, key=_file_size)
+    with span('pointvs.screen.collect'):
+        lig_files = _collect_ligands(ligands)
+        if not lig_files:
+            raise SystemExit(f'No ligand files found under {ligands}')
+        # Size-sorted (a stat, not a parquet read, per file): batches of
+        # similar poses waste less padding under the one pinned bucket.
+        lig_files = sorted(lig_files, key=_file_size)
     job = dict(model_path=model_path, receptor=expand_path(receptor),
                lig_files=lig_files, output=Path(output),
                batch_size=batch_size, radius=radius,
@@ -419,35 +429,37 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
     stripe = lig_files[mesh.dp_rank::mesh.n_dp]
     batch_size = job['batch_size'] // mesh.n_dp
     manifest = output.with_suffix('.types')
-    if mesh.chief:
-        LOG.info(f'Screening {len(lig_files)} ligands against '
-                 f'{receptor.name}')
-        mkdir(output.parent if output.parent != Path('') else '.')
-        manifest.write_text(''.join(f'{receptor} {lig}\n'
-                                    for lig in lig_files))
-    # A rank reads its own stripe's manifest.
-    rank_manifest = manifest
-    if mesh.distributed:
-        rank_manifest = Path(tempfile.mkdtemp()) / 'stripe.types'
-        rank_manifest.write_text(''.join(f'{receptor} {lig}\n'
-                                         for lig in stripe))
+    with span('pointvs.screen.load_model'):
+        if mesh.chief:
+            LOG.info(f'Screening {len(lig_files)} ligands against '
+                     f'{receptor.name}')
+            mkdir(output.parent if output.parent != Path('') else '.')
+            manifest.write_text(''.join(f'{receptor} {lig}\n'
+                                        for lig in lig_files))
+        # A rank reads its own stripe's manifest.
+        rank_manifest = manifest
+        if mesh.distributed:
+            rank_manifest = Path(tempfile.mkdtemp()) / 'stripe.types'
+            rank_manifest.write_text(''.join(f'{receptor} {lig}\n'
+                                             for lig in stripe))
 
-    trainer, model_kwargs, cmd_args = load_model(job['model_path'],
-                                                 torch_device, mesh=mesh)
-    task = model_kwargs.get('model_task', 'classification')
-    trainer.set_task('classification' if task == 'both' else task)
+        trainer, model_kwargs, cmd_args = load_model(job['model_path'],
+                                                     torch_device, mesh=mesh)
+        task = model_kwargs.get('model_task', 'classification')
+        trainer.set_task('classification' if task == 'both' else task)
     loaded = time.perf_counter()
 
-    loader = get_data_loader(
-        '/', rank_manifest, batch_size=batch_size,
-        compact=cmd_args.get('compact', True),
-        radius=cmd_args.get('radius', radius),
-        use_atomic_numbers=cmd_args.get('use_atomic_numbers', False),
-        rot=False, polar_hydrogens=cmd_args.get('hydrogens', False),
-        mode='val', model_task=trainer.model_task,
-        edge_radius=cmd_args.get('edge_radius', edge_radius),
-        estimate_bonds=cmd_args.get('estimate_bonds', estimate_bonds),
-        prune=cmd_args.get('prune', False), cache_dir=job['cache_dir'])
+    with span('pointvs.screen.dataset'):
+        loader = get_data_loader(
+            '/', rank_manifest, batch_size=batch_size,
+            compact=cmd_args.get('compact', True),
+            radius=cmd_args.get('radius', radius),
+            use_atomic_numbers=cmd_args.get('use_atomic_numbers', False),
+            rot=False, polar_hydrogens=cmd_args.get('hydrogens', False),
+            mode='val', model_task=trainer.model_task,
+            edge_radius=cmd_args.get('edge_radius', edge_radius),
+            estimate_bonds=cmd_args.get('estimate_bonds', estimate_bonds),
+            prune=cmd_args.get('prune', False), cache_dir=job['cache_dir'])
 
     dataset = loader.dataset
     host = None
@@ -455,98 +467,80 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
     if os.environ.get('POINTVS_SCREEN_DEVICE', '1') == '1' and not scan:
         store_path = None
         if job['cache_dir'] is not None:
-            store_path = _store_cache_path(
-                job['cache_dir'], rank_manifest, receptor, stripe, cmd_args,
-                dict(radius=radius, edge_radius=edge_radius,
-                     estimate_bonds=estimate_bonds))
-        host = _host_store(dataset, store_path)
-    if host is not None:
-        # Batch sizing from the store's size arrays.
-        nn = np.concatenate([[0], np.cumsum(host.num_nodes)])
-        ne = np.concatenate([[0], np.cumsum(host.num_edges)])
-        bounds = np.minimum(np.arange(0, len(host.num_nodes) + batch_size,
-                                      batch_size), len(host.num_nodes))
-        max_n = int(np.max(np.diff(nn[bounds]), initial=1))
-        max_e = int(np.max(np.diff(ne[bounds]), initial=1))
-    else:
-        # One pass over the library pins one bucket for the whole screen;
-        # it also builds every graph into the dataset's memory cache.
-        sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
-                 for i in range(len(dataset))]
-        max_n = max_e = 1
-        for lo in range(0, len(sizes), batch_size):
-            chunk = sizes[lo:lo + batch_size]
-            max_n = max(max_n, sum(s[0] for s in chunk))
-            max_e = max(max_e, sum(s[1] for s in chunk))
-    loader.node_buckets = [pick_bucket(max_n, loader.node_buckets)]
-    loader.edge_buckets = [pick_bucket(max_e, loader.edge_buckets)]
-    LOG.info(f'Screen bucket: {loader.node_buckets[0]} nodes x '
-             f'{loader.edge_buckets[0]} edges (max batch {max_n}/{max_e})')
-    featurised = time.perf_counter()
-
-    eval_fn = make_eval_step(trainer.model, trainer.model_task,
-                             multitask=trainer.multitask)
+            with span('pointvs.screen.cache_key'):
+                store_path = _store_cache_path(
+                    job['cache_dir'], rank_manifest, receptor, stripe,
+                    cmd_args, dict(radius=radius, edge_radius=edge_radius,
+                                   estimate_bonds=estimate_bonds))
+        with span('pointvs.screen.store_load'):
+            host = _host_store(dataset, store_path)
+    with span('pointvs.screen.bucket'):
+        max_n, max_e = _batch_sizes(host, dataset, batch_size)
+        loader.node_buckets = [pick_bucket(max_n, loader.node_buckets)]
+        loader.edge_buckets = [pick_bucket(max_e, loader.edge_buckets)]
+        LOG.info(f'Screen bucket: {loader.node_buckets[0]} nodes x '
+                 f'{loader.edge_buckets[0]} edges (max batch '
+                 f'{max_n}/{max_e})')
+        featurised = time.perf_counter()
+        eval_fn = make_eval_step(trainer.model, trainer.model_task,
+                                 multitask=trainer.multitask)
     path = 'streaming'
     if host is not None:
-        budget = float(os.environ.get('POINTVS_DD_BUDGET_MB', '2048')) * 1e6
-        chunk_mb = float(os.environ.get('POINTVS_SCREEN_CHUNK_MB', '0'))
-        chunked = _agreed_max(mesh, int(host.nbytes > budget
-                                        or bool(chunk_mb)), torch_device)
-        if not chunked:
-            loader.enable_device_dataset(DeviceGraphStore(host,
-                                                          torch_device))
-            path = 'resident'
-        else:
-            path = 'chunked'
+        with span('pointvs.screen.store_upload'):
+            budget = float(os.environ.get('POINTVS_DD_BUDGET_MB',
+                                          '2048')) * 1e6
+            chunk_mb = float(os.environ.get('POINTVS_SCREEN_CHUNK_MB', '0'))
+            chunked = _agreed_max(mesh, int(host.nbytes > budget
+                                            or bool(chunk_mb)), torch_device)
+            if not chunked:
+                loader.enable_device_dataset(DeviceGraphStore(host,
+                                                              torch_device))
+                path = 'resident'
+            else:
+                path = 'chunked'
     # The longest stripe's batches, on every rank: a shorter stripe
     # scores one more batch without a pose.
     calls = -(-(-(-len(lig_files) // mesh.n_dp)) // batch_size)
-    if path == 'chunked':
-        logits, metas = _score_chunked(host, chunk_mb * 1e6 or budget,
-                                       eval_fn, torch_device, batch_size,
-                                       mesh)
-    elif path == 'resident':
-        logits, metas = [], []
-        for batch, meta in loader:
-            logits.append(eval_fn(batch))
-            metas.append(meta)
-        for _ in range(calls - len(logits)):
-            eval_fn(('ids', np.full_like(batch[1], -1)) + batch[2:])
-    else:
-        scan_fn = (make_scan_eval_step(trainer.model, trainer.model_task,
-                                       multitask=trainer.multitask)
-                   if scan else None)
-        logits, metas = _score_streaming(loader, eval_fn, scan_fn,
-                                         torch_device, calls)
-    # One copy back, after every batch is dispatched.
-    drained = torch.stack(logits).float().cpu().numpy()
-    rows = []
-    for out, meta in zip(drained, metas):
-        scores = out[meta.graph_mask.reshape(-1) > 0]
-        if trainer.model_task == 'classification':
-            scores = 1 / (1 + np.exp(-scores[:, 0]))
+    with span('pointvs.screen.eval'):
+        if path == 'chunked':
+            logits, metas = _score_chunked(host, chunk_mb * 1e6 or budget,
+                                           eval_fn, torch_device,
+                                           batch_size, mesh)
+        elif path == 'resident':
+            logits, metas = [], []
+            for batch, meta in loader:
+                logits.append(eval_fn(batch))
+                metas.append(meta)
+            for _ in range(calls - len(logits)):
+                eval_fn(('ids', np.full_like(batch[1], -1)) + batch[2:])
         else:
-            scores = scores.mean(axis=1)
-        rows += [{'ligand': lig, 'score': float(score)}
-                 for lig, score in zip(meta.lig_fnames, scores)]
-    if mesh.distributed:
-        # Library order again: rank r's k-th row is pose r + k * D.
-        gathered = [None] * mesh.world
-        dist.all_gather_object(gathered, rows)
-        rows = [None] * len(lig_files)
-        for r, part in enumerate(gathered):
-            rows[r::mesh.world] = part
+            scan_fn = (make_scan_eval_step(trainer.model,
+                                           trainer.model_task,
+                                           multitask=trainer.multitask)
+                       if scan else None)
+            logits, metas = _score_streaming(loader, eval_fn, scan_fn,
+                                             torch_device, calls)
+    with span('pointvs.screen.drain'):
+        rows = _drain(logits, metas, trainer.model_task)
+        if mesh.distributed:
+            # Library order again: rank r's k-th row is pose r + k * D.
+            gathered = [None] * mesh.world
+            dist.all_gather_object(gathered, rows)
+            rows = [None] * len(lig_files)
+            for r, part in enumerate(gathered):
+                rows[r::mesh.world] = part
     scored = time.perf_counter()
 
-    rows.sort(key=lambda r: -r['score'])
-    for rank, row in enumerate(rows, start=1):
-        row['rank'] = rank
-    if mesh.chief:
-        with open(output, 'w', newline='', encoding='utf-8') as f:
-            writer = csv.DictWriter(f, fieldnames=('ligand', 'score',
-                                                   'rank'))
-            writer.writeheader()
-            writer.writerows(rows)
+    with span('pointvs.screen.rank_write'):
+        rows.sort(key=lambda r: -r['score'])
+        for rank, row in enumerate(rows, start=1):
+            row['rank'] = rank
+        if mesh.chief:
+            with open(output, 'w', newline='', encoding='utf-8') as f:
+                writer = csv.DictWriter(f, fieldnames=('ligand', 'score',
+                                                       'rank'))
+                writer.writeheader()
+                writer.writerows(rows)
     end = time.perf_counter()
     result = ScreenResult(rows, {
         'load': loaded - job['start'], 'featurise': featurised - loaded,
@@ -562,6 +556,44 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
                             cmd_args.get('edge_radius', edge_radius))
         result.seconds['attribute'] = time.perf_counter() - end
     return result
+
+
+def _batch_sizes(host, dataset, batch_size: int) -> tuple:
+    """The most nodes and edges of one batch of ``batch_size`` poses in
+    library order: from the store's size arrays, or else by one pass over
+    the library, which also builds every graph into the dataset's memory
+    cache. One bucket of that size is pinned for the whole screen."""
+    if host is not None:
+        nn = np.concatenate([[0], np.cumsum(host.num_nodes)])
+        ne = np.concatenate([[0], np.cumsum(host.num_edges)])
+        bounds = np.minimum(np.arange(0, len(host.num_nodes) + batch_size,
+                                      batch_size), len(host.num_nodes))
+        return (int(np.max(np.diff(nn[bounds]), initial=1)),
+                int(np.max(np.diff(ne[bounds]), initial=1)))
+    sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
+             for i in range(len(dataset))]
+    max_n = max_e = 1
+    for lo in range(0, len(sizes), batch_size):
+        chunk = sizes[lo:lo + batch_size]
+        max_n = max(max_n, sum(s[0] for s in chunk))
+        max_e = max(max_e, sum(s[1] for s in chunk))
+    return max_n, max_e
+
+
+def _drain(logits: list, metas: list, model_task: str) -> list:
+    """Every batch's scores of its real poses as ``{'ligand', 'score'}``
+    rows, after one copy back of all the batches' logits."""
+    drained = torch.stack(logits).float().cpu().numpy()
+    rows = []
+    for out, meta in zip(drained, metas):
+        scores = out[meta.graph_mask.reshape(-1) > 0]
+        if model_task == 'classification':
+            scores = 1 / (1 + np.exp(-scores[:, 0]))
+        else:
+            scores = scores.mean(axis=1)
+        rows += [{'ligand': lig, 'score': float(score)}
+                 for lig, score in zip(meta.lig_fnames, scores)]
+    return rows
 
 
 def _attribute_top_hits(trainer, receptor, hits, attribution_fn,

@@ -22,8 +22,11 @@ does. ``set_task`` switches the task,
 and with it the multitask model's head and the epoch counter that
 ``epoch`` reads (``p_epoch`` for pose, ``a_epoch`` for affinity).
 ``profile`` traces steps 3-8 of the first epoch with ``torch.profiler``
-into ``<save_path>/profile``. On a GPU every step is bracketed by CUDA
-events (``step_ms``); ``epoch_seconds`` holds each epoch's wall time.
+into ``<save_path>/profile``; the trace carries the port's spans
+(``tracing.py``: ``pointvs.train.*`` in ``train_model``, ``pointvs.step.*``
+in the step) beside the device's kernels, as does any caller's profiler.
+On a GPU every step is bracketed by CUDA events (``step_ms``);
+``epoch_seconds`` holds each epoch's wall time.
 
 ``double`` is the reference's ``Trainer(double=True)`` (``--double``):
 every float parameter, and so the optimiser state and the checkpoints, is
@@ -102,6 +105,7 @@ from pointvs_tpu_torch.ops.prng import step_key
 from pointvs_tpu_torch.parallel.mesh import Mesh, replicate
 from pointvs_tpu_torch.parallel.steps import is_ids_batch, \
     make_eval_step, make_train_step
+from pointvs_tpu_torch.tracing import span
 from pointvs_tpu_torch.training.checkpoints import checkpoint_path, \
     save_checkpoint
 from pointvs_tpu_torch.training.metrics_logger import MetricsLogger
@@ -124,6 +128,19 @@ def _slots(batch) -> int:
     if is_packed(batch):
         return num_graphs(batch[2])
     return batch.graph_mask.shape[0]
+
+
+def _timed_batches(loader):
+    """The loader's items, each fetched inside ``pointvs.train.next_batch``
+    (the first fetch runs the loader's ``__iter__`` set-up, the last finds
+    the end)."""
+    batches = iter(loader)
+    while True:
+        with span('pointvs.train.next_batch'):
+            item = next(batches, None)
+        if item is None:
+            return
+        yield item
 
 
 def _on_device(batch) -> bool:
@@ -443,15 +460,16 @@ class Trainer:
                     epoch_end_validation_set=None,
                     top1_on_end: bool = False):
         """Epoch/batch loop (ref ``train_model``)."""
-        init_epoch, start = self.training_setup(data_loader, epochs)
-        self._maybe_enable_device_dataset(data_loader)
-        if hasattr(data_loader, 'transfer_fn'):
-            data_loader.transfer_fn = self._to_device
-        step_fn = make_train_step(self.model, self.optimiser,
-                                  self.model_task, self.regression_loss,
-                                  with_metrics=True,
-                                  use_fused=self.fused_training,
-                                  multitask=self.multitask, mesh=self.mesh)
+        with span('pointvs.train.epoch_setup'):
+            init_epoch, start = self.training_setup(data_loader, epochs)
+            self._maybe_enable_device_dataset(data_loader)
+            if hasattr(data_loader, 'transfer_fn'):
+                data_loader.transfer_fn = self._to_device
+            step_fn = make_train_step(
+                self.model, self.optimiser, self.model_task,
+                self.regression_loss, with_metrics=True,
+                use_fused=self.fused_training, multitask=self.multitask,
+                mesh=self.mesh)
         timed = self.device.type == 'cuda'
         steps_per_epoch = len(data_loader)
         total_steps = max(1, (epochs - init_epoch) * steps_per_epoch)
@@ -461,7 +479,8 @@ class Trainer:
         for epoch_idx in range(init_epoch, epochs):
             epoch_start = time.time()
             losses, pending = [], []
-            for batch_idx, (batch, _) in enumerate(data_loader):
+            for batch_idx, (batch, _) in enumerate(
+                    _timed_batches(data_loader)):
                 prof = self._profiler(epoch_idx, init_epoch, batch_idx, prof)
                 lr_now = self.scheduler(sched_step)
                 dropout_rng = step_key(self.seed, self.global_iter,
@@ -474,7 +493,8 @@ class Trainer:
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                     events[0].record()
-                stats = step_fn(batch, lr_now, dropout_rng, rot_key)
+                with span('pointvs.train.step'):
+                    stats = step_fn(batch, lr_now, dropout_rng, rot_key)
                 if timed:
                     events[1].record()
                     self._step_events.append(events)
@@ -488,42 +508,52 @@ class Trainer:
                 last = batch_idx == steps_per_epoch - 1
                 if batch_idx % self.log_interval and not last:
                     continue
-                for p_idx, p_stats in pending:
-                    vec = p_stats.float().cpu().numpy().reshape(-1)
-                    loss_val = float(vec[0])
-                    losses.append(loss_val)
-                    self.train_losses.append(loss_val)
-                    if math.isnan(loss_val):
-                        LOG.error('We have hit a NaN loss value.')
-                        raise FloatingPointError(
-                            f'NaN loss at epoch {epoch_idx} batch {p_idx}')
-                    if vec[2] > 0:
-                        self.active_mean_pred = float(vec[1] / vec[2])
-                    if vec[4] > 0:
-                        self.decoy_mean_pred = float(vec[3] / vec[4])
-                pending.clear()
-                if not batch_idx % self.log_interval:
-                    eta = ((time.time() - start) / done_steps
-                           * (total_steps - done_steps))
-                    self._log_step(epoch_idx, batch_idx, steps_per_epoch,
-                                   epochs, losses[-1], lr_now,
-                                   _slots(batch), eta)
-            if prof is not None:   # an epoch shorter than the window
-                prof = self._stop_profiler(prof)
-            self.epoch_seconds.append(time.time() - epoch_start)
-            if not self.silent:
-                LOG.info(f'Epoch {epoch_idx + 1} done in '
-                         f'{self.epoch_seconds[-1]:.1f}s, mean loss '
-                         f'{np.mean(losses) if losses else float("nan"):.4f}')
-            dataset = getattr(data_loader, 'dataset', None)
-            if getattr(dataset, 'aug_rejects', 0):
-                self.logger.log({
-                    'Augmented rotation redraws (cumulative)':
-                        dataset.aug_rejects,
-                    'Augmented rotation fallbacks (cumulative)':
-                        dataset.aug_fallbacks})
-            self.on_epoch_end(epoch_end_validation_set, epochs, top1_on_end)
+                with span('pointvs.train.fetch_stats'):
+                    self._fetch_stats(pending, losses, epoch_idx)
+                    if not batch_idx % self.log_interval:
+                        eta = ((time.time() - start) / done_steps
+                               * (total_steps - done_steps))
+                        self._log_step(epoch_idx, batch_idx,
+                                       steps_per_epoch, epochs, losses[-1],
+                                       lr_now, _slots(batch), eta)
+            with span('pointvs.train.epoch_end'):
+                if prof is not None:   # an epoch shorter than the window
+                    prof = self._stop_profiler(prof)
+                self.epoch_seconds.append(time.time() - epoch_start)
+                if not self.silent:
+                    mean = np.mean(losses) if losses else float('nan')
+                    LOG.info(f'Epoch {epoch_idx + 1} done in '
+                             f'{self.epoch_seconds[-1]:.1f}s, mean loss '
+                             f'{mean:.4f}')
+                dataset = getattr(data_loader, 'dataset', None)
+                if getattr(dataset, 'aug_rejects', 0):
+                    self.logger.log({
+                        'Augmented rotation redraws (cumulative)':
+                            dataset.aug_rejects,
+                        'Augmented rotation fallbacks (cumulative)':
+                            dataset.aug_fallbacks})
+                self.on_epoch_end(epoch_end_validation_set, epochs,
+                                  top1_on_end)
         self._allreduce_ms += step_fn.allreduce_ms()
+
+    def _fetch_stats(self, pending: list, losses: list, epoch_idx: int):
+        """Copy the pending steps' stats to the host (the loop's one wait
+        for the device), record their losses and the mean predictions, and
+        stop at a NaN loss."""
+        for p_idx, p_stats in pending:
+            vec = p_stats.float().cpu().numpy().reshape(-1)
+            loss_val = float(vec[0])
+            losses.append(loss_val)
+            self.train_losses.append(loss_val)
+            if math.isnan(loss_val):
+                LOG.error('We have hit a NaN loss value.')
+                raise FloatingPointError(
+                    f'NaN loss at epoch {epoch_idx} batch {p_idx}')
+            if vec[2] > 0:
+                self.active_mean_pred = float(vec[1] / vec[2])
+            if vec[4] > 0:
+                self.decoy_mean_pred = float(vec[3] / vec[4])
+        pending.clear()
 
     def on_epoch_end(self, epoch_end_validation_set, epochs: int,
                      top1_on_end: bool):

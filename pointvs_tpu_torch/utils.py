@@ -1,4 +1,4 @@
-"""Host helpers: paths, yaml sidecars, checkpoint lookup, timers,
+"""Host helpers: paths, yaml sidecars, checkpoint lookup, time formatting,
 coordinate keys (``PositionDict``), a process fan-out and a shell call.
 
 Own copies of the helpers the port needs from the reference's
@@ -9,7 +9,6 @@ from __future__ import annotations
 import math
 import os
 import subprocess
-import time
 from pathlib import Path
 from typing import Any
 
@@ -109,26 +108,6 @@ def format_time(t) -> str:
         return '--:--:--'
     t = int(t)
     return f'{t // 3600:02d}:{(t % 3600) // 60:02d}:{t % 60:02d}'
-
-
-class Timer:
-    """Wall-clock context manager; prints ``name: HH:MM:SS`` on exit when
-    named."""
-
-    def __init__(self, name: str | None = None):
-        self.name = name
-        self.start = None
-        self.interval = 0.0
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.interval = time.perf_counter() - self.start
-        if self.name:
-            print(f'{self.name}: {format_time(self.interval)}')
-        return False
 
 
 def truncate_float(x: float, decimals: int = 3) -> float:
