@@ -93,6 +93,7 @@ import csv
 import glob
 import hashlib
 import os
+import re
 import tempfile
 import time
 from dataclasses import dataclass, field
@@ -126,6 +127,12 @@ LOG = get_logger()
 # stops (ROADMAP.md, Queue 3). It also leaves out --include_strain_info,
 # and scores such a run with dE = 0, as this screen does.
 UNSERVED_FLAGS = ('extended_atom_types', 'synthpharm')
+# What pathlib would rewrite in an absolute path: '//', a '.' part, a
+# trailing '/'.
+_UNNORMALISED = re.compile(r'//|/\.(/|$)|./$')
+# A directory opened only to stat its files by name (O_PATH needs no read
+# permission on it, as a stat by path needs none).
+_DIR_FLAGS = os.O_DIRECTORY | getattr(os, 'O_PATH', os.O_RDONLY)
 
 
 @dataclass
@@ -157,8 +164,64 @@ def _collect_ligands(ligands) -> list:
         found = sorted(glob.glob(str(ligands), recursive=True))
     else:
         found = [str(path)]
-    # The manifest resolves against '/', so its paths are absolute.
-    return [str(expand_path(p)) for p in found]
+    # The manifest resolves against '/', so its paths are absolute, each as
+    # expand_path gives it. A match already in that form (joined to the
+    # working directory where it is relative) is kept as it is, which
+    # spares a library of thousands three Path objects a file.
+    cwd = os.getcwd() if any(p[:1] != '/' for p in found) else ''
+    absolute = []
+    for p in found:
+        q = p if p[:1] == '/' else f'{cwd}/{p}'
+        if p[:1] == '~' or '$' in p or _UNNORMALISED.search(q):
+            q = str(expand_path(p))
+        absolute.append(q)
+    return absolute
+
+
+def _stat_files(paths: list) -> tuple:
+    """Each file's (size, mtime_ns), (0, 0) where it cannot be statted,
+    and the number of stat calls made: one a file, by its name against an
+    open descriptor of its directory, so that the directory's path is
+    looked up once and not once a file. Serial: threads sharing the calls
+    took longer on a file system that answers one stat at a time (9p,
+    PERF.md)."""
+    fingerprints = [(0, 0)] * len(paths)
+    by_dir = {}
+    for i, p in enumerate(paths):
+        head, sep, name = p.rpartition('/')
+        by_dir.setdefault(head or sep or '.', []).append((i, name))
+    made = 0
+    for head, files in by_dir.items():
+        try:
+            fd = os.open(head, _DIR_FLAGS)
+        except OSError:   # each file by its path then: it fails alike
+            fd, files = None, [(i, paths[i]) for i, _ in files]
+        try:
+            for i, name in files:
+                made += 1
+                try:
+                    st = os.stat(name, dir_fd=fd)
+                except OSError:
+                    continue
+                fingerprints[i] = (st.st_size, st.st_mtime_ns)
+        finally:
+            if fd is not None:
+                os.close(fd)
+    return fingerprints, made
+
+
+def _scan_library(ligands, receptor) -> tuple:
+    """One pass over the library: its files in screening order, the
+    (size, mtime_ns) of the receptor and then of each file in that order
+    (what keys the store cache), and the stat calls made, one a file.
+    The order is by name, then stably by size (a stat, not a parquet read,
+    a file): batches of similar poses waste less padding under the one
+    pinned bucket."""
+    files = _collect_ligands(ligands)
+    fingerprints, calls = _stat_files([str(receptor)] + files)
+    order = sorted(range(len(files)), key=lambda i: fingerprints[i + 1][0])
+    return ([files[i] for i in order],
+            fingerprints[:1] + [fingerprints[i + 1] for i in order], calls)
 
 
 def refuse_unserved(cmd_args: dict) -> None:
@@ -178,27 +241,13 @@ def refuse_unserved(cmd_args: dict) -> None:
             f'Queue 3)')
 
 
-def _file_size(path) -> int:
-    try:
-        return os.path.getsize(path)
-    except OSError:
-        return 0
-
-
-def _store_cache_path(cache_dir, manifest: Path, receptor, lig_files,
+def _store_cache_path(cache_dir, manifest: Path, fingerprints: list,
                       cmd_args: dict, defaults: dict) -> Path:
     """The store's file under ``cache_dir``: a digest of the manifest,
-    each input file's (size, mtime_ns) (a pose rewritten at its path
-    invalidates it) and the graph flags."""
-    def fingerprint(path):
-        try:
-            st = os.stat(path)
-            return st.st_size, st.st_mtime_ns
-        except OSError:
-            return 0, 0
-
-    params = (manifest.read_text(),
-              [fingerprint(p) for p in [receptor] + list(lig_files)],
+    the (size, mtime_ns) of its receptor and then of each of its ligand
+    files, as the library's scan found them (a pose rewritten at its path
+    invalidates it), and the graph flags."""
+    params = (manifest.read_text(), list(fingerprints),
               cmd_args.get('compact', True),
               cmd_args.get('radius', defaults['radius']),
               cmd_args.get('edge_radius', defaults['edge_radius']),
@@ -390,15 +439,15 @@ def screen(model_path, receptor, ligands, output='screen_results.csv',
     torch_device = resolve_device(device)
     start = time.perf_counter()
 
+    receptor = expand_path(receptor)
     with span('pointvs.screen.collect'):
-        lig_files = _collect_ligands(ligands)
+        lig_files, fingerprints, stat_calls = _scan_library(ligands,
+                                                            receptor)
         if not lig_files:
             raise SystemExit(f'No ligand files found under {ligands}')
-        # Size-sorted (a stat, not a parquet read, per file): batches of
-        # similar poses waste less padding under the one pinned bucket.
-        lig_files = sorted(lig_files, key=_file_size)
-    job = dict(model_path=model_path, receptor=expand_path(receptor),
-               lig_files=lig_files, output=Path(output),
+    job = dict(model_path=model_path, receptor=receptor,
+               lig_files=lig_files, fingerprints=fingerprints,
+               stat_calls=stat_calls, output=Path(output),
                batch_size=batch_size, radius=radius,
                edge_radius=edge_radius, estimate_bonds=estimate_bonds,
                attribute_top=attribute_top, attribution=attribution,
@@ -427,12 +476,16 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
     estimate_bonds = job['estimate_bonds']
     lig_files = job['lig_files']
     stripe = lig_files[mesh.dp_rank::mesh.n_dp]
+    fingerprints = job['fingerprints']
+    fingerprints = (fingerprints[:1]
+                    + fingerprints[1:][mesh.dp_rank::mesh.n_dp])
     batch_size = job['batch_size'] // mesh.n_dp
     manifest = output.with_suffix('.types')
     with span('pointvs.screen.load_model'):
         if mesh.chief:
             LOG.info(f'Screening {len(lig_files)} ligands against '
-                     f'{receptor.name}')
+                     f'{receptor.name} ({job["stat_calls"]} stat calls in '
+                     f'the library scan)')
             mkdir(output.parent if output.parent != Path('') else '.')
             manifest.write_text(''.join(f'{receptor} {lig}\n'
                                         for lig in lig_files))
@@ -469,7 +522,7 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
         if job['cache_dir'] is not None:
             with span('pointvs.screen.cache_key'):
                 store_path = _store_cache_path(
-                    job['cache_dir'], rank_manifest, receptor, stripe,
+                    job['cache_dir'], rank_manifest, fingerprints,
                     cmd_args, dict(radius=radius, edge_radius=edge_radius,
                                    estimate_bonds=estimate_bonds))
         with span('pointvs.screen.store_load'):

@@ -9,8 +9,12 @@ are in (sender, receiver) lexical order. At the three radii of
 ``tests/test_shared_receptor.py`` and in each configuration the JAX
 dataset takes its standard pipeline for (pruning, the whole-complex
 rotation, the ``bp`` filter, ``edge_radius < 0``).
-``_collect_ligands`` on a directory, a glob and one file gives the
-reference's list; ``single_item``'s batches equal the reference's.
+``_collect_ligands`` on a directory, a glob and one file, each absolute
+and relative, a recursive glob, a size tie and a missing file gives the
+reference's list, and the one-pass scan its size sort of it; the store
+cache's key from the scan's fingerprints is the key that a stat of each
+file gives, for the whole library and each stripe; a re-screen stats
+each file once; ``single_item``'s batches equal the reference's.
 
 The screen: ``pointvs_tpu_torch.screen.screen --device cpu`` against
 ``pointvs_tpu.screen.screen`` on the same run directory and a 5-ligand
@@ -31,6 +35,8 @@ POINTVS_SCREEN_SCAN=1, gives the ungrouped scores exactly and the JAX
 screen's within 1e-5.
 """
 import csv
+import os
+import re
 import shutil
 from pathlib import Path
 
@@ -158,15 +164,137 @@ def test_items_match_jax_and_the_standard_pipeline(library, case):
         assert port[0].num_edges == 0
 
 
-@pytest.mark.parametrize('kind', ['dir', 'glob', 'file'])
-def test_collect_ligands_matches_jax(library, kind):
+def _size(path):
+    """The JAX screen's size key: the file's size, 0 where it has none."""
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
+
+
+def _nested(lib, root):
+    """Poses of ``lib`` copied into three directories under ``root``, a
+    pose and its byte copy in two of them (a tie across directories)."""
+    for rel, name in [('pose_0', 'pose_0'), ('a/pose_1', 'pose_1'),
+                      ('a/b/pose_2', 'pose_2'), ('a/b/copy', 'copy_0')]:
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(lib / f'{name}.parquet', root / f'{rel}.parquet')
+    return str(root / '**' / '*.parquet')
+
+
+COLLECT = {   # kind -> (the argument, from the library and a scratch
+    # directory; whether it is relative to the library's parent; files)
+    'dir': (lambda lib, tmp: str(lib), False, N_POSES + 5),
+    'glob': (lambda lib, tmp: str(lib / 'pose_*.parquet'), False, N_POSES),
+    'file': (lambda lib, tmp: str(lib / 'copy_1.parquet'), False, 1),
+    'relative_dir': (lambda lib, tmp: lib.name, True, N_POSES + 5),
+    'relative_glob': (lambda lib, tmp: f'{lib.name}/pose_*.parquet', True,
+                      N_POSES),
+    'recursive_glob': (_nested, False, 4),
+    'size_tie': (lambda lib, tmp: str(lib / '[cp]o*_[01].parquet'), False,
+                 4),
+    'missing_file': (lambda lib, tmp: str(lib / 'absent.parquet'), False,
+                     1),
+}
+
+
+@pytest.mark.parametrize('kind', sorted(COLLECT))
+def test_collect_ligands_matches_jax(library, tmp_path, monkeypatch, kind):
+    """The name-sorted list is the JAX package's, and the scan's order is
+    the JAX screen's size sort of it (stable: ties keep name order)."""
     lib = library[0]
-    arg = {'dir': str(lib), 'glob': str(lib / 'pose_*.parquet'),
-           'file': str(lib / 'copy_1.parquet')}[kind]
+    make, relative, n = COLLECT[kind]
+    arg = make(lib, tmp_path)
+    if relative:
+        monkeypatch.chdir(lib.parent)
     got = port_screen._collect_ligands(arg)
     assert got == jax_collect(arg)
-    assert len(got) == {'dir': N_POSES + 5, 'glob': N_POSES,
-                        'file': 1}[kind]
+    assert len(got) == n
+    files, fingerprints, calls = port_screen._scan_library(
+        arg, RESOURCES / 'rec_0.parquet')
+    want = sorted(jax_collect(arg), key=_size)
+    assert files == want and calls == n + 1
+    assert [f[0] for f in fingerprints[1:]] == [_size(p) for p in want]
+    if kind in ('size_tie', 'recursive_glob'):
+        assert len(set(map(_size, want))) < n
+    if kind == 'missing_file':
+        assert fingerprints[1:] == [(0, 0)]
+
+
+@pytest.mark.parametrize('relative', [False, True])
+def test_stat_files_matches_a_stat_by_path(tmp_path, monkeypatch, relative):
+    """One stat a file against its directory's descriptor gives what a
+    stat by path gives, (0, 0) for a missing file and for one in a missing
+    directory; relative paths against the working directory."""
+    monkeypatch.chdir(tmp_path)
+    paths = []
+    for i in range(12):
+        path = Path('a' if i % 3 else 'b', f'{i}.parquet')
+        (tmp_path / path.parent).mkdir(exist_ok=True)
+        (tmp_path / path).write_bytes(b'x' * i)
+        paths.append(str(path if relative else tmp_path / path))
+    paths.append(f'{tmp_path}/top.parquet' if not relative else 'top.parquet')
+    (tmp_path / 'top.parquet').write_bytes(b'y')
+    absent = ['a/absent', 'c/absent']
+    paths += absent if relative else [f'{tmp_path}/{p}' for p in absent]
+    fingerprints, calls = port_screen._stat_files(paths)
+    assert calls == len(paths)
+    want = [(st.st_size, st.st_mtime_ns) for st in map(os.stat, paths[:13])]
+    assert fingerprints == want + [(0, 0), (0, 0)]
+
+
+def _parent_store_cache_path(cache_dir, manifest, receptor, lig_files,
+                             cmd_args, defaults):
+    """The store cache's file as the screen named it when its key took a
+    stat of each file itself (the formula that existing caches hold)."""
+    import hashlib
+
+    from pointvs_tpu_torch.data.device_dataset import STORE_FORMAT
+
+    def fingerprint(path):
+        try:
+            st = os.stat(path)
+            return st.st_size, st.st_mtime_ns
+        except OSError:
+            return 0, 0
+
+    params = (manifest.read_text(),
+              [fingerprint(p) for p in [receptor] + list(lig_files)],
+              cmd_args.get('compact', True),
+              cmd_args.get('radius', defaults['radius']),
+              cmd_args.get('edge_radius', defaults['edge_radius']),
+              cmd_args.get('estimate_bonds', defaults['estimate_bonds']),
+              cmd_args.get('prune', False),
+              cmd_args.get('use_atomic_numbers', False),
+              cmd_args.get('hydrogens', False), STORE_FORMAT)
+    digest = hashlib.sha1(repr(params).encode()).hexdigest()[:24]
+    return Path(cache_dir) / f'torch_store_{digest}.bin'
+
+
+@pytest.mark.parametrize('stripe', [None, 0, 1])
+def test_store_cache_key_from_the_scan_matches_a_stat_a_file(
+        library, tmp_path, stripe):
+    """The key made from the scan's fingerprints names the file that a
+    stat of each file names, for the whole library and each stripe of
+    two ranks, so that caches users already hold are still hit."""
+    lib = tmp_path / 'lib'
+    shutil.copytree(library[0], lib)
+    receptor = lib / 'rec_0.parquet'
+    for i, path in enumerate(sorted(lib.iterdir())):
+        os.utime(path, ns=(1_700_000_000_123_456_789 + i * 1_000_003,) * 2)
+    files, fingerprints, _ = port_screen._scan_library(
+        str(lib / '[cp]o*.parquet'), receptor)
+    if stripe is not None:
+        files = files[stripe::2]
+        fingerprints = fingerprints[:1] + fingerprints[1:][stripe::2]
+    manifest = tmp_path / 'stripe.types'
+    manifest.write_text(''.join(f'{receptor} {lig}\n' for lig in files))
+    args = (dict(radius=8, estimate_bonds=True),
+            dict(radius=10, edge_radius=4, estimate_bonds=False))
+    got = port_screen._store_cache_path(tmp_path, manifest, fingerprints,
+                                        *args)
+    assert got == _parent_store_cache_path(tmp_path, manifest, receptor,
+                                           files, *args)
 
 
 @pytest.mark.parametrize('pads', [(None, None), (512, 4096)],
@@ -517,6 +645,53 @@ def test_store_cache_reloads_and_invalidates(runs, tmp_path):
     changed = run('c')
     assert len(set(cache.glob('torch_store_*.bin'))) == 2
     assert _scores(changed) != _scores(first)
+
+
+def test_rescreen_stats_each_file_once(runs, tmp_path, monkeypatch):
+    """A re-screen of 64 files from ``--cache_dir`` makes 65 stat calls
+    on the library and the receptor, by path or by name against a
+    directory descriptor (``os.stat`` and ``os.path.getsize``): one a file,
+    as the screen's log line counts them."""
+    lib = tmp_path / 'lib'
+    lib.mkdir()
+    for i in range(64):
+        shutil.copy(RESOURCES / 'lig_0.parquet', lib / f'lig_{i:02d}.parquet')
+    receptor = tmp_path / 'rec_0.parquet'
+    shutil.copy(RESOURCES / 'rec_0.parquet', receptor)
+    targets = {os.path.realpath(p) for p in [receptor, *lib.iterdir()]}
+    job = dict(model_path=runs / 'pose', receptor=receptor,
+               ligands=str(lib / 'lig_*.parquet'),
+               output=str(tmp_path / 'hits.csv'), batch_size=32,
+               cache_dir=str(tmp_path / 'cache'), device='cpu')
+    port_screen.screen(**job)   # featurises the library, caches the store
+    real_stat = os.stat
+    counted, logged = [], []
+
+    def target(path, dir_fd):
+        path = os.fsdecode(os.fspath(path))
+        if dir_fd is not None:
+            path = os.path.join(os.readlink(f'/proc/self/fd/{dir_fd}'), path)
+        return os.path.realpath(path)
+
+    def stat(path, *, dir_fd=None, follow_symlinks=True):
+        if not isinstance(path, int) and target(path, dir_fd) in targets:
+            counted.append(path)
+        return real_stat(path, dir_fd=dir_fd, follow_symlinks=follow_symlinks)
+
+    def getsize(path):
+        if target(path, None) in targets:
+            counted.append(path)
+        return real_stat(path).st_size
+
+    monkeypatch.setattr(os, 'stat', stat)
+    monkeypatch.setattr(os.path, 'getsize', getsize)
+    monkeypatch.setattr(port_screen.LOG, 'info', logged.append)
+    result = port_screen.screen(**job)
+    monkeypatch.undo()
+    assert result.path == 'resident' and len(result.rows) == 64
+    assert len(counted) == 65
+    line = next(m for m in logged if m.startswith('Screening 64 ligands'))
+    assert int(re.search(r'\((\d+) stat calls', line).group(1)) == 65
 
 
 SCREEN_DP = {   # name -> (environment, ligand glob, strict GraphNorm)
