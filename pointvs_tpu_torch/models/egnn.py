@@ -42,6 +42,11 @@ model's root scope and ``randint`` to int32 max) or by an explicit
 ``dropout_seed``; ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``nn.remat``.
 
+Under a profiler (``tracing.py``) each message-passing layer of
+``embed`` is a span ``pointvs.model.layer``, and inside it the layer's
+aggregation (K2/K1 or their plain forms) is a span
+``pointvs.model.aggregate``.
+
 Scale-out (``parallel/``): ``edge_shard_axis`` is the process group a
 batch's edge list is split over (each rank holds one shard and the
 replicated nodes; every aggregation sums over the group), and
@@ -62,6 +67,7 @@ from pointvs_tpu_torch.ops.edge_dropout import undirected_edge_dropout
 from pointvs_tpu_torch.ops.graphnorm import GraphNorm
 from pointvs_tpu_torch.ops.prng import egnn_edge_dropout_seed
 from pointvs_tpu_torch.ops.segment import masked_graph_mean_pool
+from pointvs_tpu_torch.tracing import span
 
 EPSILON = 1e-8   # added to the detached norm when normalising coord_diff
 
@@ -185,9 +191,10 @@ class EGNNLayer(nn.Module):
             trans = coord_diff * self.coord_mlp(edge_feat)
             fused = (agg.fused_softmax_aggregate if self.softmax_attention
                      else agg.fused_sigmoid_aggregate)
-            agg_feats, coord_delta = fused(
-                edge_feat.to(coord.dtype), att_logits.to(coord.dtype),
-                trans, mask=edge_mask)
+            with span('pointvs.model.aggregate'):
+                agg_feats, coord_delta = fused(
+                    edge_feat.to(coord.dtype), att_logits.to(coord.dtype),
+                    trans, mask=edge_mask)
             agg_feats = agg_feats.to(h.dtype)
             coord = coord + coord_delta
         else:
@@ -203,12 +210,14 @@ class EGNNLayer(nn.Module):
                 messages = att_val * edge_feat
             if self.update_coords:
                 trans = coord_diff * self.coord_mlp(edge_feat)
-                agg_feats, coord_delta = agg.fused_sum_mean_to_src(
-                    messages.to(coord.dtype), trans, mask=edge_mask)
+                with span('pointvs.model.aggregate'):
+                    agg_feats, coord_delta = agg.fused_sum_mean_to_src(
+                        messages.to(coord.dtype), trans, mask=edge_mask)
                 agg_feats = agg_feats.to(h.dtype)
                 coord = coord + coord_delta
             else:
-                agg_feats = agg.sum_to_src(messages, mask=edge_mask)
+                with span('pointvs.model.aggregate'):
+                    agg_feats = agg.sum_to_src(messages, mask=edge_mask)
         if aux is not None:
             aux['intermediate_coords'] = coord
 
@@ -358,14 +367,16 @@ class SartorrasEGNN(nn.Module):
             args = (h, coord, edge_messages, agg, batch.edge_attr,
                     batch.edge_mask, batch.node_mask, batch.graph_id,
                     num_graphs)
-            if remat:
-                h, coord, edge_messages = checkpoint(layer, *args,
-                                                     use_reentrant=False)
-            elif aux_layers is not None:
-                aux_layers.append({})
-                h, coord, edge_messages = layer(*args, aux=aux_layers[-1])
-            else:
-                h, coord, edge_messages = layer(*args)
+            with span('pointvs.model.layer'):
+                if remat:
+                    h, coord, edge_messages = checkpoint(
+                        layer, *args, use_reentrant=False)
+                elif aux_layers is not None:
+                    aux_layers.append({})
+                    h, coord, edge_messages = layer(*args,
+                                                    aux=aux_layers[-1])
+                else:
+                    h, coord, edge_messages = layer(*args)
         return h
 
     def pool(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:

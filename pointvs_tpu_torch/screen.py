@@ -71,7 +71,10 @@ A profiler running in the caller sees the call as ten spans
 ``store_upload``, ``eval``, ``drain``, ``rank_write`` (the store's three
 only on the resident and chunked paths, the cache key only with
 ``--cache_dir``). In a re-screen from ``--cache_dir``, ``store_load`` is
-the cached store's read; in a first screen it is the featurisation.
+the cached store's read; in a first screen it is the featurisation. The
+profiler's run also keeps the counts ``pointvs.screen.real_edges`` (the
+library's edges) and ``pointvs.screen.padded_edges`` (the edges of the eval
+batches' buckets, every one of which each layer computes).
 
 Refused as runs the reference's screen stops on (``ValueError`` naming the flag):
 ``--extended_atom_types``, ``--synthpharm`` and the receptor/ligand pair
@@ -119,7 +122,7 @@ from pointvs_tpu_torch.parallel.launch import spawn
 from pointvs_tpu_torch.parallel.mesh import Mesh
 from pointvs_tpu_torch.parallel.steps import make_eval_step, \
     make_scan_eval_step
-from pointvs_tpu_torch.tracing import span
+from pointvs_tpu_torch.tracing import count, span
 from pointvs_tpu_torch.utils import expand_path, get_logger, mkdir
 
 LOG = get_logger()
@@ -349,6 +352,7 @@ def _score_chunked(host, chunk_budget: float, eval_fn, device,
     for _ in range(calls - len(logits)):
         eval_fn(('ids', np.full((1, num_graphs), -1, np.int32), arrays,
                  spec))
+    count('pointvs.screen.padded_edges', calls * e_bud)
     return logits, metas
 
 
@@ -573,6 +577,9 @@ def _screen_rank(torch_device, job: dict) -> ScreenResult:
                        if scan else None)
             logits, metas = _score_streaming(loader, eval_fn, scan_fn,
                                              torch_device, calls)
+        if path != 'chunked':
+            count('pointvs.screen.padded_edges',
+                  calls * loader.edge_buckets[0])
     with span('pointvs.screen.drain'):
         rows = _drain(logits, metas, trainer.model_task)
         if mesh.distributed:
@@ -615,12 +622,14 @@ def _batch_sizes(host, dataset, batch_size: int) -> tuple:
     """The most nodes and edges of one batch of ``batch_size`` poses in
     library order: from the store's size arrays, or else by one pass over
     the library, which also builds every graph into the dataset's memory
-    cache. One bucket of that size is pinned for the whole screen."""
+    cache. One bucket of that size is pinned for the whole screen. The
+    library's edges are kept as the count ``pointvs.screen.real_edges``."""
     if host is not None:
         nn = np.concatenate([[0], np.cumsum(host.num_nodes)])
         ne = np.concatenate([[0], np.cumsum(host.num_edges)])
         bounds = np.minimum(np.arange(0, len(host.num_nodes) + batch_size,
                                       batch_size), len(host.num_nodes))
+        count('pointvs.screen.real_edges', int(ne[-1]))
         return (int(np.max(np.diff(nn[bounds]), initial=1)),
                 int(np.max(np.diff(ne[bounds]), initial=1)))
     sizes = [(dataset[i].num_nodes, dataset[i].num_edges)
@@ -630,6 +639,7 @@ def _batch_sizes(host, dataset, batch_size: int) -> tuple:
         chunk = sizes[lo:lo + batch_size]
         max_n = max(max_n, sum(s[0] for s in chunk))
         max_e = max(max_e, sum(s[1] for s in chunk))
+    count('pointvs.screen.real_edges', sum(s[1] for s in sizes))
     return max_n, max_e
 
 

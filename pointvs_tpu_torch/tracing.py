@@ -13,7 +13,9 @@ loader's producer thread has no spans; the consumer's wait for it does
 While a profiler records, each closed span is also kept as ``(name,
 start_ns, end_ns)`` on ``time.perf_counter_ns`` (the newest ``KEPT``);
 ``take_spans`` hands them over and forgets them, as the kernels' launch
-counters are read in the process that ran them.
+counters are read in the process that ran them. ``count(name, value)``
+keeps a count the same way, only while a profiler records, and
+``take_counts`` hands the counts over.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from torch.autograd import _profiler_enabled
 KEPT = 1 << 16
 NO_SPAN = contextlib.nullcontext()
 _closed: deque = deque(maxlen=KEPT)
+_counts: deque = deque(maxlen=KEPT)
 
 
 class _Span:
@@ -62,4 +65,19 @@ def take_spans() -> list:
     ``(name, start_ns, end_ns)``; forgotten here once taken."""
     out = list(_closed)
     _closed.clear()
+    return out
+
+
+def count(name: str, value: int) -> None:
+    """Keep ``(name, value)`` while a profiler records on this thread;
+    nothing otherwise."""
+    if _profiler_enabled():
+        _counts.append((name, value))
+
+
+def take_counts() -> list:
+    """The counts kept while a profiler recorded, oldest first, as
+    ``(name, value)``; forgotten here once taken."""
+    out = list(_counts)
+    _counts.clear()
     return out

@@ -68,7 +68,8 @@ def test_span_without_a_profiler_is_the_shared_no_op(monkeypatch):
 def test_training_spans_nest_in_the_step(tmp_path):
     """Three steps of one epoch (batch 2 of 6 graphs, the store, the
     producer thread): one next_batch for each batch and one that finds
-    the end; the stats fetched at batch 0 and at the last batch."""
+    the end; the stats fetched at batch 0 and at the last batch; the
+    one-layer model's layer and its aggregation inside each forward."""
     trainer = Trainer('egnn', tmp_path / 'run', CPU, silent=True,
                       device_cache='on', **MODEL)
     loader = _loader(tmp_path, 6, 2)
@@ -84,11 +85,15 @@ def test_training_spans_nest_in_the_step(tmp_path):
         'pointvs.train.step': 3, 'pointvs.step.collate': 3,
         'pointvs.step.forward': 3, 'pointvs.step.backward': 3,
         'pointvs.step.optimiser': 3, 'pointvs.train.fetch_stats': 2,
-        'pointvs.train.epoch_end': 1}
+        'pointvs.train.epoch_end': 1, 'pointvs.model.layer': 3,
+        'pointvs.model.aggregate': 3}
     steps = [(a, b) for a, b, n in ranges if n == 'pointvs.train.step']
+    forwards = [(a, b) for a, b, n in ranges if n == 'pointvs.step.forward']
     for a, b, name in ranges:
         if name.startswith('pointvs.step.'):
             assert any(lo <= a and b <= hi for lo, hi in steps), name
+        if name.startswith('pointvs.model.'):
+            assert any(lo <= a and b <= hi for lo, hi in forwards), name
     kept = tracing.take_spans()
     assert sorted(n for n, _, _ in kept) == sorted(n for _, _, n in ranges)
     assert all(a <= b for _, a, b in kept)
